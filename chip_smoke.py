@@ -8,7 +8,9 @@ Phases:
 1. build every CUDA kernel of ``deeplearning4j_tpu_torch/csrc`` with nvcc;
 2. hold each kernel against its plain PyTorch version on the card, over the
    shapes of the main path and the edge cases of the masking model, and time
-   the kernel, the plain version and the nearest PyTorch library call;
+   the kernel, the plain version and the nearest PyTorch library call: the
+   flash forward at the serving shape [8,12,128,64] bf16, the two backward
+   kernels at the training shape [16,12,128,64] bf16;
 3. serve BERT-base (12 layers, d 768, vocab 30522, bf16, random weights from
    a seed): ``forward`` on tokens [8, 128], then a ragged key-padding
    request; every request must launch the flash kernel once per layer, and
@@ -16,7 +18,14 @@ Phases:
 4. generate with a causal model of BERT-base width through
    ``DecodeSlotPool(slots=4)``: 6 ragged prompts, 16 new tokens each; every
    prefill must go through the kernel, and the tokens must equal those of
-   the dense-attention path.
+   the dense-attention path;
+5. train BERT-base (fp32 parameters, bf16 compute, dropout 0) on the
+   ``bench.py`` batch: B=16, T=128, 19 sorted MLM positions, Adam(1e-4).
+   One float32 step through the kernels must match the dense-attention
+   step (loss and every gradient); every step must launch each of the three
+   kernels once per layer; 45 steps on one batch must lower a finite loss
+   (40 of them timed); a seeded dropout-0.1 step must repeat its loss; one
+   QA fine-tune step at [8,128] must be finite and go through the kernels.
 
 The line before the last is a JSON object describing each kernel (launch
 counts on the main path, error against the plain version, times and the
@@ -47,6 +56,17 @@ FP32_ATOL = 2e-5             # float32: only the order of the sums differs
 BF16_ULP_REL = 2.0 ** -7     # bf16 out: one bf16 ulp of the value ...
 BF16_ATOL = 1e-5             # ... plus float32 reordering near zero
 LSE_TOL = 1e-5               # relative, float32 lse
+# backward kernels vs plain version: float32 sums of up to 256 terms in
+# another order (and expf against torch.exp), so 1e-4 + 1e-4 relative;
+# bf16 gradients: one bf16 ulp of the value + 1e-4 near zero
+BWD_FP32_ATOL = 1e-4
+BWD_FP32_RTOL = 1e-4
+BWD_BF16_ATOL = 1e-4
+# train step at float32 compute, flash kernels vs dense attention: the loss
+# within 1e-5 relative; each gradient within 1e-3 of its L2 norm (float32
+# sums in another order through 12 layers of backward)
+TRAIN_LOSS_REL = 1e-5
+TRAIN_GRAD_REL = 1e-3
 # encoder logits, flash (float32 scores) vs dense path (bf16 scores and
 # softmax): both run bf16 matmuls and a bf16 residual stream over 12 layers
 ENCODER_LOGIT_ATOL = 0.1
@@ -125,7 +145,7 @@ def spread(times_ms) -> str:
     return text + f" (n={n})"
 
 
-def device_profile(tag, what, fn, reps=3):
+def device_profile(tag, what, fn, reps=3, top=6):
     """Where a request's time goes: torch.profiler over ``reps`` runs of
     ``fn``; prints the card's busy share of the host's wall time and the
     kernels that take most device time. The profiler's own host cost makes
@@ -152,7 +172,7 @@ def device_profile(tag, what, fn, reps=3):
     print(f"{tag} {what} profile ({reps} runs): wall {wall_us / reps / 1e3:.3f} ms/run, "
           f"device busy {busy_us / reps / 1e3:.3f} ms/run ({busy_us / wall_us:.1%}), "
           f"{len(device) // reps} device ops/run", flush=True)
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f"{tag}   {us / reps:9.1f} us/run {us / busy_us:6.1%}  {name[:100]}", flush=True)
 
 
@@ -258,25 +278,144 @@ def time_kernel(tag):
     ms = time_ms(lambda: A.flash_forward(q, k, v, None, None, False, scale, 0))
     plain_ms = time_ms(lambda: A.flash_forward_reference(q, k, v, None, None, False, scale, 0))
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(50):
-        A.flash_forward(q, k, v, None, None, False, scale, 0)
-    host_us = (time.perf_counter() - t0) / 50 * 1e6
-    torch.cuda.synchronize()
+    us = host_us(lambda: A.flash_forward(q, k, v, None, None, False, scale, 0))
     print(f"{tag} flash_fwd host time per wrapper call (launch included): "
-          f"{host_us:.1f} us", flush=True)
+          f"{us:.1f} us", flush=True)
     nbytes = 4 * B * H * T * D * q.element_size() + B * H * T * 4
     ops = 2 * 2 * B * H * T * T * D  # q k^T and p v
+    return report_timing(tag, f"flash_fwd at B={B} H={H} T={T} D={D} bf16", ms, plain_ms,
+                         library_ms, nbytes, ops, "sdpa")
+
+
+def report_timing(tag, what, ms, plain_ms, library_ms, nbytes, ops, library) -> dict:
+    """Print a kernel's times beside its bound: the larger of its bytes over
+    the card's memory rate and its operations over the bf16 peak."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S["bfloat16"] * 1e3
     bound_ms = max(t_bytes, t_ops)
-    print(f"{tag} flash_fwd at B={B} H={H} T={T} D={D} bf16: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms; bound {bound_ms * 1e3:.3f} us "
-          f"({nbytes} bytes -> {t_bytes * 1e3:.3f} us, {ops} ops -> {t_ops * 1e3:.3f} us)",
-          flush=True)
+    print(f"{tag} {what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {library} "
+          f"{library_ms:.4f} ms; bound {bound_ms * 1e3:.3f} us ({nbytes} bytes -> "
+          f"{t_bytes * 1e3:.3f} us, {ops} ops -> {t_ops * 1e3:.3f} us)", flush=True)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def host_us(fn, n=50) -> float:
+    """Host time of one call of ``fn`` (its launch included), averaged."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def _bwd_close(got, ref, dtype) -> bool:
+    import torch
+
+    diff = (got.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        tol = BWD_FP32_ATOL + BWD_FP32_RTOL * ref.float().abs()
+    else:
+        tol = BF16_ULP_REL * ref.float().abs() + BWD_BF16_ATOL
+    return bool((diff <= tol).all())
+
+
+def phase_backward_kernels(tag):
+    """Both backward kernels against the plain backward over the cases of
+    phase 2: the forward kernel's (out, lse) and an upstream gradient dO
+    (a transposed view where q/k/v are the strided views of ``_block``)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.kernels import attention as A
+
+    rs = np.random.RandomState(3)
+    for name, B, H, Tq, Tk, D, causal, kind in _kernel_cases():
+        for dtype in (torch.bfloat16, torch.float32):
+            strided = kind is None and Tq == Tk
+            q, k, v = _attention_inputs(rs, B, H, Tq, Tk, D, dtype, strided=strided)
+            do = torch.from_numpy(rs.randn(B, Tq, H, D).astype(np.float32)).to("cuda", dtype)
+            do = do.transpose(1, 2) if strided else do.transpose(1, 2).contiguous()
+            mask, seg = _masking(rs, kind, B, Tq, Tk)
+            qseg, kseg = A.attention_segments(mask, seg, B, Tq, Tk, q.device)
+            args = (qseg, kseg, causal, 1.0 / math.sqrt(D), Tk - Tq)
+            out, lse = A.flash_forward(q, k, v, *args)
+            got = A.flash_backward(q, k, v, out, lse, do, *args)
+            torch.cuda.synchronize()
+            ref = A.flash_backward_reference(q, k, v, out, lse, do, *args)
+            dt = str(dtype).split(".")[-1]
+            errs = []
+            for gname, g, r in zip(("dq", "dk", "dv"), got, ref):
+                check(g.dtype == dtype and g.shape == r.shape and g.is_contiguous(),
+                      f"backward {name} {dt}: {gname} {g.dtype} {tuple(g.shape)}")
+                check(torch.isfinite(g).all().item(), f"backward {name} {dt}: non-finite {gname}")
+                check(_bwd_close(g, r, dtype),
+                      f"backward kernel {name} {dt}: {gname} disagrees with the plain version")
+                errs.append((g.float() - r.float()).abs().max().item())
+            print(f"{tag} backward {name} {dt}: max|d-plain| dq {errs[0]:.3e} dk {errs[1]:.3e} "
+                  f"dv {errs[2]:.3e}", flush=True)
+
+
+def time_backward(tag):
+    """Both backward kernels at the BERT-base training shape: error against
+    the plain version, kernel, plain and host times, bounds, and the
+    library yardstick (the backward of scaled_dot_product_attention:
+    forward+backward minus forward)."""
+    import torch
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.kernels import attention as A
+
+    B, H, T, D = 16, 12, 128, 64
+    rs = np.random.RandomState(4)
+    dtype = torch.bfloat16
+    q, k, v = _attention_inputs(rs, B, H, T, T, D, dtype, strided=True)
+    do = torch.from_numpy(rs.randn(B, T, H, D).astype(np.float32)).to("cuda", dtype)
+    do = do.transpose(1, 2)  # as autograd hands it back through _block's reshape
+    scale = 1.0 / math.sqrt(D)
+    out, lse = A.flash_forward(q, k, v, None, None, False, scale, 0)
+    delta = A.flash_backward_delta(out, do)
+    args = (q, k, v, do, lse, delta, None, None, False, scale, 0)
+    dk, dv = A.flash_backward_dkv(*args)
+    dq = A.flash_backward_dq(*args)
+    torch.cuda.synchronize()
+    rdk, rdv = A.flash_backward_dkv_reference(*args)
+    rdq = A.flash_backward_dq_reference(*args)
+    for gname, g, r in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
+        check(_bwd_close(g, r, dtype), f"backward at the training shape: {gname} disagrees")
+    err = {"flash_bwd_dkv": max((dk.float() - rdk.float()).abs().max().item(),
+                                (dv.float() - rdv.float()).abs().max().item()),
+           "flash_bwd_dq": (dq.float() - rdq.float()).abs().max().item()}
+
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(qg, kg, vg, scale=scale))
+    sdpa_fwd_bwd = time_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qg, kg, vg, scale=scale), (qg, kg, vg), do))
+    library_ms = sdpa_fwd_bwd - sdpa_fwd
+    print(f"{tag} sdpa at the training shape: forward {sdpa_fwd:.4f} ms, forward+backward "
+          f"{sdpa_fwd_bwd:.4f} ms, backward {library_ms:.4f} ms (yardstick of both kernels)",
+          flush=True)
+    elem = q.element_size()
+    bhtd, bht = B * H * T * D, B * H * T
+    io_in = 4 * bhtd * elem + 2 * bht * 4  # q, dO, k, v; lse, delta
+    timings = {}
+    for name, fn, plain, nbytes, ops in (
+            ("flash_bwd_dkv", A.flash_backward_dkv, A.flash_backward_dkv_reference,
+             io_in + 2 * bhtd * elem, 8 * B * H * T * T * D),
+            ("flash_bwd_dq", A.flash_backward_dq, A.flash_backward_dq_reference,
+             io_in + bhtd * elem, 6 * B * H * T * T * D)):
+        ms = time_ms(lambda: fn(*args))
+        plain_ms = time_ms(lambda: plain(*args))
+        print(f"{tag} {name} host time per wrapper call (launch included): "
+              f"{host_us(lambda: fn(*args)):.1f} us; max|kernel-plain| {err[name]:.3e}",
+              flush=True)
+        timings[name] = {"max_abs_err": err[name], **report_timing(
+            tag, f"{name} at B={B} H={H} T={T} D={D} bf16", ms, plain_ms, library_ms,
+            nbytes, ops, "sdpa backward")}
+    return timings
 
 
 # ------------------------------------------------------------------ phase 3
@@ -406,6 +545,145 @@ def phase_generate(tag, launches):
     device_profile(tag, "decode step, slots=4 fp32", lambda: pool.step(), reps=5)
 
 
+# ------------------------------------------------------------------ phase 5
+
+
+def _counters():
+    from deeplearning4j_tpu_torch.kernels import attention as A
+
+    return {"flash_fwd": A.flash_forward, "flash_bwd_dkv": A.flash_backward_dkv,
+            "flash_bwd_dq": A.flash_backward_dq}
+
+
+def _zero_counts():
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def _read_counts():
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+def _mlm_batch(cfg, rs, B, T, P):
+    """``bench.py``'s BERT batch: random tokens, P sorted masked positions
+    per row (the TF-BERT layout), random labels, unit weights."""
+    positions = np.stack([np.sort(rs.choice(T, P, replace=False)) for _ in range(B)])
+    return {"tokens": rs.randint(0, cfg.vocab_size, (B, T)),
+            "mlm_positions": positions.astype(np.int64),
+            "labels": rs.randint(0, cfg.vocab_size, (B, P)),
+            "weights": np.ones((B, P), np.float32)}
+
+
+def _check_step_counts(what, counts, steps, n_layers):
+    want = {name: steps * n_layers for name in _counters()}
+    check(counts == want, f"{what}: kernel launches {counts}, expected {want}")
+
+
+def phase_train(tag, launches):
+    """BERT-base training through the three kernels (see the module
+    docstring). Returns the launches of each kernel on the main path."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+
+    B, T, P = 16, 128, 19
+    cfg = tfm.TransformerConfig.bert_base(max_len=T, dropout=0.0)
+    batch = _mlm_batch(cfg, np.random.RandomState(5), B, T, P)
+
+    # one float32 step: the kernels against dense attention, same weights
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    params = tfm.init_params(3, cfg32, device="cuda")
+    _zero_counts()
+    loss, grads = tfm.loss_and_grads(params, batch, cfg32)
+    _check_step_counts("fp32 step", _read_counts(), 1, cfg.n_layers)
+    ref_loss, ref_grads = tfm.loss_and_grads(
+        params, batch, dataclasses.replace(cfg32, attn_impl="xla"))
+    loss_rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    worst_name, worst = "", 0.0
+    for name, g in grads.items():
+        r = ref_grads[name]
+        check(torch.isfinite(g).all().item(), f"fp32 step: non-finite gradient {name}")
+        rel = ((g - r).norm() / r.norm().clamp(min=1e-30)).item() if r.norm() > 0 \
+            else g.norm().item()
+        if rel > worst:
+            worst_name, worst = name, rel
+    print(f"{tag} train fp32 step, flash kernels vs dense attention: loss {loss.item():.6f} vs "
+          f"{ref_loss.item():.6f} (rel {loss_rel:.2e}); largest gradient error "
+          f"{worst:.2e} of its norm ({worst_name}, {len(grads)} tensors)", flush=True)
+    check(loss_rel <= TRAIN_LOSS_REL, f"fp32 step: loss differs by {loss_rel:.2e} relative")
+    check(worst <= TRAIN_GRAD_REL, f"fp32 step: gradient {worst_name} differs by {worst:.2e}")
+    del params, grads, ref_grads
+
+    # the main path: bf16 compute, Adam, 45 steps on one batch (40 timed)
+    params = tfm.init_params(3, cfg, device="cuda")
+    updater = Adam(1e-4)
+    state = updater.init(params)
+    step = tfm.make_train_step(cfg, updater)
+    warmup, timed = 5, 40
+    losses, times = [], []
+    _zero_counts()
+    torch.cuda.synchronize()
+    for it in range(warmup + timed):
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, batch, it)
+        losses.append(loss.item())  # waits for the step
+        if it >= warmup:
+            times.append((time.perf_counter() - t0) * 1e3)
+    counts = _read_counts()
+    _check_step_counts("bf16 train steps", counts, warmup + timed, cfg.n_layers)
+    for name, n in counts.items():
+        launches[name].append(n)
+    check(all(math.isfinite(x) for x in losses), f"train: non-finite loss in {losses}")
+    check(losses[-1] < losses[0], f"train: loss did not fall ({losses[0]} -> {losses[-1]})")
+    ms = statistics.median(times)
+    print(f"{tag} train bf16 B={B} T={T} P={P} Adam: loss " + " ".join(
+        f"{x:.4f}" for x in losses), flush=True)
+    print(f"{tag} train step: {spread(times)}, {B * T / ms * 1e3:.0f} tokens/s at the median; "
+          f"launches per step {', '.join(f'{k} {v // (warmup + timed)}' for k, v in counts.items())}",
+          flush=True)
+    it = warmup + timed
+    device_profile(tag, f"train step [{B},{T}] bf16",
+                   lambda: step(params, state, batch, it), reps=3, top=12)
+    del params, state
+
+    # dropout 0.1 from a seeded generator: the same loss twice, another at 0
+    def one_step(c, generator):
+        prm = tfm.init_params(3, c, device="cuda")
+        upd = Adam(1e-4)
+        return tfm.make_train_step(c, upd)(prm, upd.init(prm), batch, 0, generator)[2].item()
+
+    drop = dataclasses.replace(cfg, dropout=0.1)
+    a = one_step(drop, torch.Generator(device="cuda").manual_seed(7))
+    b = one_step(drop, torch.Generator(device="cuda").manual_seed(7))
+    c = one_step(cfg, torch.Generator(device="cuda").manual_seed(7))
+    print(f"{tag} train dropout 0.1, generator seed 7: loss {a:.6f} and {b:.6f}; "
+          f"dropout 0: {c:.6f}", flush=True)
+    check(a == b, "dropout: one seed gave two losses")
+    check(a != c, "dropout 0.1 gave the loss of dropout 0")
+
+    # one QA fine-tune step at [8, 128]
+    qB = 8
+    rs = np.random.RandomState(6)
+    params = tfm.init_params(3, cfg, device="cuda")
+    qa = tfm.init_qa_head(4, cfg, device="cuda")
+    qa_batch = {"tokens": rs.randint(0, cfg.vocab_size, (qB, T)),
+                "segments": (np.arange(T)[None] >= 24).repeat(qB, 0).astype(np.int64),
+                "start_positions": rs.randint(24, T, qB), "end_positions": rs.randint(24, T, qB)}
+    updater = Adam(1e-4)
+    _zero_counts()
+    out = tfm.make_qa_train_step(cfg, updater)(params, qa, updater.init(params),
+                                               updater.init(qa), qa_batch, 0)
+    qa_loss = out[-1].item()
+    counts = _read_counts()
+    print(f"{tag} QA fine-tune step [{qB},{T}] bf16: loss {qa_loss:.6f}, launches {counts}",
+          flush=True)
+    check(math.isfinite(qa_loss), "QA step: non-finite loss")
+    _check_step_counts("QA step", counts, 1, cfg.n_layers)
+    check(all(torch.isfinite(p).all().item() for p in qa.parameters()),
+          "QA step: non-finite span head")
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -433,23 +711,40 @@ def main() -> int:
 
         errors = phase_kernels(tag)
         timing = time_kernel(tag)
+        phase_backward_kernels(tag)
+        bwd_timing = time_backward(tag)
         print("phase 2 kernel vs plain: ok", flush=True)
-        launches = []
-        phase_encoder(tag, launches)
+        launches = {"flash_fwd": [], "flash_bwd_dkv": [], "flash_bwd_dq": []}
+        phase_encoder(tag, launches["flash_fwd"])
         print("phase 3 encoder serving: ok", flush=True)
-        phase_generate(tag, launches)
+        phase_generate(tag, launches["flash_fwd"])
         print("phase 4 generation: ok", flush=True)
+        phase_train(tag, launches)
+        print("phase 5 training: ok", flush=True)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
 
     main_path = [e for (name, dt), e in errors.items() if name.startswith("bert_base")]
+    bwd = "deeplearning4j_tpu_torch/csrc/flash_bwd.cu"
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "deeplearning4j_tpu/kernels/attention.py:70",
-        "launches": sum(launches), "max_abs_err": max(main_path), **timing,
+        "launches": sum(launches["flash_fwd"]), "max_abs_err": max(main_path), **timing,
+    }, {
+        "name": "flash_bwd_dkv", "route": "cuda", "source": bwd,
+        "replaces": "deeplearning4j_tpu/kernels/attention.py:213",
+        "launches": sum(launches["flash_bwd_dkv"]), **bwd_timing["flash_bwd_dkv"],
+    }, {
+        "name": "flash_bwd_dq", "route": "cuda", "source": bwd,
+        "replaces": "deeplearning4j_tpu/kernels/attention.py:258",
+        "launches": sum(launches["flash_bwd_dq"]), **bwd_timing["flash_bwd_dq"],
     }]
+    check_failed = [k["name"] for k in kernels if k["launches"] < 1]
+    if check_failed:
+        print(f"FAIL: kernels never launched on the main path: {check_failed}", flush=True)
+        return 1
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

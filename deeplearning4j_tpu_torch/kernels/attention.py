@@ -15,12 +15,22 @@ One deliberate difference from the JAX package: user segment ids must be
 non-negative. There, negative ids collide with the -1/-2 sentinels of its
 pad shim; here they raise ``ValueError``.
 
-``flash_attention`` runs the CUDA kernel (``csrc/flash_fwd.cu``, replacing
-the TPU's ``_flash_kernel``) for CUDA tensors and its plain PyTorch version
-``flash_forward_reference`` for CPU tensors. A CUDA tensor gets the kernel
-or an exception; nothing falls back. The kernel needs no pad shim: it masks
-the ragged last tile itself. There is no backward yet (training is the next
-slice), so these functions are for inference.
+``flash_attention`` runs the CUDA kernels for CUDA tensors and their plain
+PyTorch versions for CPU tensors: the forward ``csrc/flash_fwd.cu``
+(replacing the TPU's ``_flash_kernel``) and, through a
+``torch.autograd.Function``, the two backward kernels of
+``csrc/flash_bwd.cu`` (replacing ``_flash_bwd_dkv_kernel`` and
+``_flash_bwd_dq_kernel``). A CUDA tensor gets the kernels or an exception;
+nothing falls back. The kernels need no pad shim: they mask the ragged last
+tile themselves.
+
+Rows with no live key. The forward gives such a row the uniform softmax
+over the Tk keys (out = mean of v) and lse = -1e30 + log Tk, which is -1e30
+in float32. Its gradient is that of ``mha_reference``: dq = 0, nothing
+flows to dk, and dv gains dO / Tk on every key. The JAX package's flash
+backward recomputes P = exp(-1e30 - lse) = 1 for such a row and is wrong
+there unless its pad shim zeroes dO; here both backward versions detect
+the row by ``lse <= -1e29`` (no live row comes near) and apply the rule.
 """
 
 from __future__ import annotations
@@ -35,6 +45,8 @@ import torch
 from . import _build
 
 _NEG_INF = -1e30
+# a row's lse at or below this means the row had no live key (see above)
+DEAD_ROW_LSE = -1e29
 # key-tile width of the plain blockwise version (the kernel's is the same)
 REFERENCE_BLOCK_K = 64
 # head dims the CUDA kernel is compiled for
@@ -95,17 +107,10 @@ def flash_forward_reference(q, k, v, qseg, kseg, causal: bool, scale: float,
     m = torch.full((B, H, Tq, 1), _NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((B, H, Tq, 1), dtype=torch.float32, device=q.device)
     acc = torch.zeros((B, H, Tq, D), dtype=torch.float32, device=q.device)
-    qpos = q_offset + torch.arange(Tq, device=q.device)[:, None]
     for k0 in range(0, Tk, REFERENCE_BLOCK_K):
         kt = kf[:, :, k0:k0 + REFERENCE_BLOCK_K]
         vt = vf[:, :, k0:k0 + REFERENCE_BLOCK_K]
-        s = torch.einsum("bhqd,bhkd->bhqk", qf, kt) * scale
-        if causal:
-            kpos = k0 + torch.arange(kt.shape[2], device=q.device)[None, :]
-            s = torch.where(qpos >= kpos, s, _NEG_INF)
-        if qseg is not None:
-            same = qseg[:, :, None] == kseg[:, None, k0:k0 + REFERENCE_BLOCK_K]
-            s = torch.where(same[:, None], s, _NEG_INF)
+        s = _tile_scores(qf, kt, k0, qseg, kseg, causal, scale, q_offset)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         corr = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
@@ -115,22 +120,163 @@ def flash_forward_reference(q, k, v, qseg, kseg, causal: bool, scale: float,
     return (acc / l).to(q.dtype), (m + torch.log(l))[..., 0]
 
 
-_flash_fn = None
+def _tile_scores(qf, kt, k0, qseg, kseg, causal, scale, q_offset):
+    """float32 scores [B,H,Tq,bk] of q against the key tile that starts at
+    ``k0``, masked to -1e30 (causal, segment ids)."""
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kt) * scale
+    if causal:
+        qpos = q_offset + torch.arange(qf.shape[2], device=qf.device)[:, None]
+        kpos = k0 + torch.arange(kt.shape[2], device=qf.device)[None, :]
+        s = torch.where(qpos >= kpos, s, _NEG_INF)
+    if qseg is not None:
+        same = qseg[:, :, None] == kseg[:, None, k0:k0 + kt.shape[2]]
+        s = torch.where(same[:, None], s, _NEG_INF)
+    return s
 
 
-def _flash_kernel_fn():
-    global _flash_fn
-    if _flash_fn is None:
-        lib = _build.library("flash_fwd")
-        fn = lib.tdl_flash_fwd
+def flash_backward_delta(out, do) -> torch.Tensor:
+    """delta = rowsum(dO * O), [B,H,Tq] float32: computed before the backward
+    kernels, as the JAX package computes it in XLA (attention.py:312)."""
+    return (do.float() * out.float()).sum(dim=-1).contiguous()
+
+
+def _bwd_tile(qf, dof, kt, vt, k0, lse, delta, qseg, kseg, causal, scale, q_offset):
+    """(P, dS) of one key tile, float32 [B,H,Tq,bk]: P = exp(S - lse)
+    recomputed from the saved lse (0 on rows with no live key) and
+    dS = P * (dO V^T - delta) * scale."""
+    s = _tile_scores(qf, kt, k0, qseg, kseg, causal, scale, q_offset)
+    p = torch.where(lse[..., None] <= DEAD_ROW_LSE, 0.0, torch.exp(s - lse[..., None]))
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vt)
+    return p, p * (dp - delta[..., None]) * scale
+
+
+def flash_backward_dkv_reference(q, k, v, do, lse, delta, qseg, kseg, causal: bool,
+                                 scale: float, q_offset: int):
+    """Plain PyTorch version of the dk/dv kernel: for each 64-key tile,
+    dV = P^T dO and dK = dS^T Q over all query rows, in float32. A row with
+    no live key adds dO / Tk to dV on every key and nothing to dK. Returns
+    (dk, dv) in k's and v's dtypes."""
+    Tk = k.shape[2]
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    dk, dv = torch.empty_like(kf), torch.empty_like(vf)
+    dead = (lse <= DEAD_ROW_LSE)[..., None]
+    dead_dv = torch.where(dead, dof, 0.0).sum(dim=2, keepdim=True) / Tk
+    for k0 in range(0, Tk, REFERENCE_BLOCK_K):
+        k1 = min(Tk, k0 + REFERENCE_BLOCK_K)
+        p, ds = _bwd_tile(qf, dof, kf[:, :, k0:k1], vf[:, :, k0:k1], k0, lse, delta,
+                          qseg, kseg, causal, scale, q_offset)
+        dv[:, :, k0:k1] = torch.einsum("bhqk,bhqd->bhkd", p, dof) + dead_dv
+        dk[:, :, k0:k1] = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_backward_dq_reference(q, k, v, do, lse, delta, qseg, kseg, causal: bool,
+                                scale: float, q_offset: int):
+    """Plain PyTorch version of the dq kernel: dQ = sum over 64-key tiles of
+    dS K, in float32 (0 on rows with no live key). Returns dq in q's dtype."""
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    dq = torch.zeros_like(qf)
+    for k0 in range(0, k.shape[2], REFERENCE_BLOCK_K):
+        kt = kf[:, :, k0:k0 + REFERENCE_BLOCK_K]
+        _, ds = _bwd_tile(qf, dof, kt, vf[:, :, k0:k0 + REFERENCE_BLOCK_K], k0, lse, delta,
+                          qseg, kseg, causal, scale, q_offset)
+        dq += torch.einsum("bhqk,bhkd->bhqd", ds, kt)
+    return dq.to(q.dtype)
+
+
+def flash_backward_reference(q, k, v, out, lse, do, qseg, kseg, causal: bool,
+                             scale: float, q_offset: int):
+    """Plain PyTorch version of the flash backward (both kernels): the
+    gradients (dq, dk, dv) of ``out`` for the upstream gradient ``do``, from
+    the forward's ``out`` and ``lse``, in the inputs' dtypes."""
+    delta = flash_backward_delta(out, do)
+    args = (q, k, v, do, lse, delta, qseg, kseg, causal, scale, q_offset)
+    dk, dv = flash_backward_dkv_reference(*args)
+    return flash_backward_dq_reference(*args), dk, dv
+
+
+_kernel_fns = {}
+
+
+def _kernel_fn(stem: str, name: str, n_ptrs: int, n_strides: int):
+    """The ctypes binding of ``name`` in ``csrc/<stem>.cu`` (built at first
+    use), whose arguments are ``n_ptrs`` pointers, B, H, Tq, Tk, D, dtype,
+    ``n_strides`` element strides, causal, scale, q_offset and the stream;
+    and that library's error-string function."""
+    key = (stem, name)
+    if key not in _kernel_fns:
+        lib = _build.library(stem)
+        fn = getattr(lib, name)
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = ([ptr] * 7 + [i32] * 6 + [i64] * 9
+        fn.argtypes = ([ptr] * n_ptrs + [i32] * 6 + [i64] * n_strides
                        + [i32, ctypes.c_float, i32, ptr])
         fn.restype = i32
         lib.tdl_cuda_error_string.argtypes = [i32]
         lib.tdl_cuda_error_string.restype = ctypes.c_char_p
-        _flash_fn = (fn, lib.tdl_cuda_error_string)
-    return _flash_fn
+        _kernel_fns[key] = (fn, lib.tdl_cuda_error_string)
+    return _kernel_fns[key]
+
+
+def _check_kernel_inputs(name: str, q, k, v, qseg, kseg, more=()):
+    """The checks every attention kernel's wrapper makes; ``more`` are
+    further tensors shaped and typed like q (the backward's dO). Returns
+    (B, H, Tq, Tk, D)."""
+    if (qseg is None) != (kseg is None):
+        raise ValueError("qseg and kseg come together")
+    tensors = [q, k, v, *more] + ([qseg, kseg] if qseg is not None else [])
+    if not all(t.is_cuda and t.device == q.device for t in tensors):
+        raise ValueError(f"{name} needs every tensor on one CUDA device")
+    dtypes = [t.dtype for t in (q, k, v, *more)]
+    if q.dtype not in _KERNEL_DTYPES or any(d != q.dtype for d in dtypes):
+        raise TypeError(f"{name} takes float32 or bfloat16 q/k/v of one dtype; "
+                        f"got {', '.join(str(d) for d in dtypes)}")
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"{name} takes q/k/v of shape [B, H, T, D]")
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    if tuple(k.shape) != (B, H, Tk, D) or v.shape != k.shape:
+        raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if any(t.shape != q.shape for t in more):
+        raise ValueError(f"{name}: the upstream gradient must be shaped like q "
+                         f"{tuple(q.shape)}")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head dim {D} not supported by the kernel "
+                         f"(one of {KERNEL_HEAD_DIMS})")
+    if Tq < 1 or Tk < 1 or B * H > 65535:
+        raise ValueError(f"{name} needs Tq, Tk >= 1 and B*H <= 65535; "
+                         f"got Tq={Tq}, Tk={Tk}, B*H={B * H}")
+    if any(t.stride(-1) != 1 for t in (q, k, v, *more)):
+        raise ValueError(f"{name} needs q/k/v with a contiguous last axis")
+    if qseg is not None:
+        if qseg.dtype != torch.int32 or kseg.dtype != torch.int32:
+            raise TypeError("segment ids must be int32")
+        if tuple(qseg.shape) != (B, Tq) or tuple(kseg.shape) != (B, Tk):
+            raise ValueError(f"segment ids must be [B,Tq]/[B,Tk]; got "
+                             f"{tuple(qseg.shape)}/{tuple(kseg.shape)}")
+        if not (qseg.is_contiguous() and kseg.is_contiguous()):
+            raise ValueError("segment ids must be contiguous")
+    return B, H, Tq, Tk, D
+
+
+def _launch(stem: str, name: str, pointers, strided, shape, dtype, causal, scale,
+            q_offset, device) -> None:
+    """Call ``name`` of ``csrc/<stem>.cu`` on the current stream with the
+    pointers, then B, H, Tq, Tk, D and the dtype code, then the (b, h, t)
+    strides of each tensor of ``strided``; raises if the launch fails."""
+    strides = [s for t in strided for s in (t.stride(0), t.stride(1), t.stride(2))]
+    fn, err_str = _kernel_fn(stem, name, len(pointers), len(strides))
+    # the launch goes to the current device's context: switch only if needed
+    on_current = device.index == torch.cuda.current_device()
+    with contextlib.nullcontext() if on_current else torch.cuda.device(device):
+        rc = fn(*pointers, *shape, _KERNEL_DTYPES[dtype], *strides, int(bool(causal)),
+                float(scale), int(q_offset), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: {err_str(rc).decode()} ({rc})")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def flash_forward(q, k, v, qseg, kseg, causal: bool, scale: float,
@@ -142,60 +288,107 @@ def flash_forward(q, k, v, qseg, kseg, causal: bool, scale: float,
     last axis (other strides are passed to the kernel), head dim in
     ``KERNEL_HEAD_DIMS``. Raises on anything else, and when the launch
     fails. ``flash_forward.launches`` counts the launches."""
-    if (qseg is None) != (kseg is None):
-        raise ValueError("qseg and kseg come together")
-    tensors = [q, k, v] + ([qseg, kseg] if qseg is not None else [])
-    if not all(t.is_cuda and t.device == q.device for t in tensors):
-        raise ValueError("flash_forward needs every tensor on one CUDA device")
-    if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_forward takes float32 or bfloat16 q/k/v of one "
-                        f"dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.dim() != 4 or k.dim() != 4:
-        raise ValueError("flash_forward takes q/k/v of shape [B, H, T, D]")
-    B, H, Tq, D = q.shape
-    Tk = k.shape[2]
-    if tuple(k.shape) != (B, H, Tk, D) or v.shape != k.shape:
-        raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do not "
-                         f"match q {tuple(q.shape)}")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head dim {D} not supported by the kernel "
-                         f"(one of {KERNEL_HEAD_DIMS})")
-    if Tq < 1 or Tk < 1 or B * H > 65535:
-        raise ValueError(f"flash_forward needs Tq, Tk >= 1 and B*H <= 65535; "
-                         f"got Tq={Tq}, Tk={Tk}, B*H={B * H}")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("flash_forward needs q/k/v with a contiguous last axis")
-    if qseg is not None:
-        if qseg.dtype != torch.int32 or kseg.dtype != torch.int32:
-            raise TypeError("segment ids must be int32")
-        if tuple(qseg.shape) != (B, Tq) or tuple(kseg.shape) != (B, Tk):
-            raise ValueError(f"segment ids must be [B,Tq]/[B,Tk]; got "
-                             f"{tuple(qseg.shape)}/{tuple(kseg.shape)}")
-        if not (qseg.is_contiguous() and kseg.is_contiguous()):
-            raise ValueError("segment ids must be contiguous")
-    fn, err_str = _flash_kernel_fn()
+    B, H, Tq, Tk, D = _check_kernel_inputs("flash_forward", q, k, v, qseg, kseg)
     out = torch.empty((B, H, Tq, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
-    # the launch goes to the current device's context: switch only if needed
-    on_current = q.device.index == torch.cuda.current_device()
-    with contextlib.nullcontext() if on_current else torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                None if qseg is None else qseg.data_ptr(),
-                None if kseg is None else kseg.data_ptr(),
-                out.data_ptr(), lse.data_ptr(), B, H, Tq, Tk, D,
-                _KERNEL_DTYPES[q.dtype],
-                q.stride(0), q.stride(1), q.stride(2),
-                k.stride(0), k.stride(1), k.stride(2),
-                v.stride(0), v.stride(1), v.stride(2),
-                int(bool(causal)), float(scale), int(q_offset),
-                torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_fwd launch failed: {err_str(rc).decode()} ({rc})")
+    _launch("flash_fwd", "tdl_flash_fwd",
+            [q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(qseg), _ptr(kseg),
+             out.data_ptr(), lse.data_ptr()],
+            (q, k, v), (B, H, Tq, Tk, D), q.dtype, causal, scale, q_offset, q.device)
     flash_forward.launches += 1
     return out, lse
 
 
 flash_forward.launches = 0
+
+
+def _check_row_stats(lse, delta, B, H, Tq):
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.dtype != torch.float32 or tuple(t.shape) != (B, H, Tq)
+                or not t.is_contiguous() or t.device != lse.device):
+            raise ValueError(f"{name} must be a contiguous float32 [B,H,Tq] tensor on "
+                             f"the inputs' device; got {t.dtype} {tuple(t.shape)}")
+
+
+def flash_backward_dkv(q, k, v, do, lse, delta, qseg, kseg, causal: bool,
+                       scale: float, q_offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA dk/dv kernel (``csrc/flash_bwd.cu``, replacing the
+    TPU's ``_flash_bwd_dkv_kernel``). Same arguments and results as
+    :func:`flash_backward_dkv_reference`, for CUDA tensors only (checked as
+    in :func:`flash_forward`; ``do`` like q, ``lse``/``delta`` contiguous
+    float32 [B,H,Tq]). ``flash_backward_dkv.launches`` counts the launches."""
+    B, H, Tq, Tk, D = _check_kernel_inputs("flash_backward_dkv", q, k, v, qseg, kseg, (do,))
+    _check_row_stats(lse, delta, B, H, Tq)
+    dk = torch.empty((B, H, Tk, D), dtype=k.dtype, device=k.device)
+    dv = torch.empty((B, H, Tk, D), dtype=v.dtype, device=v.device)
+    _launch("flash_bwd", "tdl_flash_bwd_dkv",
+            [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+             delta.data_ptr(), _ptr(qseg), _ptr(kseg), dk.data_ptr(), dv.data_ptr()],
+            (q, k, v, do), (B, H, Tq, Tk, D), q.dtype, causal, scale, q_offset, q.device)
+    flash_backward_dkv.launches += 1
+    return dk, dv
+
+
+flash_backward_dkv.launches = 0
+
+
+def flash_backward_dq(q, k, v, do, lse, delta, qseg, kseg, causal: bool,
+                      scale: float, q_offset: int) -> torch.Tensor:
+    """Launch the CUDA dq kernel (``csrc/flash_bwd.cu``, replacing the TPU's
+    ``_flash_bwd_dq_kernel``). Same arguments and result as
+    :func:`flash_backward_dq_reference`, for CUDA tensors only (checked as
+    in :func:`flash_backward_dkv`). ``flash_backward_dq.launches`` counts
+    the launches."""
+    B, H, Tq, Tk, D = _check_kernel_inputs("flash_backward_dq", q, k, v, qseg, kseg, (do,))
+    _check_row_stats(lse, delta, B, H, Tq)
+    dq = torch.empty((B, H, Tq, D), dtype=q.dtype, device=q.device)
+    _launch("flash_bwd", "tdl_flash_bwd_dq",
+            [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+             delta.data_ptr(), _ptr(qseg), _ptr(kseg), dq.data_ptr()],
+            (q, k, v, do), (B, H, Tq, Tk, D), q.dtype, causal, scale, q_offset, q.device)
+    flash_backward_dq.launches += 1
+    return dq
+
+
+flash_backward_dq.launches = 0
+
+
+def flash_backward(q, k, v, out, lse, do, qseg, kseg, causal: bool, scale: float,
+                   q_offset: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The flash backward on the card: delta as a PyTorch reduction, then
+    the dk/dv kernel and the dq kernel. Same arguments and results as
+    :func:`flash_backward_reference`. Neither kernel uses atomics, so the
+    gradients are the same bits from run to run."""
+    delta = flash_backward_delta(out, do)
+    args = (q, k, v, do, lse, delta, qseg, kseg, causal, scale, q_offset)
+    dk, dv = flash_backward_dkv(*args)
+    return flash_backward_dq(*args), dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Flash attention with its backward, the counterpart of the JAX
+    package's ``custom_vjp`` (attention.py:179-189, :403). ``apply(q, k, v,
+    qseg, kseg, causal, scale, q_offset)`` returns (out, lse); lse carries
+    no gradient. CUDA tensors go through the kernels, CPU tensors through
+    the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, qseg, kseg, causal, scale, q_offset):
+        fwd = flash_forward if q.is_cuda else flash_forward_reference
+        out, lse = fwd(q, k, v, qseg, kseg, causal, scale, q_offset)
+        ctx.save_for_backward(q, k, v, out, lse, qseg, kseg)
+        ctx.attrs = (causal, scale, q_offset)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, _lse_grad):
+        q, k, v, out, lse, qseg, kseg = ctx.saved_tensors
+        if do.stride(-1) != 1:  # e.g. the expanded gradient of a sum
+            do = do.contiguous()
+        bwd = flash_backward if q.is_cuda else flash_backward_reference
+        dq, dk, dv = bwd(q, k, v, out, lse, do, qseg, kseg, *ctx.attrs)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def _segment_ids(segment_ids, B, Tq, Tk, device):
@@ -239,7 +432,7 @@ def attention_segments(mask, segment_ids, B: int, Tq: int, Tk: int, device):
 
 def flash_attention(q, k, v, mask=None, *, segment_ids=None, causal: bool = False,
                     scale: Optional[float] = None, return_lse: bool = False):
-    """Flash attention forward: O(T) memory, no [Tq, Tk] matrix in memory.
+    """Flash attention: O(T) memory both ways, no [Tq, Tk] matrix in memory.
 
     ``mask``: key padding mask [B, Tk] (or [B,1,1,Tk]), nonzero = attend.
     ``segment_ids``: int32 [B, T] (or a (qseg, kseg) pair) restricting
@@ -249,8 +442,10 @@ def flash_attention(q, k, v, mask=None, *, segment_ids=None, causal: bool = Fals
     original keys. ``return_lse=True`` also returns the per-row logsumexp
     [B, H, Tq] in float32.
 
-    CUDA tensors go through the CUDA kernel (:func:`flash_forward`), CPU
-    tensors through :func:`flash_forward_reference`."""
+    Differentiable in q, k and v (:class:`FlashAttentionFunction`). CUDA
+    tensors go through the CUDA kernels (:func:`flash_forward`, and
+    :func:`flash_backward` for the gradients), CPU tensors through their
+    plain versions."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes q/k/v of shape [B, H, T, D]")
     B, H, Tq, D = q.shape
@@ -260,9 +455,7 @@ def flash_attention(q, k, v, mask=None, *, segment_ids=None, causal: bool = Fals
     qseg, kseg = attention_segments(mask, segment_ids, B, Tq, Tk, q.device)
     if q.is_cuda:
         q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
-        out, lse = flash_forward(q, k, v, qseg, kseg, causal, scale, Tk - Tq)
-    else:
-        out, lse = flash_forward_reference(q, k, v, qseg, kseg, causal, scale, Tk - Tq)
+    out, lse = FlashAttentionFunction.apply(q, k, v, qseg, kseg, causal, scale, Tk - Tq)
     return (out, lse) if return_lse else out
 
 

@@ -1,4 +1,4 @@
-"""Models of the port: the flagship BERT-base transformer (serving path)."""
+"""Models of the port: the flagship BERT-base transformer (serving and training)."""
 
 from .transformer import (
     DecodeSlotPool,
@@ -9,8 +9,20 @@ from .transformer import (
     generate,
     init_params,
     init_qa_head,
+    loss_and_grads,
+    loss_fn,
+    make_qa_train_step,
+    make_train_step,
+    qa_loss_fn,
+    token_ce_loss,
 )
-from .weights import params_from_jax, params_to_numpy, qa_params_from_jax
+from .weights import (
+    params_from_jax,
+    params_to_numpy,
+    qa_params_from_jax,
+    updater_state_from_jax,
+    updater_state_to_numpy,
+)
 
 __all__ = [
     "DecodeSlotPool",
@@ -21,7 +33,15 @@ __all__ = [
     "generate",
     "init_params",
     "init_qa_head",
+    "loss_and_grads",
+    "loss_fn",
+    "make_qa_train_step",
+    "make_train_step",
     "params_from_jax",
     "params_to_numpy",
+    "qa_loss_fn",
     "qa_params_from_jax",
+    "token_ce_loss",
+    "updater_state_from_jax",
+    "updater_state_to_numpy",
 ]

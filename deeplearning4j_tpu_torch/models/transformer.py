@@ -1,4 +1,4 @@
-"""Flagship transformer (BERT-base family): the serving path in PyTorch.
+"""Flagship transformer (BERT-base family) in PyTorch: serving and training.
 
 Counterpart of ``deeplearning4j_tpu/models/transformer.py``. The model is an
 ``nn.Module`` (:class:`Transformer` holding :class:`Block` s) whose parameter
@@ -16,9 +16,14 @@ the residual stream in ``compute_dtype``, layer norms in float32 and cast
 back, and the tied decoder of ``mlm_head`` with compute-dtype operands and
 float32 products.
 
-This slice serves: inference forward, and greedy generation through a dense
-KV-cache slot pool. ``train=True`` (dropout, gradients) raises until the
-training slice lands.
+Serving: the inference forward (``forward``, ``encode``, ``qa_forward``,
+run under ``torch.inference_mode``) and greedy generation through a dense
+KV-cache slot pool. Training: dropout, ``token_ce_loss``, ``loss_fn``,
+``qa_loss_fn`` and the train steps (``make_train_step``,
+``make_qa_train_step``) with the updaters of ``nn.updaters``; gradients come
+from autograd, through the flash backward kernels for the attention.
+Randomness: where the JAX package takes a ``jax.random`` key (``rng``), the
+port takes a ``torch.Generator`` (``generator``) on the parameters' device.
 """
 
 from __future__ import annotations
@@ -38,8 +43,6 @@ from ..common.device import resolve_device
 from ..kernels.attention import dot_product_attention
 
 _NEG_INF = -1e30  # matches kernels.attention masking
-_NO_TRAINING = ("train=True is not ported yet: dropout and the attention "
-                "backward arrive with the training slice (ROADMAP.md)")
 
 
 @dataclasses.dataclass
@@ -52,14 +55,14 @@ class TransformerConfig:
     d_ff: int = 3072
     type_vocab: int = 2              # segment ids (BERT)
     causal: bool = False             # False = BERT encoder, True = GPT-style LM
-    dropout: float = 0.1             # used by training only (next slice)
+    dropout: float = 0.1             # applied only when training (train=True)
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
     attn_impl: str = "auto"          # auto | xla | flash (ring/ulysses: not ported)
     norm_position: str = "pre"       # "pre" (GPT-style) | "post" (original BERT)
     gelu_approximate: bool = True    # True = tanh gelu, False = erf gelu
     # The JAX config's ``sequence_axis`` (ring attention) and ``remat``
-    # (training) have no counterpart until those paths are ported.
+    # (activation checkpointing) have no counterpart until those are ported.
 
     @property
     def head_dim(self) -> int:
@@ -92,9 +95,9 @@ class TransformerConfig:
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
-    # no gradients in this slice: the forward runs under inference_mode
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+    # trainable; the serving entry points run under inference_mode, so they
+    # record no graph
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
 class Embed(nn.Module):
@@ -261,12 +264,29 @@ def _attention(cfg: TransformerConfig, q, k, v, pad_mask):
                                  impl=cfg.attn_impl)
 
 
-def _block(cfg: TransformerConfig, p: Block, h, pad_mask, train: bool = False,
-           return_kv: bool = False):
+def dropout_mask(generator: torch.Generator, keep: float, shape, device) -> torch.Tensor:
+    """The keep mask of one dropout: True with probability ``keep``, drawn
+    from ``generator`` (which must live on ``device``). The JAX package
+    draws ``jax.random.bernoulli`` from its key folded per layer and
+    sublayer; the bits differ, so the tests replace this function to hand
+    both packages the same masks."""
+    return torch.rand(shape, generator=generator, device=device) < keep
+
+
+def _dropout(x, cfg: TransformerConfig, generator, train: bool):
+    """Inverted dropout, ``where(mask, x / keep, 0)``; the identity when not
+    training, at ``dropout <= 0`` or without a generator (as in JAX)."""
+    if not train or cfg.dropout <= 0.0 or generator is None:
+        return x
+    keep = 1.0 - cfg.dropout
+    return torch.where(dropout_mask(generator, keep, x.shape, x.device), x / keep, 0.0)
+
+
+def _block(cfg: TransformerConfig, p: Block, h, pad_mask, generator=None,
+           train: bool = False, return_kv: bool = False):
     """One transformer layer, h [B,T,D] → [B,T,D] (and its K/V [B,H,T,hd]
-    with ``return_kv``)."""
-    if train:
-        raise NotImplementedError(_NO_TRAINING)
+    with ``return_kv``). With ``train`` and a generator, dropout follows
+    the attention output projection and the FFN, as in JAX."""
     B, T, D = h.shape
     H, hd = cfg.n_heads, cfg.head_dim
     cd = cfg.compute_dtype
@@ -280,11 +300,11 @@ def _block(cfg: TransformerConfig, p: Block, h, pad_mask, train: bool = False,
             kv["k"], kv["v"] = k, v
         o = _attention(cfg, q, k, v, pad_mask)
         o = o.transpose(1, 2).reshape(B, T, D)
-        return o @ p.out_w.to(cd) + p.out_b.to(cd)
+        return _dropout(o @ p.out_w.to(cd) + p.out_b.to(cd), cfg, generator, train)
 
     def ffn_sub(x):
         x = _gelu(x @ p.ffn_w1.to(cd) + p.ffn_b1.to(cd), cfg)
-        return x @ p.ffn_w2.to(cd) + p.ffn_b2.to(cd)
+        return _dropout(x @ p.ffn_w2.to(cd) + p.ffn_b2.to(cd), cfg, generator, train)
 
     if cfg.norm_position == "pre":  # h + f(LN(h))
         h = h + attn_sub(_layer_norm(h, p.ln1_scale, p.ln1_bias).to(cd)).to(h.dtype)
@@ -297,9 +317,12 @@ def _block(cfg: TransformerConfig, p: Block, h, pad_mask, train: bool = False,
     return (h, kv["k"], kv["v"]) if return_kv else h
 
 
-@torch.inference_mode()
-def embed(params: Transformer, tokens, cfg: TransformerConfig, *, segments=None):
-    """Embedding front end: tokens [B,T] → block input [B,T,D] (compute dtype)."""
+# The functions below come in pairs: ``_embed``/``_encode``/``_mlm_head``/
+# ``_qa_forward`` record autograd graphs (the training path), and the
+# public names run them under inference_mode (the serving path).
+
+
+def _embed(params: Transformer, tokens, cfg: TransformerConfig, *, segments=None):
     e = params.embed
     tokens = _index_tensor(tokens, cfg.vocab_size, "token", e.tok.device)
     T = tokens.shape[-1]
@@ -314,14 +337,12 @@ def embed(params: Transformer, tokens, cfg: TransformerConfig, *, segments=None)
 
 
 @torch.inference_mode()
-def mlm_head(params: Transformer, h, cfg: TransformerConfig, *, positions=None):
-    """MLM head with the tied output embedding: [B,T,D] → logits [B,T,V]
-    float32 (or at ``positions`` [B,P] only → [B,P,V]).
+def embed(params: Transformer, tokens, cfg: TransformerConfig, *, segments=None):
+    """Embedding front end: tokens [B,T] → block input [B,T,D] (compute dtype)."""
+    return _embed(params, tokens, cfg, segments=segments)
 
-    The tied decoder takes compute-dtype operands with float32 products and
-    sums, as the JAX package asks of the TPU: both operands are rounded to
-    the compute dtype, then multiplied in float32 (exact for bf16 values;
-    TF32 must be off, see ``common.device.set_fp32_numerics``)."""
+
+def _mlm_head(params: Transformer, h, cfg: TransformerConfig, *, positions=None):
     m = params.mlm
     cd = cfg.compute_dtype
     if positions is not None:
@@ -334,35 +355,174 @@ def mlm_head(params: Transformer, h, cfg: TransformerConfig, *, positions=None):
 
 
 @torch.inference_mode()
-def encode(params: Transformer, tokens, cfg: TransformerConfig, *, segments=None,
-           pad_mask=None, train: bool = False):
-    """Encoder-only forward: tokens [B,T] → hidden states [B,T,D] (no head).
-    ``pad_mask`` [B,T]: nonzero = real token."""
-    if train:
-        raise NotImplementedError(_NO_TRAINING)
-    h = embed(params, tokens, cfg, segments=segments)
+def mlm_head(params: Transformer, h, cfg: TransformerConfig, *, positions=None):
+    """MLM head with the tied output embedding: [B,T,D] → logits [B,T,V]
+    float32 (or at ``positions`` [B,P] only → [B,P,V]).
+
+    The tied decoder takes compute-dtype operands with float32 products and
+    sums, as the JAX package asks of the TPU: both operands are rounded to
+    the compute dtype, then multiplied in float32 (exact for bf16 values;
+    TF32 must be off, see ``common.device.set_fp32_numerics``)."""
+    return _mlm_head(params, h, cfg, positions=positions)
+
+
+def _encode(params: Transformer, tokens, cfg: TransformerConfig, *, segments=None,
+            pad_mask=None, generator=None, train: bool = False):
+    h = _embed(params, tokens, cfg, segments=segments)
     if pad_mask is not None:
         pad_mask = torch.as_tensor(pad_mask, device=h.device)
     for p in params.blocks:
-        h = _block(cfg, p, h, pad_mask)
+        h = _block(cfg, p, h, pad_mask, generator, train)
     return h
 
 
 @torch.inference_mode()
+def encode(params: Transformer, tokens, cfg: TransformerConfig, *, segments=None,
+           pad_mask=None, generator=None, train: bool = False):
+    """Encoder-only forward: tokens [B,T] → hidden states [B,T,D] (no head).
+    ``pad_mask`` [B,T]: nonzero = real token. ``train`` with a
+    ``generator`` applies dropout (no gradients here: see ``loss_fn``)."""
+    return _encode(params, tokens, cfg, segments=segments, pad_mask=pad_mask,
+                   generator=generator, train=train)
+
+
+@torch.inference_mode()
 def forward(params: Transformer, tokens, cfg: TransformerConfig, *, segments=None,
-            pad_mask=None, train: bool = False):
+            pad_mask=None, generator=None, train: bool = False):
     """tokens [B,T] → logits [B,T,V] (float32)."""
-    return mlm_head(params, encode(params, tokens, cfg, segments=segments,
-                                   pad_mask=pad_mask, train=train), cfg)
+    return _mlm_head(params, _encode(params, tokens, cfg, segments=segments,
+                                     pad_mask=pad_mask, generator=generator,
+                                     train=train), cfg)
+
+
+def _qa_forward(params: Transformer, qa_params: QaHead, tokens, cfg: TransformerConfig,
+                *, segments=None, pad_mask=None, generator=None, train: bool = False):
+    h = _encode(params, tokens, cfg, segments=segments, pad_mask=pad_mask,
+                generator=generator, train=train)
+    logits = h.float() @ qa_params.w + qa_params.b
+    return logits[..., 0], logits[..., 1]
 
 
 @torch.inference_mode()
 def qa_forward(params: Transformer, qa_params: QaHead, tokens, cfg: TransformerConfig,
-               *, segments=None, pad_mask=None, train: bool = False):
+               *, segments=None, pad_mask=None, generator=None, train: bool = False):
     """→ (start_logits [B,T], end_logits [B,T]) float32."""
-    h = encode(params, tokens, cfg, segments=segments, pad_mask=pad_mask, train=train)
-    logits = h.float() @ qa_params.w + qa_params.b
-    return logits[..., 0], logits[..., 1]
+    return _qa_forward(params, qa_params, tokens, cfg, segments=segments,
+                       pad_mask=pad_mask, generator=generator, train=train)
+
+
+# ------------------------------------------------------------------ training
+
+
+def token_ce_loss(logits, labels, weights=None):
+    """Weighted token cross-entropy (masked-LM and causal-LM alike), float32:
+    sum((logsumexp - gold) * weights) / max(sum(weights), 1)."""
+    labels = _index_tensor(labels, logits.shape[-1], "label", logits.device)
+    if weights is None:
+        weights = torch.ones(labels.shape, dtype=torch.float32, device=logits.device)
+    else:
+        weights = torch.as_tensor(weights, device=logits.device).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return ((logz - gold) * weights).sum() / torch.clamp(weights.sum(), min=1.0)
+
+
+def loss_fn(params: Transformer, batch, cfg: TransformerConfig, generator=None,
+            train: bool = True):
+    """Weighted token cross-entropy of the MLM head, with autograd.
+
+    ``batch``: ``tokens`` [B,T], ``labels``, and optional ``weights``,
+    ``segments``, ``pad_mask``. With ``mlm_positions`` ([B,P]) the head and
+    the loss run only at those positions, and ``labels``/``weights`` are
+    [B,P] (the TF-BERT pretraining layout)."""
+    h = _encode(params, batch["tokens"], cfg, segments=batch.get("segments"),
+                pad_mask=batch.get("pad_mask"), generator=generator, train=train)
+    logits = _mlm_head(params, h, cfg, positions=batch.get("mlm_positions"))
+    return token_ce_loss(logits, batch["labels"], batch.get("weights"))
+
+
+def qa_loss_fn(params: Transformer, qa_params: QaHead, batch, cfg: TransformerConfig,
+               generator=None, train: bool = True):
+    """Mean of the start- and end-position cross-entropies
+    (BertForQuestionAnswering). ``batch``: tokens, segments, start_positions
+    [B], end_positions [B], optional pad_mask."""
+    s_logits, e_logits = _qa_forward(params, qa_params, batch["tokens"], cfg,
+                                     segments=batch.get("segments"),
+                                     pad_mask=batch.get("pad_mask"),
+                                     generator=generator, train=train)
+
+    def ce(logits, pos):
+        pos = _index_tensor(pos, logits.shape[-1], "answer position", logits.device)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, 1, pos[:, None])[:, 0]
+        return (logz - gold).mean()
+
+    return 0.5 * (ce(s_logits, batch["start_positions"])
+                  + ce(e_logits, batch["end_positions"]))
+
+
+def _grads(loss, *modules):
+    """d loss / d parameter for each module, as {name: tensor} dicts; a
+    parameter the loss does not use gets zeros, as ``jax.grad`` gives."""
+    named = [list(m.named_parameters()) for m in modules]
+    flat = [p for group in named for _, p in group]
+    grads = iter(torch.autograd.grad(loss, flat, allow_unused=True))
+    return [{name: g if g is not None else torch.zeros_like(p)
+             for (name, p), g in zip(group, grads)} for group in named]
+
+
+def loss_and_grads(params: Transformer, batch, cfg: TransformerConfig, generator=None,
+                   train: bool = True):
+    """``jax.value_and_grad(loss_fn)``: (loss, {name: grad}). Gradients are
+    in the parameters' dtype (float32 master parameters give float32
+    gradients; autograd through ``.to(compute_dtype)`` casts back)."""
+    with torch.enable_grad():
+        loss = loss_fn(params, batch, cfg, generator, train)
+    (grads,) = _grads(loss, params)
+    return loss.detach(), grads
+
+
+@torch.no_grad()
+def _subtract(module: nn.Module, updates) -> None:
+    # p -= u in place (the JAX step returns new arrays)
+    for name, p in module.named_parameters():
+        p.sub_(updates[name])
+
+
+def make_train_step(cfg: TransformerConfig, updater):
+    """One train step: loss and grads, ``updater.apply``, then p -= u.
+
+    ``step(params, opt_state, batch, iteration, generator=None)`` updates
+    ``params`` and ``opt_state`` in place and returns ``(params,
+    opt_state, loss)`` with the loss as a float32 scalar tensor on the
+    device (reading it waits for the step)."""
+
+    def step(params, opt_state, batch, iteration, generator=None):
+        loss, grads = loss_and_grads(params, batch, cfg, generator, True)
+        updates, opt_state = updater.apply(grads, opt_state, params, iteration, 0)
+        _subtract(params, updates)
+        return params, opt_state, loss
+
+    return step
+
+
+def make_qa_train_step(cfg: TransformerConfig, updater):
+    """Fine-tune step over the encoder and the span head jointly: ``step(
+    params, qa_params, opt_state, qa_opt_state, batch, iteration,
+    generator=None)`` → ``(params, qa_params, opt_state, qa_opt_state,
+    loss)``, updating in place as :func:`make_train_step` does."""
+
+    def step(params, qa_params, opt_state, qa_opt_state, batch, iteration, generator=None):
+        with torch.enable_grad():
+            loss = qa_loss_fn(params, qa_params, batch, cfg, generator, True)
+        g_p, g_q = _grads(loss, params, qa_params)
+        upd_p, opt_state = updater.apply(g_p, opt_state, params, iteration, 0)
+        upd_q, qa_opt_state = updater.apply(g_q, qa_opt_state, qa_params, iteration, 0)
+        _subtract(params, upd_p)
+        _subtract(qa_params, upd_q)
+        return params, qa_params, opt_state, qa_opt_state, loss.detach()
+
+    return step
 
 
 # ------------------------------------------------------- autoregressive decode

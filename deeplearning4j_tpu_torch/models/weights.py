@@ -1,4 +1,5 @@
-"""Bridge between the JAX package's parameter pytree and the port's modules.
+"""Bridge between the JAX package's parameter (and updater-state) pytrees
+and the port's modules.
 
 The JAX transformer keeps its parameters as nested dicts and lists
 (``params["blocks"][3]["qkv_w"]``); the port keeps the same arrays in an
@@ -71,13 +72,49 @@ def qa_params_from_jax(tree, cfg: TransformerConfig, *, device="cuda") -> QaHead
 def params_to_numpy(module: nn.Module) -> Dict[str, Any]:
     """The module's parameters as the JAX pytree shape (nested dicts, a list
     for ``blocks``) of float32 numpy arrays on the host."""
+    return _tree(module.named_parameters())
+
+
+def updater_state_from_jax(state, module: nn.Module) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A JAX updater state as the port's: ``{"m": tree, "v": tree}`` (numpy
+    leaves, each tree shaped like the parameter pytree; ``{}`` for a
+    stateless updater) becomes ``{"m": {name: tensor}, ...}`` keyed like
+    ``module.named_parameters()``, each tensor on its parameter's device and
+    in its dtype."""
+    params = dict(module.named_parameters())
+    out = {}
+    for slot, tree in state.items():
+        flat = dict(_flatten(tree))
+        if set(flat) != set(params):
+            raise KeyError(f"state {slot!r}: names differ from the parameters: missing "
+                           f"{sorted(set(params) - set(flat))}, unexpected "
+                           f"{sorted(set(flat) - set(params))}")
+        out[slot] = {}
+        for name, p in params.items():
+            t = _to_tensor(flat[name])
+            if tuple(t.shape) != tuple(p.shape):
+                raise ValueError(f"state {slot!r} {name}: shape {tuple(t.shape)} != "
+                                 f"{tuple(p.shape)}")
+            out[slot][name] = t.to(device=p.device, dtype=p.dtype)
+    return out
+
+
+def updater_state_to_numpy(state) -> Dict[str, Any]:
+    """The port's updater state as the JAX state pytree of float32 numpy
+    arrays (``{"m": tree, "v": tree}``)."""
+    return {slot: _tree(tensors.items()) for slot, tensors in state.items()}
+
+
+def _tree(named) -> Dict[str, Any]:
+    """(dotted name, tensor) pairs as nested dicts, with a list wherever the
+    keys are "0".."n-1" (a ModuleList), as in the JAX pytree."""
     tree: Dict[str, Any] = {}
-    for name, p in module.named_parameters():
+    for name, t in named:
         *path, leaf = name.split(".")
         node = tree
         for key in path:
             node = node.setdefault(key, {})
-        node[leaf] = p.detach().float().cpu().numpy()
+        node[leaf] = t.detach().float().cpu().numpy()
     return _as_lists(tree)
 
 

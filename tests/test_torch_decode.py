@@ -205,8 +205,9 @@ def test_kv_cache_layout_and_decode_block_match_jax():
     h0, k0, v0 = J._decode_block(jc, jp["blocks"][1], *(jnp.asarray(a) for a in
                                  (h, kc, vc, positions, kv_mask)))
     tkc, tvc = torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy())
-    out = T._decode_block(tc, tp.blocks[1], torch.from_numpy(h), tkc, tvc,
-                          torch.from_numpy(positions), torch.from_numpy(kv_mask))
+    with torch.no_grad():  # the pool runs it so; the parameters are trainable
+        out = T._decode_block(tc, tp.blocks[1], torch.from_numpy(h), tkc, tvc,
+                              torch.from_numpy(positions), torch.from_numpy(kv_mask))
     np.testing.assert_allclose(out.numpy(), np.asarray(h0), atol=ATOL)
     np.testing.assert_allclose(tkc.numpy(), np.asarray(k0), atol=ATOL)
     np.testing.assert_allclose(tvc.numpy(), np.asarray(v0), atol=ATOL)

@@ -54,6 +54,7 @@ def test_importing_the_port_loads_no_jax():
     added = json.loads(out.stdout.strip().splitlines()[-1])
     assert "deeplearning4j_tpu_torch.models.transformer" in added
     assert "deeplearning4j_tpu_torch.kernels._build" in added
+    assert "deeplearning4j_tpu_torch.nn.updaters" in added
     assert [m for m in added if _forbidden(m)] == []
 
 
@@ -74,7 +75,7 @@ def test_cuda_sources_are_plain_c_interfaces():
     """Route (b): nvcc into a shared library bound with ctypes; no source
     pulls in PyTorch's headers (which would take minutes to compile)."""
     sources = _build.sources()
-    assert [s.name for s in sources] == ["flash_fwd.cu"]
+    assert [s.name for s in sources] == ["flash_bwd.cu", "flash_fwd.cu"]
     for src in sources:
         text = src.read_text()
         assert "torch/" not in text and "ATen" not in text
@@ -143,3 +144,32 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("mps")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_cpu_training_never_touches_the_build(monkeypatch):
+    """Gradients of CPU tensors come from the plain backward: no kernel is
+    built, loaded or counted, through flash_attention and through a whole
+    train step of the transformer."""
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+
+    def no_build(stem):
+        raise AssertionError("the CPU path must not build or load a kernel")
+
+    monkeypatch.setattr(_build, "library", no_build)
+    counters = (TA.flash_forward, TA.flash_backward_dkv, TA.flash_backward_dq)
+    before = [f.launches for f in counters]
+    rs = np.random.RandomState(1)
+    q, k, v = (torch.from_numpy(rs.randn(1, 2, 16, 8).astype(np.float32)).requires_grad_()
+               for _ in range(3))
+    grads = torch.autograd.grad(TA.flash_attention(q, k, v, causal=True).sum(), (q, k, v))
+    assert all(torch.isfinite(g).all() for g in grads)
+    cfg = T.TransformerConfig(vocab_size=97, max_len=32, d_model=32, n_heads=4, n_layers=1,
+                              d_ff=64, dropout=0.1, attn_impl="flash",
+                              compute_dtype=torch.float32)
+    params = T.init_params(0, cfg, device="cpu")
+    batch = {"tokens": rs.randint(0, 97, (2, 16)), "labels": rs.randint(0, 97, (2, 16))}
+    updater = Adam(1e-3)
+    _, _, loss = T.make_train_step(cfg, updater)(params, updater.init(params), batch, 0,
+                                                 torch.Generator().manual_seed(0))
+    assert loss.device.type == "cpu" and bool(torch.isfinite(loss))
+    assert [f.launches for f in counters] == before
