@@ -5,12 +5,16 @@
 
 Phases:
 
-1. build every CUDA kernel of ``deeplearning4j_tpu_torch/csrc`` with nvcc;
+1. build every CUDA kernel of ``deeplearning4j_tpu_torch/csrc`` with nvcc,
+   and print each bf16 forward instantiation's registers and spills (none
+   allowed at D=64 and D=128);
 2. hold each kernel against its plain PyTorch version on the card, over the
    shapes of the main path and the edge cases of the masking model, and time
    the kernel, the plain version and the nearest PyTorch library call: the
-   flash forward at the serving shape [8,12,128,64] bf16, the two backward
-   kernels at the training shape [16,12,128,64] bf16;
+   bf16 flash forward at the serving shape [8,12,128,64], the training
+   shape [16,12,128,64] and a causal prefill [1,12,512,64] (also built with
+   32- and 128-row q-tiles, timed in turns against its 64), the two
+   backward kernels at the training shape [16,12,128,64] bf16;
 3. serve BERT-base (12 layers, d 768, vocab 30522, bf16, random weights from
    a seed): ``forward`` on tokens [8, 128], then a ragged key-padding
    request; every request must launch the flash kernel once per layer, and
@@ -39,6 +43,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -147,8 +152,8 @@ def spread(times_ms) -> str:
 
 def device_profile(tag, what, fn, reps=3, top=6):
     """Where a request's time goes: torch.profiler over ``reps`` runs of
-    ``fn``; prints the card's busy share of the host's wall time and the
-    kernels that take most device time. The profiler's own host cost makes
+    ``fn``; prints the card's busy share of the host's wall time, the
+    kernels that take most device time and every flash kernel. The profiler's own host cost makes
     the wall time (and so the idle share) an upper bound."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -172,8 +177,57 @@ def device_profile(tag, what, fn, reps=3, top=6):
     print(f"{tag} {what} profile ({reps} runs): wall {wall_us / reps / 1e3:.3f} ms/run, "
           f"device busy {busy_us / reps / 1e3:.3f} ms/run ({busy_us / wall_us:.1%}), "
           f"{len(device) // reps} device ops/run", flush=True)
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
-        print(f"{tag}   {us / reps:9.1f} us/run {us / busy_us:6.1%}  {name[:100]}", flush=True)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    # the top kernels, and the port's own kernels wherever they rank
+    for rank, (name, us) in enumerate(ranked):
+        if rank < top or "flash_" in name:
+            print(f"{tag}   {us / reps:9.1f} us/run {us / busy_us:6.1%}  #{rank + 1} "
+                  f"{name[:100]}", flush=True)
+
+
+# ------------------------------------------------------------------ phase 1
+
+
+def ptxas_kernels(log) -> dict:
+    """{mangled kernel name: {"registers", "spill_stores", "spill_loads"}}
+    from nvcc's ``-Xptxas -v`` messages."""
+    kernels, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            current = kernels.setdefault(m.group(1), {})
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            current["spill_stores"], current["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current["registers"] = int(m.group(1))
+    return kernels
+
+
+def report_forward_registers(tag, log):
+    """Print registers and spills of each bf16 forward instantiation (head
+    dim D, and whether it applies masks); fail if a main-path width (D=64,
+    D=128) spills."""
+    found = {}
+    for name, info in ptxas_kernels(log).items():
+        m = re.search(r"flash_fwd_bf16_kernelILi(\d+)ELb([01])E", name)
+        if m:
+            found[(int(m.group(1)), m.group(2) == "1")] = info
+    want = [(d, masked) for d in (16, 32, 64, 128) for masked in (False, True)]
+    check(sorted(found) == want,
+          f"ptxas reported bf16 forward kernels for (D, masked) = {sorted(found)}")
+    for (d, masked), info in sorted(found.items()):
+        print(f"{tag} ptxas flash_fwd_bf16_kernel<D={d}, masked={masked}>: "
+              f"{info.get('registers')} registers, {info.get('spill_stores')} bytes spill "
+              f"stores, {info.get('spill_loads')} bytes spill loads", flush=True)
+    for key, info in found.items():
+        if key[0] in (64, 128):
+            check(info.get("spill_stores") == 0 and info.get("spill_loads") == 0,
+                  f"flash_fwd_bf16_kernel<D={key[0]}, masked={key[1]}> spills registers: {info}")
 
 
 # ------------------------------------------------------------------ phase 2
@@ -264,27 +318,123 @@ def phase_kernels(tag):
     return errors
 
 
+# bf16 forward timed at: the serving shape (the kernels line reports it), the
+# training shape, and a causal prefill of one 512-token sequence
+FWD_TIMED_SHAPES = (("serving", 8, 12, 128, 64, False), ("training", 16, 12, 128, 64, False),
+                    ("prefill_512_causal", 1, 12, 512, 64, True))
+
+
 def time_kernel(tag):
-    """Kernel, plain version and library call at the BERT-base main-path shape."""
+    """The bf16 forward kernel, its plain version and the library call at
+    each shape of ``FWD_TIMED_SHAPES`` (strided q/k/v from one fused
+    projection, as ``_block`` gives them), each held against the plain
+    version first. Returns the serving shape's numbers."""
     import torch
     import torch.nn.functional as F
 
     from deeplearning4j_tpu_torch.kernels import attention as A
 
-    B, H, T, D = 8, 12, 128, 64
     rs = np.random.RandomState(1)
-    q, k, v = _attention_inputs(rs, B, H, T, T, D, torch.bfloat16, strided=True)
-    scale = 1.0 / math.sqrt(D)
-    ms = time_ms(lambda: A.flash_forward(q, k, v, None, None, False, scale, 0))
-    plain_ms = time_ms(lambda: A.flash_forward_reference(q, k, v, None, None, False, scale, 0))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
-    us = host_us(lambda: A.flash_forward(q, k, v, None, None, False, scale, 0))
-    print(f"{tag} flash_fwd host time per wrapper call (launch included): "
-          f"{us:.1f} us", flush=True)
-    nbytes = 4 * B * H * T * D * q.element_size() + B * H * T * 4
-    ops = 2 * 2 * B * H * T * T * D  # q k^T and p v
-    return report_timing(tag, f"flash_fwd at B={B} H={H} T={T} D={D} bf16", ms, plain_ms,
-                         library_ms, nbytes, ops, "sdpa")
+    timings = {}
+    for name, B, H, T, D, causal in FWD_TIMED_SHAPES:
+        q, k, v = _attention_inputs(rs, B, H, T, T, D, torch.bfloat16, strided=True)
+        scale = 1.0 / math.sqrt(D)
+        args = (None, None, causal, scale, 0)
+        out, _ = A.flash_forward(q, k, v, *args)
+        ref, _ = A.flash_forward_reference(q, k, v, *args)
+        diff = (out.float() - ref.float()).abs()
+        check(bool((diff <= BF16_ULP_REL * ref.float().abs() + BF16_ATOL).all()),
+              f"flash_fwd at the {name} shape disagrees with the plain version")
+        ms = time_ms(lambda: A.flash_forward(q, k, v, *args))
+        plain_ms = time_ms(lambda: A.flash_forward_reference(q, k, v, *args))
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=scale, is_causal=causal))
+        if name == "serving":
+            us = host_us(lambda: A.flash_forward(q, k, v, *args))
+            print(f"{tag} flash_fwd host time per wrapper call (launch included): "
+                  f"{us:.1f} us", flush=True)
+        nbytes = 4 * B * H * T * D * q.element_size() + B * H * T * 4
+        pairs = T * (T + 1) // 2 if causal else T * T  # (query, key) pairs with a live score
+        ops = 2 * 2 * B * H * pairs * D  # q k^T and p v
+        timings[name] = {"max_abs_err": diff.max().item(), **report_timing(
+            tag, f"flash_fwd {name} B={B} H={H} T={T} D={D} bf16"
+            + (" causal" if causal else ""), ms, plain_ms, library_ms, nbytes, ops, "sdpa")}
+    return timings["serving"]
+
+
+# q-tile heights the bf16 forward is also built with, to time against its 64
+Q_TILE_VARIANTS = (32, 128)
+
+
+def start_q_tile_builds() -> dict:
+    """Start nvcc on csrc/flash_fwd.cu with -DTDL_FWD_BLOCK_Q=n for each n of
+    ``Q_TILE_VARIANTS`` (beside the main build, all at once); returns
+    {n: (process, library path)}."""
+    from deeplearning4j_tpu_torch.kernels import _build
+
+    nvcc = _build.find_nvcc()
+    out_dir = _build.build_dir() / "q_tiles"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    builds = {}
+    for n in Q_TILE_VARIANTS:
+        lib = out_dir / f"libflash_fwd_q{n}.so"
+        cmd = _build.nvcc_command(nvcc, _build.CSRC / "flash_fwd.cu", lib) + [
+            f"-DTDL_FWD_BLOCK_Q={n}"]
+        builds[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True), lib)
+    return builds
+
+
+def time_q_tiles(tag, builds):
+    """The bf16 forward with 32-, 64- and 128-row q-tiles at each shape of
+    ``FWD_TIMED_SHAPES``: each held against the plain version, then timed in
+    turns (64, 32, 128, 128, 32, 64) in this call; prints the mean of each
+    height's two timings."""
+    import ctypes
+
+    import torch
+
+    from deeplearning4j_tpu_torch.kernels import attention as A
+
+    fns = {}
+    for n, (proc, lib) in builds.items():
+        output, _ = proc.communicate()
+        check(proc.returncode == 0, f"nvcc failed for the {n}-row q-tile build:\n{output}")
+        fns[n] = A.bind_kernel(ctypes.CDLL(str(lib)), "tdl_flash_fwd", 7, 9)
+
+    def variant(n, q, k, v, causal, scale):
+        fn, err_str = fns[n]
+        B, H, T, D = q.shape
+        out = torch.empty((B, H, T, D), dtype=q.dtype, device=q.device)
+        lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+        strides = [s for t in (q, k, v) for s in t.stride()[:3]]
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, out.data_ptr(),
+                lse.data_ptr(), B, H, T, T, D, 1, *strides, int(causal), scale, 0,
+                torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"{n}-row q-tile launch failed: {err_str(rc).decode()}")
+        return out
+
+    rs = np.random.RandomState(7)
+    for name, B, H, T, D, causal in FWD_TIMED_SHAPES:
+        q, k, v = _attention_inputs(rs, B, H, T, T, D, torch.bfloat16, strided=True)
+        scale = 1.0 / math.sqrt(D)
+        runs = {64: lambda: A.flash_forward(q, k, v, None, None, causal, scale, 0)[0]}
+        for n in fns:
+            runs[n] = lambda n=n: variant(n, q, k, v, causal, scale)
+        ref = A.flash_forward_reference(q, k, v, None, None, causal, scale, 0)[0].float()
+        for n, run in runs.items():
+            diff = (run().float() - ref).abs()
+            check(bool((diff <= BF16_ULP_REL * ref.abs() + BF16_ATOL).all()),
+                  f"{n}-row q-tile forward at the {name} shape disagrees with the plain version")
+        order = [64, *fns, *reversed(list(fns)), 64]
+        times = {n: [] for n in runs}
+        for n in order:
+            times[n].append(time_ms(runs[n]))
+        blocks = {n: -(-T // n) * B * H for n in runs}
+        print(f"{tag} flash_fwd q-tile rows at {name} B={B} H={H} T={T} D={D} bf16"
+              + (" causal" if causal else "") + ": " + ", ".join(
+                  f"{n} rows ({blocks[n]} blocks) {statistics.mean(times[n]):.4f} ms"
+                  for n in sorted(runs)), flush=True)
 
 
 def report_timing(tag, what, ms, plain_ms, library_ms, nbytes, ops, library) -> dict:
@@ -295,7 +445,8 @@ def report_timing(tag, what, ms, plain_ms, library_ms, nbytes, ops, library) -> 
     bound_ms = max(t_bytes, t_ops)
     print(f"{tag} {what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {library} "
           f"{library_ms:.4f} ms; bound {bound_ms * 1e3:.3f} us ({nbytes} bytes -> "
-          f"{t_bytes * 1e3:.3f} us, {ops} ops -> {t_ops * 1e3:.3f} us)", flush=True)
+          f"{t_bytes * 1e3:.3f} us, {ops} ops -> {t_ops * 1e3:.3f} us); kernel / bound "
+          f"{ms / bound_ms:.1f}, kernel / {library} {ms / library_ms:.2f}", flush=True)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -700,17 +851,21 @@ def main() -> int:
     card = card_line()
     tag = f"[{card}]"
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    q_tile_builds = {}
     try:
         t0 = time.perf_counter()
+        q_tile_builds = start_q_tile_builds()
         _build.build_all()
         print(f"{tag} phase 1 build: {time.perf_counter() - t0:.2f} s "
               f"({', '.join(_build.build_info['built']) or 'cached'})", flush=True)
         for line in _build.build_info["log"].splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print("  " + line.strip(), flush=True)
+        report_forward_registers(tag, _build.build_info["log"])
 
         errors = phase_kernels(tag)
         timing = time_kernel(tag)
+        time_q_tiles(tag, q_tile_builds)
         phase_backward_kernels(tag)
         bwd_timing = time_backward(tag)
         print("phase 2 kernel vs plain: ok", flush=True)
@@ -724,6 +879,11 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
+    finally:
+        for proc, _ in q_tile_builds.values():
+            if proc.poll() is None:  # a phase failed before its build was read
+                proc.kill()
+                proc.wait()
 
     main_path = [e for (name, dt), e in errors.items() if name.startswith("bert_base")]
     bwd = "deeplearning4j_tpu_torch/csrc/flash_bwd.cu"

@@ -75,7 +75,8 @@ def nvcc_command(nvcc: str, src: Path, out: Path) -> List[str]:
 
 def build_all() -> Dict[str, Path]:
     """Compile every source not yet built; returns ``{stem: library path}``.
-    nvcc's messages of this build are kept in ``build_info["log"]``."""
+    nvcc's messages are kept beside each library (``.log``) and, for every
+    library, in ``build_info["log"]``."""
     digest = _digest()
     out_dir = build_dir()
     targets = {src.stem: out_dir / f"lib{src.stem}-{digest}.so" for src in sources()}
@@ -94,13 +95,16 @@ def build_all() -> Dict[str, Path]:
         failed = []
         for src, tmp, proc in procs:
             output, _ = proc.communicate()
-            log.append(f"== {src.name}\n{output}")
             if proc.returncode != 0:
                 failed.append(f"{src.name} (exit {proc.returncode}):\n{output}")
             else:
+                targets[src.stem].with_suffix(".log").write_text(output)
                 os.replace(tmp, targets[src.stem])
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    for stem, lib in targets.items():
+        messages = lib.with_suffix(".log")
+        log.append(f"== {stem}.cu\n{messages.read_text() if messages.is_file() else ''}")
     build_info.update(seconds=time.perf_counter() - t0, built=[s.name for s in todo],
                       libraries={k: str(v) for k, v in targets.items()},
                       log="\n".join(log))

@@ -17,7 +17,8 @@ pad shim; here they raise ``ValueError``.
 
 ``flash_attention`` runs the CUDA kernels for CUDA tensors and their plain
 PyTorch versions for CPU tensors: the forward ``csrc/flash_fwd.cu``
-(replacing the TPU's ``_flash_kernel``) and, through a
+(replacing the TPU's ``_flash_kernel``; tensor-core products for bfloat16,
+float32 FMA for float32) and, through a
 ``torch.autograd.Function``, the two backward kernels of
 ``csrc/flash_bwd.cu`` (replacing ``_flash_bwd_dkv_kernel`` and
 ``_flash_bwd_dq_kernel``). A CUDA tensor gets the kernels or an exception;
@@ -205,16 +206,21 @@ def _kernel_fn(stem: str, name: str, n_ptrs: int, n_strides: int):
     and that library's error-string function."""
     key = (stem, name)
     if key not in _kernel_fns:
-        lib = _build.library(stem)
-        fn = getattr(lib, name)
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = ([ptr] * n_ptrs + [i32] * 6 + [i64] * n_strides
-                       + [i32, ctypes.c_float, i32, ptr])
-        fn.restype = i32
-        lib.tdl_cuda_error_string.argtypes = [i32]
-        lib.tdl_cuda_error_string.restype = ctypes.c_char_p
-        _kernel_fns[key] = (fn, lib.tdl_cuda_error_string)
+        _kernel_fns[key] = bind_kernel(_build.library(stem), name, n_ptrs, n_strides)
     return _kernel_fns[key]
+
+
+def bind_kernel(lib: ctypes.CDLL, name: str, n_ptrs: int, n_strides: int):
+    """(function, error-string function) of ``name`` in a loaded kernel
+    library, with the argument types described in :func:`_kernel_fn`."""
+    fn = getattr(lib, name)
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = ([ptr] * n_ptrs + [i32] * 6 + [i64] * n_strides
+                   + [i32, ctypes.c_float, i32, ptr])
+    fn.restype = i32
+    lib.tdl_cuda_error_string.argtypes = [i32]
+    lib.tdl_cuda_error_string.restype = ctypes.c_char_p
+    return fn, lib.tdl_cuda_error_string
 
 
 def _check_kernel_inputs(name: str, q, k, v, qseg, kseg, more=()):
@@ -279,6 +285,26 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def rows_16_byte_aligned(ptr: int, strides, element_size: int) -> bool:
+    """Whether every row of a [B, H, T, D] tensor with data pointer ``ptr``,
+    element strides ``strides`` of its b/h/t axes and a contiguous last axis
+    starts on a 16-byte boundary: the bf16 forward kernel copies rows into
+    shared memory 16 bytes at a time (cp.async), which needs the pointer and
+    each stride, in bytes, to be multiples of 16."""
+    return ptr % 16 == 0 and all(s * element_size % 16 == 0 for s in strides)
+
+
+def _check_rows_aligned(name: str, **tensors) -> None:
+    for arg, t in tensors.items():
+        # a stride of an axis of size 1 never moves the address
+        strides = [t.stride(i) for i in range(3) if t.shape[i] > 1]
+        if not rows_16_byte_aligned(t.data_ptr(), strides, t.element_size()):
+            raise ValueError(
+                f"{name}: bfloat16 {arg} must start every row on a 16-byte boundary "
+                f"(data pointer {t.data_ptr():#x}, b/h/t strides {tuple(t.stride()[:3])} "
+                f"elements); pass a contiguous tensor")
+
+
 def flash_forward(q, k, v, qseg, kseg, causal: bool, scale: float,
                   q_offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA flash forward kernel (``csrc/flash_fwd.cu``).
@@ -286,9 +312,13 @@ def flash_forward(q, k, v, qseg, kseg, causal: bool, scale: float,
     Same arguments and results as :func:`flash_forward_reference`, for CUDA
     tensors only: float32 or bfloat16 q/k/v on one device with a contiguous
     last axis (other strides are passed to the kernel), head dim in
-    ``KERNEL_HEAD_DIMS``. Raises on anything else, and when the launch
-    fails. ``flash_forward.launches`` counts the launches."""
+    ``KERNEL_HEAD_DIMS``; for bfloat16, every row 16-byte aligned
+    (:func:`rows_16_byte_aligned`; views of the fused QKV projection are).
+    Raises on anything else, and when the launch fails; it never copies.
+    ``flash_forward.launches`` counts the launches."""
     B, H, Tq, Tk, D = _check_kernel_inputs("flash_forward", q, k, v, qseg, kseg)
+    if q.dtype == torch.bfloat16:
+        _check_rows_aligned("flash_forward", q=q, k=k, v=v)
     out = torch.empty((B, H, Tq, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     _launch("flash_fwd", "tdl_flash_fwd",
