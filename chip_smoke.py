@@ -6,15 +6,17 @@
 Phases:
 
 1. build every CUDA kernel of ``deeplearning4j_tpu_torch/csrc`` with nvcc,
-   and print each bf16 forward instantiation's registers and spills (none
-   allowed at D=64 and D=128);
+   and print the registers and spills of each instantiation of the bf16
+   kernels (forward, dkv, dq; none may spill at D=64 and D=128);
 2. hold each kernel against its plain PyTorch version on the card, over the
-   shapes of the main path and the edge cases of the masking model, and time
-   the kernel, the plain version and the nearest PyTorch library call: the
-   bf16 flash forward at the serving shape [8,12,128,64], the training
+   shapes of the main path and the edge cases of the masking model (the
+   backward's gradients, and the delta that the dq kernel computes), and
+   time the kernel, the plain version and the nearest PyTorch library call:
+   the bf16 flash forward at the serving shape [8,12,128,64], the training
    shape [16,12,128,64] and a causal prefill [1,12,512,64] (also built with
-   32- and 128-row q-tiles, timed in turns against its 64), the two
-   backward kernels at the training shape [16,12,128,64] bf16;
+   32- and 128-row q-tiles, timed in turns against its 64), the float32
+   forward at that prefill; the two backward kernels, alone and as a pair,
+   at the training shape [16,12,128,64] and the causal prefill, bf16;
 3. serve BERT-base (12 layers, d 768, vocab 30522, bf16, random weights from
    a seed): ``forward`` on tokens [8, 128], then a ragged key-padding
    request; every request must launch the flash kernel once per layer, and
@@ -67,6 +69,10 @@ LSE_TOL = 1e-5               # relative, float32 lse
 BWD_FP32_ATOL = 1e-4
 BWD_FP32_RTOL = 1e-4
 BWD_BF16_ATOL = 1e-4
+# delta = rowsum(dO * out), computed by the dq kernel, vs the plain version:
+# float32 reordering, at worst 2 (D + 1) 2^-24 rowsum|dO * out| (each side's
+# sum of D products is off by at most (D + 1) 2^-24 of the sum of |terms|)
+DELTA_REL_OF_ABS_SUM = 2.0 ** -24
 # train step at float32 compute, flash kernels vs dense attention: the loss
 # within 1e-5 relative; each gradient within 1e-3 of its L2 norm (float32
 # sums in another order through 12 layers of backward)
@@ -208,26 +214,29 @@ def ptxas_kernels(log) -> dict:
     return kernels
 
 
-def report_forward_registers(tag, log):
-    """Print registers and spills of each bf16 forward instantiation (head
-    dim D, and whether it applies masks); fail if a main-path width (D=64,
-    D=128) spills."""
+BF16_KERNELS = ("flash_fwd_bf16_kernel", "flash_bwd_dkv_bf16_kernel", "flash_bwd_dq_bf16_kernel")
+
+
+def report_bf16_registers(tag, log):
+    """Print registers and spills of each instantiation of the bf16 kernels
+    (forward, dkv, dq; head dim D, and whether it applies masks); fail if a
+    main-path width (D=64, D=128) spills."""
     found = {}
     for name, info in ptxas_kernels(log).items():
-        m = re.search(r"flash_fwd_bf16_kernelILi(\d+)ELb([01])E", name)
+        m = re.search(r"(%s)ILi(\d+)ELb([01])E" % "|".join(BF16_KERNELS), name)
         if m:
-            found[(int(m.group(1)), m.group(2) == "1")] = info
-    want = [(d, masked) for d in (16, 32, 64, 128) for masked in (False, True)]
-    check(sorted(found) == want,
-          f"ptxas reported bf16 forward kernels for (D, masked) = {sorted(found)}")
-    for (d, masked), info in sorted(found.items()):
-        print(f"{tag} ptxas flash_fwd_bf16_kernel<D={d}, masked={masked}>: "
+            found[(m.group(1), int(m.group(2)), m.group(3) == "1")] = info
+    want = [(k, d, masked) for k in sorted(BF16_KERNELS) for d in (16, 32, 64, 128)
+            for masked in (False, True)]
+    check(sorted(found) == want, f"ptxas reported bf16 kernels {sorted(found)}")
+    for (kernel, d, masked), info in sorted(found.items()):
+        print(f"{tag} ptxas {kernel}<D={d}, masked={masked}>: "
               f"{info.get('registers')} registers, {info.get('spill_stores')} bytes spill "
               f"stores, {info.get('spill_loads')} bytes spill loads", flush=True)
-    for key, info in found.items():
-        if key[0] in (64, 128):
+    for (kernel, d, masked), info in found.items():
+        if d in (64, 128):
             check(info.get("spill_stores") == 0 and info.get("spill_loads") == 0,
-                  f"flash_fwd_bf16_kernel<D={key[0]}, masked={key[1]}> spills registers: {info}")
+                  f"{kernel}<D={d}, masked={masked}> spills registers: {info}")
 
 
 # ------------------------------------------------------------------ phase 2
@@ -328,7 +337,8 @@ def time_kernel(tag):
     """The bf16 forward kernel, its plain version and the library call at
     each shape of ``FWD_TIMED_SHAPES`` (strided q/k/v from one fused
     projection, as ``_block`` gives them), each held against the plain
-    version first. Returns the serving shape's numbers."""
+    version first; then the float32 forward at the causal prefill shape.
+    Returns the serving shape's numbers."""
     import torch
     import torch.nn.functional as F
 
@@ -359,6 +369,26 @@ def time_kernel(tag):
         timings[name] = {"max_abs_err": diff.max().item(), **report_timing(
             tag, f"flash_fwd {name} B={B} H={H} T={T} D={D} bf16"
             + (" causal" if causal else ""), ms, plain_ms, library_ms, nbytes, ops, "sdpa")}
+
+    # the float32 forward (the FMA kernel, which generation's prefill runs) at
+    # the causal prefill shape, beside SDPA in float32 with TF32 off
+    B, H, T, D = 1, 12, 512, 64
+    q, k, v = _attention_inputs(rs, B, H, T, T, D, torch.float32, strided=True)
+    scale = 1.0 / math.sqrt(D)
+    args = (None, None, True, scale, 0)
+    out, _ = A.flash_forward(q, k, v, *args)
+    ref, _ = A.flash_forward_reference(q, k, v, *args)
+    diff = (out - ref).abs().max().item()
+    check(diff <= FP32_ATOL, f"float32 flash_fwd at the prefill shape disagrees: {diff}")
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off for the float32 timing")
+    report_timing(
+        tag, f"flash_fwd float32 prefill_512_causal B={B} H={H} T={T} D={D}",
+        time_ms(lambda: A.flash_forward(q, k, v, *args)),
+        time_ms(lambda: A.flash_forward_reference(q, k, v, *args)),
+        time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale, is_causal=True)),
+        4 * B * H * T * D * 4 + B * H * T * 4, 2 * 2 * B * H * (T * (T + 1) // 2) * D,
+        "sdpa float32", dtype="float32")
+    print(f"{tag} flash_fwd float32 prefill: max|kernel-plain| {diff:.3e}", flush=True)
     return timings["serving"]
 
 
@@ -437,11 +467,12 @@ def time_q_tiles(tag, builds):
                   for n in sorted(runs)), flush=True)
 
 
-def report_timing(tag, what, ms, plain_ms, library_ms, nbytes, ops, library) -> dict:
+def report_timing(tag, what, ms, plain_ms, library_ms, nbytes, ops, library,
+                  dtype="bfloat16") -> dict:
     """Print a kernel's times beside its bound: the larger of its bytes over
-    the card's memory rate and its operations over the bf16 peak."""
+    the card's memory rate and its operations over the peak for ``dtype``."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S["bfloat16"] * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
     bound_ms = max(t_bytes, t_ops)
     print(f"{tag} {what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {library} "
           f"{library_ms:.4f} ms; bound {bound_ms * 1e3:.3f} us ({nbytes} bytes -> "
@@ -464,7 +495,8 @@ def host_us(fn, n=50) -> float:
     return us
 
 
-def _bwd_close(got, ref, dtype) -> bool:
+def _bwd_ratio(got, ref, dtype) -> float:
+    """Largest |got - ref| as a share of the backward bound for ``dtype``."""
     import torch
 
     diff = (got.float() - ref.float()).abs()
@@ -472,13 +504,25 @@ def _bwd_close(got, ref, dtype) -> bool:
         tol = BWD_FP32_ATOL + BWD_FP32_RTOL * ref.float().abs()
     else:
         tol = BF16_ULP_REL * ref.float().abs() + BWD_BF16_ATOL
-    return bool((diff <= tol).all())
+    return (diff / tol).max().item()
+
+
+def _delta_ratio(delta, out, do) -> float:
+    """Largest |delta - plain| as a share of its bound (DELTA_REL_OF_ABS_SUM)."""
+    from deeplearning4j_tpu_torch.kernels import attention as A
+
+    prods = do.float() * out.float()
+    tol = 2 * (do.shape[-1] + 1) * DELTA_REL_OF_ABS_SUM * prods.abs().sum(-1)
+    diff = (delta - A.flash_backward_delta(out, do)).abs()
+    return (diff / tol.clamp(min=1e-30)).max().item()
 
 
 def phase_backward_kernels(tag):
     """Both backward kernels against the plain backward over the cases of
     phase 2: the forward kernel's (out, lse) and an upstream gradient dO
-    (a transposed view where q/k/v are the strided views of ``_block``)."""
+    (a transposed view where q/k/v are the strided views of ``_block``);
+    and the delta that the dq kernel computes against its plain version.
+    Prints the worst element of each as a share of its bound."""
     import torch
 
     from deeplearning4j_tpu_torch.kernels import attention as A
@@ -495,78 +539,108 @@ def phase_backward_kernels(tag):
             args = (qseg, kseg, causal, 1.0 / math.sqrt(D), Tk - Tq)
             out, lse = A.flash_forward(q, k, v, *args)
             got = A.flash_backward(q, k, v, out, lse, do, *args)
+            _, delta = A.flash_backward_dq(q, k, v, out, do, lse, *args)
             torch.cuda.synchronize()
             ref = A.flash_backward_reference(q, k, v, out, lse, do, *args)
             dt = str(dtype).split(".")[-1]
-            errs = []
+            ratios = []
             for gname, g, r in zip(("dq", "dk", "dv"), got, ref):
                 check(g.dtype == dtype and g.shape == r.shape and g.is_contiguous(),
                       f"backward {name} {dt}: {gname} {g.dtype} {tuple(g.shape)}")
                 check(torch.isfinite(g).all().item(), f"backward {name} {dt}: non-finite {gname}")
-                check(_bwd_close(g, r, dtype),
-                      f"backward kernel {name} {dt}: {gname} disagrees with the plain version")
-                errs.append((g.float() - r.float()).abs().max().item())
-            print(f"{tag} backward {name} {dt}: max|d-plain| dq {errs[0]:.3e} dk {errs[1]:.3e} "
-                  f"dv {errs[2]:.3e}", flush=True)
+                ratios.append(_bwd_ratio(g, r, dtype))
+            ratios.append(_delta_ratio(delta, out, do))
+            print(f"{tag} backward {name} {dt}: worst |kernel - plain| / bound: dq "
+                  f"{ratios[0]:.3f} dk {ratios[1]:.3f} dv {ratios[2]:.3f} delta {ratios[3]:.3f}",
+                  flush=True)
+            for what, ratio in zip(("dq", "dk", "dv", "delta"), ratios):
+                check(ratio <= 1.0, f"backward kernel {name} {dt}: {what} disagrees with the "
+                                    f"plain version ({ratio:.3f} of the bound)")
+
+
+# backward timed at: the BERT-base training shape (the kernels line reports
+# it) and a causal prefill of one 512-token sequence
+BWD_TIMED_SHAPES = (("training", 16, 12, 128, 64, False),
+                    ("prefill_512_causal", 1, 12, 512, 64, True))
 
 
 def time_backward(tag):
-    """Both backward kernels at the BERT-base training shape: error against
-    the plain version, kernel, plain and host times, bounds, and the
-    library yardstick (the backward of scaled_dot_product_attention:
-    forward+backward minus forward)."""
+    """The backward at each shape of ``BWD_TIMED_SHAPES``, bf16: the dq
+    kernel (which also computes delta), the dkv kernel, and the pair as
+    ``flash_backward`` launches it, each held against its plain version
+    first, then timed beside its plain version, its bound and the library
+    yardstick (the backward of scaled_dot_product_attention, which computes
+    dq, dk, dv and its own delta: forward+backward minus forward). Returns
+    the training shape's numbers of the two kernels."""
     import torch
     import torch.nn.functional as F
 
     from deeplearning4j_tpu_torch.kernels import attention as A
 
-    B, H, T, D = 16, 12, 128, 64
-    rs = np.random.RandomState(4)
     dtype = torch.bfloat16
-    q, k, v = _attention_inputs(rs, B, H, T, T, D, dtype, strided=True)
-    do = torch.from_numpy(rs.randn(B, T, H, D).astype(np.float32)).to("cuda", dtype)
-    do = do.transpose(1, 2)  # as autograd hands it back through _block's reshape
-    scale = 1.0 / math.sqrt(D)
-    out, lse = A.flash_forward(q, k, v, None, None, False, scale, 0)
-    delta = A.flash_backward_delta(out, do)
-    args = (q, k, v, do, lse, delta, None, None, False, scale, 0)
-    dk, dv = A.flash_backward_dkv(*args)
-    dq = A.flash_backward_dq(*args)
-    torch.cuda.synchronize()
-    rdk, rdv = A.flash_backward_dkv_reference(*args)
-    rdq = A.flash_backward_dq_reference(*args)
-    for gname, g, r in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
-        check(_bwd_close(g, r, dtype), f"backward at the training shape: {gname} disagrees")
-    err = {"flash_bwd_dkv": max((dk.float() - rdk.float()).abs().max().item(),
-                                (dv.float() - rdv.float()).abs().max().item()),
-           "flash_bwd_dq": (dq.float() - rdq.float()).abs().max().item()}
-
-    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(qg, kg, vg, scale=scale))
-    sdpa_fwd_bwd = time_ms(lambda: torch.autograd.grad(
-        F.scaled_dot_product_attention(qg, kg, vg, scale=scale), (qg, kg, vg), do))
-    library_ms = sdpa_fwd_bwd - sdpa_fwd
-    print(f"{tag} sdpa at the training shape: forward {sdpa_fwd:.4f} ms, forward+backward "
-          f"{sdpa_fwd_bwd:.4f} ms, backward {library_ms:.4f} ms (yardstick of both kernels)",
-          flush=True)
-    elem = q.element_size()
-    bhtd, bht = B * H * T * D, B * H * T
-    io_in = 4 * bhtd * elem + 2 * bht * 4  # q, dO, k, v; lse, delta
     timings = {}
-    for name, fn, plain, nbytes, ops in (
-            ("flash_bwd_dkv", A.flash_backward_dkv, A.flash_backward_dkv_reference,
-             io_in + 2 * bhtd * elem, 8 * B * H * T * T * D),
-            ("flash_bwd_dq", A.flash_backward_dq, A.flash_backward_dq_reference,
-             io_in + bhtd * elem, 6 * B * H * T * T * D)):
-        ms = time_ms(lambda: fn(*args))
-        plain_ms = time_ms(lambda: plain(*args))
-        print(f"{tag} {name} host time per wrapper call (launch included): "
-              f"{host_us(lambda: fn(*args)):.1f} us; max|kernel-plain| {err[name]:.3e}",
+    for shape, B, H, T, D, causal in BWD_TIMED_SHAPES:
+        rs = np.random.RandomState(4)
+        q, k, v = _attention_inputs(rs, B, H, T, T, D, dtype, strided=True)
+        do = torch.from_numpy(rs.randn(B, T, H, D).astype(np.float32)).to("cuda", dtype)
+        do = do.transpose(1, 2)  # as autograd hands it back through _block's reshape
+        scale = 1.0 / math.sqrt(D)
+        rest = (None, None, causal, scale, 0)
+        out, lse = A.flash_forward(q, k, v, *rest)
+        dq, delta = A.flash_backward_dq(q, k, v, out, do, lse, *rest)
+        dk, dv = A.flash_backward_dkv(q, k, v, do, lse, delta, *rest)
+        torch.cuda.synchronize()
+        rdq, _ = A.flash_backward_dq_reference(q, k, v, out, do, lse, *rest)
+        rdk, rdv = A.flash_backward_dkv_reference(q, k, v, do, lse, delta, *rest)
+        ratios = {g: _bwd_ratio(a, r, dtype) for g, a, r in
+                  (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv))}
+        ratios["delta"] = _delta_ratio(delta, out, do)
+        check(max(ratios.values()) <= 1.0, f"backward at the {shape} shape disagrees with the "
+                                           f"plain version: {ratios}")
+        err = {"flash_bwd_dq": (dq.float() - rdq.float()).abs().max().item(),
+               "flash_bwd_dkv": max((dk.float() - rdk.float()).abs().max().item(),
+                                    (dv.float() - rdv.float()).abs().max().item())}
+        err["pair"] = max(err.values())
+
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(qg, kg, vg, scale=scale, is_causal=causal)
+        sdpa_fwd = time_ms(sdpa)
+        sdpa_fwd_bwd = time_ms(lambda: torch.autograd.grad(sdpa(), (qg, kg, vg), do))
+        library_ms = sdpa_fwd_bwd - sdpa_fwd
+        what = f"B={B} H={H} T={T} D={D} bf16" + (" causal" if causal else "")
+        print(f"{tag} sdpa at {what}: forward {sdpa_fwd:.4f} ms, forward+backward "
+              f"{sdpa_fwd_bwd:.4f} ms, backward {library_ms:.4f} ms (yardstick of both kernels)",
               flush=True)
-        timings[name] = {"max_abs_err": err[name], **report_timing(
-            tag, f"{name} at B={B} H={H} T={T} D={D} bf16", ms, plain_ms, library_ms,
-            nbytes, ops, "sdpa backward")}
-    return timings
+        elem = q.element_size()
+        bhtd, bht = B * H * T * D, B * H * T
+        pairs = T * (T + 1) // 2 if causal else T * T  # (query, key) pairs with a live score
+        prod = 2 * B * H * pairs * D  # operations of one [T,T,D] product
+        cases = (
+            # reads q, k, v, out, dO, lse; writes dq, delta; S, dP, dQ, delta
+            ("flash_bwd_dq", lambda: A.flash_backward_dq(q, k, v, out, do, lse, *rest),
+             lambda: A.flash_backward_dq_reference(q, k, v, out, do, lse, *rest),
+             6 * bhtd * elem + 2 * bht * 4, 3 * prod + 2 * bhtd),
+            # reads q, k, v, dO, lse, delta; writes dk, dv; S, dP, dV, dK
+            ("flash_bwd_dkv", lambda: A.flash_backward_dkv(q, k, v, do, lse, delta, *rest),
+             lambda: A.flash_backward_dkv_reference(q, k, v, do, lse, delta, *rest),
+             6 * bhtd * elem + 2 * bht * 4, 4 * prod),
+            # the function of the SDPA backward: reads q, k, v, out, dO, lse;
+            # writes dq, dk, dv
+            ("pair", lambda: A.flash_backward(q, k, v, out, lse, do, *rest),
+             lambda: A.flash_backward_reference(q, k, v, out, lse, do, *rest),
+             8 * bhtd * elem + bht * 4, 5 * prod + 2 * bhtd))
+        timings[shape] = {}
+        for name, fn, plain, nbytes, ops in cases:
+            ms = time_ms(fn)
+            plain_ms = time_ms(plain)
+            print(f"{tag} {name} at {what}: host time per wrapper call (launch included) "
+                  f"{host_us(fn):.1f} us; max|kernel-plain| {err[name]:.3e}", flush=True)
+            timings[shape][name] = {"max_abs_err": err[name], **report_timing(
+                tag, f"{name} at {what}", ms, plain_ms, library_ms, nbytes, ops,
+                "sdpa backward")}
+        print(f"{tag} backward at {what}: worst |kernel - plain| / bound " + ", ".join(
+            f"{g} {r:.3f}" for g, r in ratios.items()), flush=True)
+    return {name: timings["training"][name] for name in ("flash_bwd_dkv", "flash_bwd_dq")}
 
 
 # ------------------------------------------------------------------ phase 3
@@ -861,7 +935,7 @@ def main() -> int:
         for line in _build.build_info["log"].splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print("  " + line.strip(), flush=True)
-        report_forward_registers(tag, _build.build_info["log"])
+        report_bf16_registers(tag, _build.build_info["log"])
 
         errors = phase_kernels(tag)
         timing = time_kernel(tag)

@@ -6,19 +6,27 @@
 //   cp_async_16 / cp_async_4   asynchronous copies global -> shared memory
 //                              (cp.async), zero-filled when the source row
 //                              lies past the end of the sequence;
+//   cp_async_rows              a tile of rows of a [T, D] bf16 slab by
+//                              16-byte cp.async copies;
 //   ldmatrix_x4(_trans)        8x8 bf16 matrices from shared memory into
 //                              mma.sync operand fragments;
 //   mma_bf16_16816             D += A B on the tensor cores, m16n8k16, bf16
 //                              operands, float32 accumulator;
+//   mma_a_bt / mma_split_a_b   a 16-row strip of products: A from registers
+//                              times a shared-memory tile (transposed, as K
+//                              in Q K^T, or not, as V in P V);
 //   frag_row / frag_col        which (row, column) of a 16 x 8 accumulator
 //                              tile each of a thread's four floats holds;
 //   *_ldsm_offset              the element each lane points ldmatrix at, for
 //                              the A operand (row-major [m][k] tile) and the
 //                              B operand from a [n][k] tile (K for Q K^T) or,
 //                              transposed, from a [k][n] tile (V for P V);
-//   split_bf16                 a float32 pair as two bf16 terms hi + lo, so
-//                              that a float32 probability tile can be a
-//                              bf16 mma.sync operand to about 2^-16 relative.
+//   split_bf16 / split_a_frag  a float32 pair, or the A fragment made of two
+//                              accumulator tiles, as two bf16 terms hi + lo,
+//                              so that a float32 tile (P, dS) can be a bf16
+//                              mma.sync operand to about 2^-16 relative;
+//   allow_smem                 the dynamic shared-memory attribute, set once
+//                              per kernel and device.
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16" with
 // .bf16): lane = 4 g + t (g = lane / 4, t = lane % 4).
@@ -41,6 +49,9 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <atomic>
 #include <cstdint>
 
 namespace tdl {
@@ -77,6 +88,21 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [t0, t0 + kRows) of a [T, D] bf16 slab with row stride `stride_t`
+// (elements) into a kRows x (D + 8) tile, 16 bytes per copy, spread over the
+// kThreads threads of the block; rows at or past T are zero-filled.
+template <int D, int kRows, int kThreads>
+__device__ __forceinline__ void cp_async_rows(__nv_bfloat16* tile, const __nv_bfloat16* src,
+                                              long long stride_t, int t0, int T) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks per row
+  for (int c = threadIdx.x; c < kRows * kChunks; c += kThreads) {
+    const int r = c / kChunks, ch = c % kChunks;
+    const int t = t0 + r;
+    const bool valid = t < T;
+    cp_async_16(tile + r * (D + 8) + ch * 8, src + (valid ? t : 0) * stride_t + ch * 8, valid);
+  }
 }
 
 // ---------------------------------------------------------------- ldmatrix
@@ -134,6 +160,46 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// acc[j] += A B_j for j < kN: A is a 16 x 16 fragment (the 16-deep step at
+// column k0 of a 16-row strip), and B_j the transpose of rows n0 + 8j ..
+// n0 + 8j + 7, columns k0 .. k0 + 15, of a row-major [n][k] tile with row
+// stride ld (K in Q K^T: acc becomes a 16 x 8 kN strip of scores).
+template <int kN>
+__device__ __forceinline__ void mma_a_bt(float (&acc)[kN][4], const uint32_t (&a)[4],
+                                         const __nv_bfloat16* tile, int ld, int lane, int n0,
+                                         int k0) {
+  static_assert(kN % 2 == 0, "pairs of 8-column tiles");
+#pragma unroll
+  for (int j = 0; j < kN; j += 2) {
+    uint32_t b[4];
+    ldmatrix_x4(b, tile + bt_ldsm_offset(lane, ld, n0 + j * 8, k0));
+    mma_bf16_16816(acc[j], a, b[0], b[1]);
+    mma_bf16_16816(acc[j + 1], a, b[2], b[3]);
+  }
+}
+
+// acc[n] += (A_hi + A_lo) B_n for n < kN: A the 16 x 16 fragment of a
+// float32 operand split in two bf16 terms (split_a_frag), and B_n rows k0 ..
+// k0 + 15, columns 8n .. 8n + 7, of a row-major [k][n] tile with row stride
+// ld (V in P V), read by ldmatrix.trans. Both terms go into one float32
+// accumulator.
+template <int kN>
+__device__ __forceinline__ void mma_split_a_b(float (&acc)[kN][4], const uint32_t (&hi)[4],
+                                              const uint32_t (&lo)[4],
+                                              const __nv_bfloat16* tile, int ld, int lane,
+                                              int k0) {
+  static_assert(kN % 2 == 0, "pairs of 8-column tiles");
+#pragma unroll
+  for (int n = 0; n < kN; n += 2) {
+    uint32_t b[4];
+    ldmatrix_x4_trans(b, tile + b_ldsm_trans_offset(lane, ld, k0, n * 8));
+    mma_bf16_16816(acc[n], hi, b[0], b[1]);
+    mma_bf16_16816(acc[n], lo, b[0], b[1]);
+    mma_bf16_16816(acc[n + 1], hi, b[2], b[3]);
+    mma_bf16_16816(acc[n + 1], lo, b[2], b[3]);
+  }
+}
+
 // ------------------------------------------------------- fragment indices
 
 // Row and column within the 16 x 8 accumulator tile of element e (0..3) of
@@ -161,6 +227,35 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uin
   const float2 hf = __bfloat1622float2(h);
   hi = as_u32(h);
   lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+}
+
+// The A fragment of a 16-deep step whose columns 0-7 are the accumulator
+// tile c0 and columns 8-15 the tile c1 (the accumulator-to-A reuse above),
+// each value split hi + lo.
+__device__ __forceinline__ void split_a_frag(const float (&c0)[4], const float (&c1)[4],
+                                             uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split_bf16(c0[0], c0[1], hi[0], lo[0]);
+  split_bf16(c0[2], c0[3], hi[1], lo[1]);
+  split_bf16(c1[0], c1[1], hi[2], lo[2]);
+  split_bf16(c1[2], c1[3], hi[3], lo[3]);
+}
+
+// ------------------------------------------------------------------- host
+
+// cudaFuncSetAttribute(MaxDynamicSharedMemorySize) once per kernel and
+// device (the attribute belongs to the device's context), not per launch;
+// `done` holds one bit per device.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes, std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (bit != 0 && (done.load(std::memory_order_acquire) & bit)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
 }
 
 }  // namespace tdl

@@ -143,19 +143,11 @@ constexpr size_t bf16_smem_bytes() {
          2 * kBlockK * sizeof(int);
 }
 
-// rows [t0, t0 + kRows) of a [T, D] bf16 slab with row stride `stride_t` into
-// a kRows x (D+8) tile, 16 bytes per copy; rows at or past T are zero-filled.
+// rows [t0, t0 + kRows) of a [T, D] bf16 slab into a kRows x (D+8) tile
 template <int D, int kRows>
 __device__ __forceinline__ void stage_bf16(__nv_bfloat16* tile, const __nv_bfloat16* src,
                                            long long stride_t, int t0, int T) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < kRows * kChunks; c += kBf16Threads) {
-    const int r = c / kChunks, ch = c % kChunks;
-    const int t = t0 + r;
-    const bool valid = t < T;
-    tdl::cp_async_16(tile + r * kLd<D> + ch * 8,
-                     src + (valid ? t : 0) * stride_t + ch * 8, valid);
-  }
+  tdl::cp_async_rows<D, kRows, kBf16Threads>(tile, src, stride_t, t0, T);
 }
 
 // kMasked: the call has a causal mask, segment ids, or a ragged last k-tile
@@ -245,15 +237,7 @@ __global__ void __launch_bounds__(kBf16Threads) flash_fwd_bf16_kernel(Params p) 
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int ks = 0; ks < kSteps; ++ks) {
-#pragma unroll
-      for (int j = 0; j < kNT; j += 2) {
-        uint32_t kf[4];
-        tdl::ldmatrix_x4(kf, Kt + tdl::bt_ldsm_offset(lane, LD, j * 8, ks * 16));
-        tdl::mma_bf16_16816(s[j], qf[ks], kf[0], kf[1]);
-        tdl::mma_bf16_16816(s[j + 1], qf[ks], kf[2], kf[3]);
-      }
-    }
+    for (int ks = 0; ks < kSteps; ++ks) tdl::mma_a_bt(s, qf[ks], Kt, LD, lane, 0, ks * 16);
 
     // scale and masks; the row max over the keys before Tk
     float mx[2] = {kNegInf, kNegInf};
@@ -301,19 +285,8 @@ __global__ void __launch_bounds__(kBf16Threads) flash_fwd_bf16_kernel(Params p) 
 #pragma unroll
     for (int kk = 0; kk < kBlockK / 16; ++kk) {
       uint32_t ph[4], pl[4];
-      tdl::split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
-      tdl::split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
-      tdl::split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
-      tdl::split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
-#pragma unroll
-      for (int n = 0; n < kDT; n += 2) {
-        uint32_t vf[4];
-        tdl::ldmatrix_x4_trans(vf, Vt + tdl::b_ldsm_trans_offset(lane, LD, kk * 16, n * 8));
-        tdl::mma_bf16_16816(acc[n], ph, vf[0], vf[1]);
-        tdl::mma_bf16_16816(acc[n], pl, vf[0], vf[1]);
-        tdl::mma_bf16_16816(acc[n + 1], ph, vf[2], vf[3]);
-        tdl::mma_bf16_16816(acc[n + 1], pl, vf[2], vf[3]);
-      }
+      tdl::split_a_frag(s[2 * kk], s[2 * kk + 1], ph, pl);
+      tdl::mma_split_a_b(acc, ph, pl, Vt, LD, lane, kk * 16);
     }
 
     // tile kb + 1 has landed, and no warp reads stage kb & 1 any more
@@ -605,21 +578,6 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_fma_kernel(Params p) {
 
 // ------------------------------------------------------------------ launch
 
-// cudaFuncSetAttribute(MaxDynamicSharedMemorySize) once per kernel and
-// device (the attribute belongs to the device's context), not per launch.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes, std::atomic<unsigned long long>& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
-  if (bit != 0 && (done.load(std::memory_order_acquire) & bit)) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return err;
-}
-
 template <typename T, int D>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   static std::atomic<unsigned long long> attr_set{0};
@@ -629,12 +587,12 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
     const dim3 grid((p.Tq + kBf16BlockQ - 1) / kBf16BlockQ, p.B * p.H);
     const bool masked = p.causal || p.qseg != nullptr || p.Tk % kBlockK != 0;
     auto kernel = masked ? flash_fwd_bf16_kernel<D, true> : flash_fwd_bf16_kernel<D, false>;
-    const cudaError_t err = allow_smem(kernel, smem, masked ? masked_attr_set : attr_set);
+    const cudaError_t err = tdl::allow_smem(kernel, smem, masked ? masked_attr_set : attr_set);
     if (err != cudaSuccess) return err;
     kernel<<<grid, kBf16Threads, smem, stream>>>(p);
   } else {
     constexpr size_t smem = fma_smem_bytes<D>();
-    const cudaError_t err = allow_smem(flash_fwd_fma_kernel<D>, smem, attr_set);
+    const cudaError_t err = tdl::allow_smem(flash_fwd_fma_kernel<D>, smem, attr_set);
     if (err != cudaSuccess) return err;
     const dim3 grid((p.Tq + kBlockQ - 1) / kBlockQ, p.B * p.H);
     flash_fwd_fma_kernel<D><<<grid, kThreads, smem, stream>>>(p);

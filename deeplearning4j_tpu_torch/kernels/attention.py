@@ -17,13 +17,13 @@ pad shim; here they raise ``ValueError``.
 
 ``flash_attention`` runs the CUDA kernels for CUDA tensors and their plain
 PyTorch versions for CPU tensors: the forward ``csrc/flash_fwd.cu``
-(replacing the TPU's ``_flash_kernel``; tensor-core products for bfloat16,
-float32 FMA for float32) and, through a
+(replacing the TPU's ``_flash_kernel``) and, through a
 ``torch.autograd.Function``, the two backward kernels of
-``csrc/flash_bwd.cu`` (replacing ``_flash_bwd_dkv_kernel`` and
-``_flash_bwd_dq_kernel``). A CUDA tensor gets the kernels or an exception;
-nothing falls back. The kernels need no pad shim: they mask the ragged last
-tile themselves.
+``csrc/flash_bwd.cu`` (replacing ``_flash_bwd_dq_kernel``, which here also
+computes ``delta = rowsum(dO * out)``, and ``_flash_bwd_dkv_kernel``), all
+with tensor-core products for bfloat16 and float32 FMA for float32. A CUDA
+tensor gets the kernels or an exception; nothing falls back. The kernels
+need no pad shim: they mask the ragged last tile themselves.
 
 Rows with no live key. The forward gives such a row the uniform softmax
 over the Tk keys (out = mean of v) and lse = -1e30 + log Tk, which is -1e30
@@ -136,8 +136,10 @@ def _tile_scores(qf, kt, k0, qseg, kseg, causal, scale, q_offset):
 
 
 def flash_backward_delta(out, do) -> torch.Tensor:
-    """delta = rowsum(dO * O), [B,H,Tq] float32: computed before the backward
-    kernels, as the JAX package computes it in XLA (attention.py:312)."""
+    """delta = rowsum(dO * O), [B,H,Tq] float32. The JAX package computes it
+    in XLA before its backward kernels (attention.py:312); here the dq
+    kernel computes it (:func:`flash_backward_dq`) and this is its plain
+    version."""
     return (do.float() * out.float()).sum(dim=-1).contiguous()
 
 
@@ -171,10 +173,13 @@ def flash_backward_dkv_reference(q, k, v, do, lse, delta, qseg, kseg, causal: bo
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_backward_dq_reference(q, k, v, do, lse, delta, qseg, kseg, causal: bool,
+def flash_backward_dq_reference(q, k, v, out, do, lse, qseg, kseg, causal: bool,
                                 scale: float, q_offset: int):
-    """Plain PyTorch version of the dq kernel: dQ = sum over 64-key tiles of
-    dS K, in float32 (0 on rows with no live key). Returns dq in q's dtype."""
+    """Plain PyTorch version of the dq kernel: delta = rowsum(dO * O), then
+    dQ = sum over 64-key tiles of dS K, in float32 (0 on rows with no live
+    key). Returns (dq in q's dtype, delta [B,H,Tq] float32), delta being what
+    the dk/dv half takes."""
+    delta = flash_backward_delta(out, do)
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     dq = torch.zeros_like(qf)
     for k0 in range(0, k.shape[2], REFERENCE_BLOCK_K):
@@ -182,7 +187,7 @@ def flash_backward_dq_reference(q, k, v, do, lse, delta, qseg, kseg, causal: boo
         _, ds = _bwd_tile(qf, dof, kt, vf[:, :, k0:k0 + REFERENCE_BLOCK_K], k0, lse, delta,
                           qseg, kseg, causal, scale, q_offset)
         dq += torch.einsum("bhqk,bhkd->bhqd", ds, kt)
-    return dq.to(q.dtype)
+    return dq.to(q.dtype), delta
 
 
 def flash_backward_reference(q, k, v, out, lse, do, qseg, kseg, causal: bool,
@@ -190,10 +195,9 @@ def flash_backward_reference(q, k, v, out, lse, do, qseg, kseg, causal: bool,
     """Plain PyTorch version of the flash backward (both kernels): the
     gradients (dq, dk, dv) of ``out`` for the upstream gradient ``do``, from
     the forward's ``out`` and ``lse``, in the inputs' dtypes."""
-    delta = flash_backward_delta(out, do)
-    args = (q, k, v, do, lse, delta, qseg, kseg, causal, scale, q_offset)
-    dk, dv = flash_backward_dkv_reference(*args)
-    return flash_backward_dq_reference(*args), dk, dv
+    rest = (qseg, kseg, causal, scale, q_offset)
+    dq, delta = flash_backward_dq_reference(q, k, v, out, do, lse, *rest)
+    return (dq, *flash_backward_dkv_reference(q, k, v, do, lse, delta, *rest))
 
 
 _kernel_fns = {}
@@ -225,8 +229,8 @@ def bind_kernel(lib: ctypes.CDLL, name: str, n_ptrs: int, n_strides: int):
 
 def _check_kernel_inputs(name: str, q, k, v, qseg, kseg, more=()):
     """The checks every attention kernel's wrapper makes; ``more`` are
-    further tensors shaped and typed like q (the backward's dO). Returns
-    (B, H, Tq, Tk, D)."""
+    further tensors shaped and typed like q (the backward's out and dO).
+    Returns (B, H, Tq, Tk, D)."""
     if (qseg is None) != (kseg is None):
         raise ValueError("qseg and kseg come together")
     tensors = [q, k, v, *more] + ([qseg, kseg] if qseg is not None else [])
@@ -244,8 +248,8 @@ def _check_kernel_inputs(name: str, q, k, v, qseg, kseg, more=()):
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
     if any(t.shape != q.shape for t in more):
-        raise ValueError(f"{name}: the upstream gradient must be shaped like q "
-                         f"{tuple(q.shape)}")
+        raise ValueError(f"{name}: the forward's output and the upstream gradient must "
+                         f"be shaped like q {tuple(q.shape)}")
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"head dim {D} not supported by the kernel "
                          f"(one of {KERNEL_HEAD_DIMS})")
@@ -288,9 +292,9 @@ def _ptr(t):
 def rows_16_byte_aligned(ptr: int, strides, element_size: int) -> bool:
     """Whether every row of a [B, H, T, D] tensor with data pointer ``ptr``,
     element strides ``strides`` of its b/h/t axes and a contiguous last axis
-    starts on a 16-byte boundary: the bf16 forward kernel copies rows into
-    shared memory 16 bytes at a time (cp.async), which needs the pointer and
-    each stride, in bytes, to be multiples of 16."""
+    starts on a 16-byte boundary: the bf16 kernels copy rows into shared
+    memory 16 bytes at a time (cp.async), which needs the pointer and each
+    stride, in bytes, to be multiples of 16."""
     return ptr % 16 == 0 and all(s * element_size % 16 == 0 for s in strides)
 
 
@@ -332,10 +336,10 @@ def flash_forward(q, k, v, qseg, kseg, causal: bool, scale: float,
 flash_forward.launches = 0
 
 
-def _check_row_stats(lse, delta, B, H, Tq):
-    for name, t in (("lse", lse), ("delta", delta)):
+def _check_row_stats(q, B, H, Tq, **stats):
+    for name, t in stats.items():
         if (t.dtype != torch.float32 or tuple(t.shape) != (B, H, Tq)
-                or not t.is_contiguous() or t.device != lse.device):
+                or not t.is_contiguous() or t.device != q.device):
             raise ValueError(f"{name} must be a contiguous float32 [B,H,Tq] tensor on "
                              f"the inputs' device; got {t.dtype} {tuple(t.shape)}")
 
@@ -346,9 +350,12 @@ def flash_backward_dkv(q, k, v, do, lse, delta, qseg, kseg, causal: bool,
     TPU's ``_flash_bwd_dkv_kernel``). Same arguments and results as
     :func:`flash_backward_dkv_reference`, for CUDA tensors only (checked as
     in :func:`flash_forward`; ``do`` like q, ``lse``/``delta`` contiguous
-    float32 [B,H,Tq]). ``flash_backward_dkv.launches`` counts the launches."""
+    float32 [B,H,Tq]; for bfloat16, every row of q, k, v and ``do`` 16-byte
+    aligned). ``flash_backward_dkv.launches`` counts the launches."""
     B, H, Tq, Tk, D = _check_kernel_inputs("flash_backward_dkv", q, k, v, qseg, kseg, (do,))
-    _check_row_stats(lse, delta, B, H, Tq)
+    _check_row_stats(q, B, H, Tq, lse=lse, delta=delta)
+    if q.dtype == torch.bfloat16:
+        _check_rows_aligned("flash_backward_dkv", q=q, k=k, v=v, do=do)
     dk = torch.empty((B, H, Tk, D), dtype=k.dtype, device=k.device)
     dv = torch.empty((B, H, Tk, D), dtype=v.dtype, device=v.device)
     _launch("flash_bwd", "tdl_flash_bwd_dkv",
@@ -362,22 +369,27 @@ def flash_backward_dkv(q, k, v, do, lse, delta, qseg, kseg, causal: bool,
 flash_backward_dkv.launches = 0
 
 
-def flash_backward_dq(q, k, v, do, lse, delta, qseg, kseg, causal: bool,
-                      scale: float, q_offset: int) -> torch.Tensor:
+def flash_backward_dq(q, k, v, out, do, lse, qseg, kseg, causal: bool,
+                      scale: float, q_offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA dq kernel (``csrc/flash_bwd.cu``, replacing the TPU's
-    ``_flash_bwd_dq_kernel``). Same arguments and result as
+    ``_flash_bwd_dq_kernel``), which also computes delta = rowsum(dO * O)
+    for the dk/dv kernel. Same arguments and results (dq, delta) as
     :func:`flash_backward_dq_reference`, for CUDA tensors only (checked as
-    in :func:`flash_backward_dkv`). ``flash_backward_dq.launches`` counts
-    the launches."""
-    B, H, Tq, Tk, D = _check_kernel_inputs("flash_backward_dq", q, k, v, qseg, kseg, (do,))
-    _check_row_stats(lse, delta, B, H, Tq)
+    in :func:`flash_backward_dkv`; ``out`` like q). ``flash_backward_dq.
+    launches`` counts the launches."""
+    B, H, Tq, Tk, D = _check_kernel_inputs("flash_backward_dq", q, k, v, qseg, kseg,
+                                           (out, do))
+    _check_row_stats(q, B, H, Tq, lse=lse)
+    if q.dtype == torch.bfloat16:
+        _check_rows_aligned("flash_backward_dq", q=q, k=k, v=v, out=out, do=do)
     dq = torch.empty((B, H, Tq, D), dtype=q.dtype, device=q.device)
+    delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     _launch("flash_bwd", "tdl_flash_bwd_dq",
-            [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-             delta.data_ptr(), _ptr(qseg), _ptr(kseg), dq.data_ptr()],
-            (q, k, v, do), (B, H, Tq, Tk, D), q.dtype, causal, scale, q_offset, q.device)
+            [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), _ptr(qseg), _ptr(kseg), dq.data_ptr()],
+            (q, k, v, out, do), (B, H, Tq, Tk, D), q.dtype, causal, scale, q_offset, q.device)
     flash_backward_dq.launches += 1
-    return dq
+    return dq, delta
 
 
 flash_backward_dq.launches = 0
@@ -385,14 +397,14 @@ flash_backward_dq.launches = 0
 
 def flash_backward(q, k, v, out, lse, do, qseg, kseg, causal: bool, scale: float,
                    q_offset: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The flash backward on the card: delta as a PyTorch reduction, then
-    the dk/dv kernel and the dq kernel. Same arguments and results as
-    :func:`flash_backward_reference`. Neither kernel uses atomics, so the
-    gradients are the same bits from run to run."""
-    delta = flash_backward_delta(out, do)
-    args = (q, k, v, do, lse, delta, qseg, kseg, causal, scale, q_offset)
-    dk, dv = flash_backward_dkv(*args)
-    return flash_backward_dq(*args), dk, dv
+    """The flash backward on the card: the dq kernel, which also computes
+    delta, then the dk/dv kernel with that delta, on the current stream.
+    Same arguments and results as :func:`flash_backward_reference`.
+    Neither kernel uses atomics, so the gradients are the same bits from run
+    to run."""
+    rest = (qseg, kseg, causal, scale, q_offset)
+    dq, delta = flash_backward_dq(q, k, v, out, do, lse, *rest)
+    return (dq, *flash_backward_dkv(q, k, v, do, lse, delta, *rest))
 
 
 class FlashAttentionFunction(torch.autograd.Function):

@@ -218,10 +218,9 @@ def test_dead_row_rule_in_both_halves_of_the_plain_backward():
     kseg = torch.full((1, 8), -1, dtype=torch.int32)  # every key padded
     out, lse = TA.flash_forward_reference(q, k, v, qseg, kseg, False, 0.25, 0)
     assert bool((lse <= TA.DEAD_ROW_LSE).all())
-    delta = TA.flash_backward_delta(out, do)
-    args = (q, k, v, do, lse, delta, qseg, kseg, False, 0.25, 0)
-    dk, dv = TA.flash_backward_dkv_reference(*args)
-    dq = TA.flash_backward_dq_reference(*args)
+    rest = (qseg, kseg, False, 0.25, 0)
+    dq, delta = TA.flash_backward_dq_reference(q, k, v, out, do, lse, *rest)
+    dk, dv = TA.flash_backward_dkv_reference(q, k, v, do, lse, delta, *rest)
     assert not dq.any() and not dk.any()
     np.testing.assert_allclose(dv.numpy(), np.broadcast_to(
         do.numpy().sum(axis=2, keepdims=True) / 8, dv.shape), atol=1e-6)
@@ -252,9 +251,11 @@ def test_lse_carries_no_gradient_and_kernel_wrappers_refuse_cpu():
     out, lse = TA.flash_attention(q, k, v, return_lse=True)
     assert out.requires_grad and not lse.requires_grad
     d = torch.zeros((1, 2, 16), dtype=torch.float32)
-    for fn in (TA.flash_backward_dkv, TA.flash_backward_dq):
-        with pytest.raises(ValueError, match="CUDA"):
-            fn(q.detach(), k.detach(), v.detach(), q.detach(), d, d, None, None, False, 0.25, 0)
+    q, k, v = q.detach(), k.detach(), v.detach()
+    with pytest.raises(ValueError, match="CUDA"):
+        TA.flash_backward_dkv(q, k, v, q, d, d, None, None, False, 0.25, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        TA.flash_backward_dq(q, k, v, q, q, d, None, None, False, 0.25, 0)
 
 
 @pytest.mark.cuda
