@@ -7,16 +7,22 @@ Phases:
 
 1. build every CUDA kernel of ``deeplearning4j_tpu_torch/csrc`` with nvcc,
    and print the registers and spills of each instantiation of the bf16
-   kernels (forward, dkv, dq; none may spill at D=64 and D=128);
+   kernels (forward, dkv, dq) and of the float32 kernels (the split-TF32
+   forward per head dim and q-tile height, the FMA backward pair); no
+   forward, and no bf16 backward, may spill at D=64 and D=128;
 2. hold each kernel against its plain PyTorch version on the card, over the
    shapes of the main path and the edge cases of the masking model (the
-   backward's gradients, and the delta that the dq kernel computes), and
-   time the kernel, the plain version and the nearest PyTorch library call:
-   the bf16 flash forward at the serving shape [8,12,128,64], the training
-   shape [16,12,128,64] and a causal prefill [1,12,512,64] (also built with
-   32- and 128-row q-tiles, timed in turns against its 64), the float32
-   forward at that prefill; the two backward kernels, alone and as a pair,
-   at the training shape [16,12,128,64] and the causal prefill, bf16;
+   backward's gradients, and the delta that the dq kernel computes; the
+   float32 forward at each of its q-tile heights), and time the kernel, the
+   plain version and the nearest PyTorch library call: the bf16 flash
+   forward at the serving shape [8,12,128,64], the training shape
+   [16,12,128,64] and a causal prefill [1,12,512,64] (also built with 32-
+   and 128-row q-tiles, timed in turns against its 64); the float32 forward
+   at generation's causal prefills [1,12,T,64] (T = 512, 128, 256, and 512
+   with keys past 300 masked) and at the float32 step check's [16,12,128,64]
+   beside SDPA in float32 with TF32 off; the two backward kernels, alone and
+   as a pair, at the training shape [16,12,128,64] and the causal prefill,
+   bf16, and at the training shape in float32;
 3. serve BERT-base (12 layers, d 768, vocab 30522, bf16, random weights from
    a seed): ``forward`` on tokens [8, 128], then a ragged key-padding
    request; every request must launch the flash kernel once per layer, and
@@ -54,9 +60,12 @@ import time
 import numpy as np
 
 # Published peaks of one H100 SXM (dense): HBM bytes/s, and operations/s
-# by input type (bf16 on the tensor cores, float32 on the CUDA cores).
+# by input type (bf16 on the tensor cores, float32 on the CUDA cores). The
+# float32 forward multiplies on the TF32 tensor cores with split operands:
+# three TF32 products per float32 product (3xTF32), so its bound is a third
+# of the TF32 peak (494.7 TFLOP/s), and kernel / bound never reads below 1.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "3xtf32": 494.7e12 / 3}
 
 # kernel vs plain version on the same CUDA inputs
 FP32_ATOL = 2e-5             # float32: only the order of the sums differs
@@ -215,6 +224,11 @@ def ptxas_kernels(log) -> dict:
 
 
 BF16_KERNELS = ("flash_fwd_bf16_kernel", "flash_bwd_dkv_bf16_kernel", "flash_bwd_dq_bf16_kernel")
+# the float32 forward, instantiated per head dim and q-tile row groups (16
+# or 32 rows), and the float32 backward pair (FMA), per head dim
+F32_FWD_KERNEL = "flash_fwd_f32_kernel"
+F32_Q_ROWS = (16, 32)
+F32_BWD_KERNELS = ("flash_bwd_dkv_fma_kernel", "flash_bwd_dq_fma_kernel")
 
 
 def report_bf16_registers(tag, log):
@@ -237,6 +251,49 @@ def report_bf16_registers(tag, log):
         if d in (64, 128):
             check(info.get("spill_stores") == 0 and info.get("spill_loads") == 0,
                   f"{kernel}<D={d}, masked={masked}> spills registers: {info}")
+
+
+def report_f32_registers(tag, log):
+    """Print registers and spills of each float32 instantiation (forward
+    per head dim and row groups; the FMA backward pair per head dim); fail
+    if a D=64 or D=128 forward spills."""
+    fwd, bwd = {}, {}
+    for name, info in ptxas_kernels(log).items():
+        m = re.search(r"%sILi(\d+)ELi(\d+)E" % F32_FWD_KERNEL, name)
+        if m:
+            fwd[(int(m.group(1)), int(m.group(2)))] = info
+        m = re.search(r"(%s)ILi(\d+)EE" % "|".join(F32_BWD_KERNELS), name)
+        if m:
+            bwd[(m.group(1), int(m.group(2)))] = info
+    want = [(d, rows // 16) for d in (16, 32, 64, 128) for rows in F32_Q_ROWS]
+    check(sorted(fwd) == want, f"ptxas reported float32 forward kernels {sorted(fwd)}")
+    check(sorted(bwd) == [(k, d) for k in sorted(F32_BWD_KERNELS) for d in (16, 32, 64, 128)],
+          f"ptxas reported float32 backward kernels {sorted(bwd)}")
+    for (d, r), info in sorted(fwd.items()):
+        print(f"{tag} ptxas {F32_FWD_KERNEL}<D={d}, rows={16 * r}>: "
+              f"{info.get('registers')} registers, {info.get('spill_stores')} bytes spill "
+              f"stores, {info.get('spill_loads')} bytes spill loads", flush=True)
+        if d in (64, 128):
+            check(info.get("spill_stores") == 0 and info.get("spill_loads") == 0,
+                  f"{F32_FWD_KERNEL}<D={d}, rows={16 * r}> spills registers: {info}")
+    for (kernel, d), info in sorted(bwd.items()):
+        print(f"{tag} ptxas {kernel}<D={d}>: {info.get('registers')} registers, "
+              f"{info.get('spill_stores')} bytes spill stores, {info.get('spill_loads')} bytes "
+              f"spill loads", flush=True)
+
+
+def f32_q_rows(B, H, Tq) -> int:
+    """Rows of the float32 forward's q-tile for a call of this shape, as
+    the launch in csrc/flash_fwd.cu picks them (16 or 32)."""
+    import ctypes
+
+    from deeplearning4j_tpu_torch.kernels import _build
+
+    fn = _build.library("flash_fwd").tdl_flash_fwd_f32_q_rows
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    rows = fn(B, H, Tq)
+    check(rows in (16, 32), f"tdl_flash_fwd_f32_q_rows({B}, {H}, {Tq}) = {rows}")
+    return rows
 
 
 # ------------------------------------------------------------------ phase 2
@@ -298,6 +355,7 @@ def phase_kernels(tag):
 
     rs = np.random.RandomState(0)
     errors = {}
+    q_rows = set()
     for name, B, H, Tq, Tk, D, causal, kind in _kernel_cases():
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = _attention_inputs(rs, B, H, Tq, Tk, D, dtype, strided=kind is None)
@@ -319,11 +377,17 @@ def phase_kernels(tag):
             lse_diff = (lse - ref_lse).abs()
             lse_ok = bool((lse_diff <= LSE_TOL * ref_lse.abs().clamp(min=1.0)).all())
             dt = str(dtype).split(".")[-1]
-            print(f"{tag} kernel {name} {dt}: max|out-plain|={diff.max().item():.3e} "
+            tile = ""
+            if dtype == torch.float32:
+                q_rows.add(f32_q_rows(B, H, Tq))
+                tile = f" ({f32_q_rows(B, H, Tq)}-row q-tiles)"
+            print(f"{tag} kernel {name} {dt}{tile}: max|out-plain|={diff.max().item():.3e} "
                   f"max|lse-plain|={lse_diff.max().item():.3e}", flush=True)
             check(ok, f"kernel {name} {dt}: output disagrees with the plain version")
             check(lse_ok, f"kernel {name} {dt}: lse disagrees with the plain version")
             errors[(name, dt)] = diff.max().item()
+    check(q_rows == set(F32_Q_ROWS),
+          f"phase 2 ran the float32 forward with {sorted(q_rows)}-row q-tiles only")
     return errors
 
 
@@ -337,8 +401,7 @@ def time_kernel(tag):
     """The bf16 forward kernel, its plain version and the library call at
     each shape of ``FWD_TIMED_SHAPES`` (strided q/k/v from one fused
     projection, as ``_block`` gives them), each held against the plain
-    version first; then the float32 forward at the causal prefill shape.
-    Returns the serving shape's numbers."""
+    version first. Returns the serving shape's numbers."""
     import torch
     import torch.nn.functional as F
 
@@ -370,26 +433,73 @@ def time_kernel(tag):
             tag, f"flash_fwd {name} B={B} H={H} T={T} D={D} bf16"
             + (" causal" if causal else ""), ms, plain_ms, library_ms, nbytes, ops, "sdpa")}
 
-    # the float32 forward (the FMA kernel, which generation's prefill runs) at
-    # the causal prefill shape, beside SDPA in float32 with TF32 off
-    B, H, T, D = 1, 12, 512, 64
-    q, k, v = _attention_inputs(rs, B, H, T, T, D, torch.float32, strided=True)
-    scale = 1.0 / math.sqrt(D)
-    args = (None, None, True, scale, 0)
-    out, _ = A.flash_forward(q, k, v, *args)
-    ref, _ = A.flash_forward_reference(q, k, v, *args)
-    diff = (out - ref).abs().max().item()
-    check(diff <= FP32_ATOL, f"float32 flash_fwd at the prefill shape disagrees: {diff}")
-    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off for the float32 timing")
-    report_timing(
-        tag, f"flash_fwd float32 prefill_512_causal B={B} H={H} T={T} D={D}",
-        time_ms(lambda: A.flash_forward(q, k, v, *args)),
-        time_ms(lambda: A.flash_forward_reference(q, k, v, *args)),
-        time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale, is_causal=True)),
-        4 * B * H * T * D * 4 + B * H * T * 4, 2 * 2 * B * H * (T * (T + 1) // 2) * D,
-        "sdpa float32", dtype="float32")
-    print(f"{tag} flash_fwd float32 prefill: max|kernel-plain| {diff:.3e}", flush=True)
     return timings["serving"]
+
+
+# float32 forward timed at: generation's prefill calls (B=1, causal, strided
+# views of the fused projection; prefill_forward passes no key mask, the
+# causal mask keeps a bucket's padding out of the prompt's rows) at buckets
+# 512 (the kernels line reports it), 128 and 256; the 512 bucket again with
+# the keys past a 300-token prompt masked by segment ids (the mask path);
+# and the float32 train-step check's shape. (name, B, H, T, D, causal,
+# live keys or None)
+F32_FWD_TIMED_SHAPES = (("prefill_512_causal", 1, 12, 512, 64, True, None),
+                        ("prefill_128_causal", 1, 12, 128, 64, True, None),
+                        ("prefill_256_causal", 1, 12, 256, 64, True, None),
+                        ("prefill_512_causal_kseg300", 1, 12, 512, 64, True, 300),
+                        ("training", 16, 12, 128, 64, False, None))
+
+
+def time_f32_forward(tag):
+    """The float32 forward kernel at each shape of ``F32_FWD_TIMED_SHAPES``,
+    held against the plain version first, then timed beside the plain
+    version, SDPA in float32 with TF32 off, and its bound at the rate of its
+    3xTF32 products. Returns the 512-token prefill's numbers."""
+    import torch
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.kernels import attention as A
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off for the float32 timing")
+    rs = np.random.RandomState(8)
+    timings = {}
+    for name, B, H, T, D, causal, n_live in F32_FWD_TIMED_SHAPES:
+        q, k, v = _attention_inputs(rs, B, H, T, T, D, torch.float32, strided=True)
+        scale = 1.0 / math.sqrt(D)
+        qseg = kseg = None
+        attn_mask = None
+        if n_live is not None:
+            qseg = torch.zeros((B, T), dtype=torch.int32, device="cuda")
+            kseg = torch.where(torch.arange(T, device="cuda") < n_live, 0, -1).to(
+                torch.int32).expand(B, T).contiguous()
+            pos = torch.arange(T, device="cuda")
+            attn_mask = (pos[:, None] >= pos[None, :]) & (pos[None, :] < n_live)
+        args = (qseg, kseg, causal, scale, 0)
+        out, lse = A.flash_forward(q, k, v, *args)
+        ref, ref_lse = A.flash_forward_reference(q, k, v, *args)
+        diff = (out - ref).abs().max().item()
+        lse_ok = bool(((lse - ref_lse).abs() <= LSE_TOL * ref_lse.abs().clamp(min=1.0)).all())
+        check(diff <= FP32_ATOL and lse_ok,
+              f"float32 flash_fwd at the {name} shape disagrees with the plain version: {diff}")
+        if attn_mask is None:
+            sdpa = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale, is_causal=causal)
+        else:
+            sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
+                                                          scale=scale)
+        ms = time_ms(lambda: A.flash_forward(q, k, v, *args))
+        plain_ms = time_ms(lambda: A.flash_forward_reference(q, k, v, *args))
+        library_ms = time_ms(sdpa)
+        # (query, key) pairs with a live score, for this run's mask
+        rows = np.arange(T)
+        live = np.minimum(rows + 1, n_live or T) if causal else np.full(T, n_live or T)
+        ops = 2 * 2 * B * H * int(live.sum()) * D  # q k^T and p v
+        nbytes = 4 * B * H * T * D * 4 + B * H * T * 4 + (2 * B * T * 4 if qseg is not None else 0)
+        what = (f"flash_fwd float32 {name} B={B} H={H} T={T} D={D}"
+                f" ({f32_q_rows(B, H, T)}-row q-tiles)")
+        timings[name] = {"max_abs_err": diff, **report_timing(
+            tag, what, ms, plain_ms, library_ms, nbytes, ops, "sdpa float32", dtype="3xtf32")}
+        print(f"{tag} {what}: max|kernel-plain| {diff:.3e}", flush=True)
+    return timings["prefill_512_causal"]
 
 
 # q-tile heights the bf16 forward is also built with, to time against its 64
@@ -559,13 +669,15 @@ def phase_backward_kernels(tag):
 
 
 # backward timed at: the BERT-base training shape (the kernels line reports
-# it) and a causal prefill of one 512-token sequence
-BWD_TIMED_SHAPES = (("training", 16, 12, 128, 64, False),
-                    ("prefill_512_causal", 1, 12, 512, 64, True))
+# it) and a causal prefill of one 512-token sequence, bf16; and the float32
+# train-step check's shape (the FMA kernels)
+BWD_TIMED_SHAPES = (("training", 16, 12, 128, 64, False, "bfloat16"),
+                    ("prefill_512_causal", 1, 12, 512, 64, True, "bfloat16"),
+                    ("training_f32", 16, 12, 128, 64, False, "float32"))
 
 
 def time_backward(tag):
-    """The backward at each shape of ``BWD_TIMED_SHAPES``, bf16: the dq
+    """The backward at each shape of ``BWD_TIMED_SHAPES``: the dq
     kernel (which also computes delta), the dkv kernel, and the pair as
     ``flash_backward`` launches it, each held against its plain version
     first, then timed beside its plain version, its bound and the library
@@ -577,9 +689,9 @@ def time_backward(tag):
 
     from deeplearning4j_tpu_torch.kernels import attention as A
 
-    dtype = torch.bfloat16
     timings = {}
-    for shape, B, H, T, D, causal in BWD_TIMED_SHAPES:
+    for shape, B, H, T, D, causal, dt in BWD_TIMED_SHAPES:
+        dtype = getattr(torch, dt)
         rs = np.random.RandomState(4)
         q, k, v = _attention_inputs(rs, B, H, T, T, D, dtype, strided=True)
         do = torch.from_numpy(rs.randn(B, T, H, D).astype(np.float32)).to("cuda", dtype)
@@ -607,7 +719,7 @@ def time_backward(tag):
         sdpa_fwd = time_ms(sdpa)
         sdpa_fwd_bwd = time_ms(lambda: torch.autograd.grad(sdpa(), (qg, kg, vg), do))
         library_ms = sdpa_fwd_bwd - sdpa_fwd
-        what = f"B={B} H={H} T={T} D={D} bf16" + (" causal" if causal else "")
+        what = f"B={B} H={H} T={T} D={D} {dt}" + (" causal" if causal else "")
         print(f"{tag} sdpa at {what}: forward {sdpa_fwd:.4f} ms, forward+backward "
               f"{sdpa_fwd_bwd:.4f} ms, backward {library_ms:.4f} ms (yardstick of both kernels)",
               flush=True)
@@ -637,7 +749,7 @@ def time_backward(tag):
                   f"{host_us(fn):.1f} us; max|kernel-plain| {err[name]:.3e}", flush=True)
             timings[shape][name] = {"max_abs_err": err[name], **report_timing(
                 tag, f"{name} at {what}", ms, plain_ms, library_ms, nbytes, ops,
-                "sdpa backward")}
+                "sdpa backward", dtype=dt)}
         print(f"{tag} backward at {what}: worst |kernel - plain| / bound " + ", ".join(
             f"{g} {r:.3f}" for g, r in ratios.items()), flush=True)
     return {name: timings["training"][name] for name in ("flash_bwd_dkv", "flash_bwd_dq")}
@@ -936,17 +1048,19 @@ def main() -> int:
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print("  " + line.strip(), flush=True)
         report_bf16_registers(tag, _build.build_info["log"])
+        report_f32_registers(tag, _build.build_info["log"])
 
         errors = phase_kernels(tag)
         timing = time_kernel(tag)
+        f32_timing = time_f32_forward(tag)
         time_q_tiles(tag, q_tile_builds)
         phase_backward_kernels(tag)
         bwd_timing = time_backward(tag)
         print("phase 2 kernel vs plain: ok", flush=True)
-        launches = {"flash_fwd": [], "flash_bwd_dkv": [], "flash_bwd_dq": []}
+        launches = {"flash_fwd": [], "flash_fwd_f32": [], "flash_bwd_dkv": [], "flash_bwd_dq": []}
         phase_encoder(tag, launches["flash_fwd"])
         print("phase 3 encoder serving: ok", flush=True)
-        phase_generate(tag, launches["flash_fwd"])
+        phase_generate(tag, launches["flash_fwd_f32"])
         print("phase 4 generation: ok", flush=True)
         phase_train(tag, launches)
         print("phase 5 training: ok", flush=True)
@@ -966,6 +1080,13 @@ def main() -> int:
         "source": "deeplearning4j_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "deeplearning4j_tpu/kernels/attention.py:70",
         "launches": sum(launches["flash_fwd"]), "max_abs_err": max(main_path), **timing,
+    }, {
+        # the float32 forward (generation's prefill), a kernel of its own in
+        # the same source, timed at a 512-token causal prefill
+        "name": "flash_fwd_f32", "route": "cuda",
+        "source": "deeplearning4j_tpu_torch/csrc/flash_fwd.cu",
+        "replaces": "deeplearning4j_tpu/kernels/attention.py:70",
+        "launches": sum(launches["flash_fwd_f32"]), **f32_timing,
     }, {
         "name": "flash_bwd_dkv", "route": "cuda", "source": bwd,
         "replaces": "deeplearning4j_tpu/kernels/attention.py:213",

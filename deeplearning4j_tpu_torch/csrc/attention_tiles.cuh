@@ -1,17 +1,19 @@
-// Warp-level tile helpers for the bf16 attention kernels on Hopper (sm_90a).
+// Warp-level tile helpers for the attention kernels on Hopper (sm_90a).
 //
-// The flash-attention kernels of this directory build their bf16 products
-// from these pieces:
+// The flash-attention kernels of this directory build their tensor-core
+// products from these pieces:
 //
 //   cp_async_16 / cp_async_4   asynchronous copies global -> shared memory
 //                              (cp.async), zero-filled when the source row
 //                              lies past the end of the sequence;
-//   cp_async_rows              a tile of rows of a [T, D] bf16 slab by
-//                              16-byte cp.async copies;
+//   cp_async_tile / _rows      a tile of rows of a [T, D] slab (bf16 or
+//                              float32) by 16-byte cp.async copies;
 //   ldmatrix_x4(_trans)        8x8 bf16 matrices from shared memory into
 //                              mma.sync operand fragments;
 //   mma_bf16_16816             D += A B on the tensor cores, m16n8k16, bf16
 //                              operands, float32 accumulator;
+//   split_tf32 /               float32 operands on the TF32 tensor cores,
+//   mma_tf32_1688              split in two terms (3xTF32, see below);
 //   mma_a_bt / mma_split_a_b   a 16-row strip of products: A from registers
 //                              times a shared-memory tile (transposed, as K
 //                              in Q K^T, or not, as V in P V);
@@ -90,19 +92,27 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Rows [t0, t0 + kRows) of a [T, D] bf16 slab with row stride `stride_t`
-// (elements) into a kRows x (D + 8) tile, 16 bytes per copy, spread over the
+// Rows [t0, t0 + kRows) of a [T, D] slab of Elem with row stride `stride_t`
+// (elements) into a kRows x LD tile, 16 bytes per copy, spread over the
 // kThreads threads of the block; rows at or past T are zero-filled.
-template <int D, int kRows, int kThreads>
-__device__ __forceinline__ void cp_async_rows(__nv_bfloat16* tile, const __nv_bfloat16* src,
-                                              long long stride_t, int t0, int T) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
+template <typename Elem, int D, int LD, int kRows, int kThreads>
+__device__ __forceinline__ void cp_async_tile(Elem* tile, const Elem* src, long long stride_t,
+                                              int t0, int T) {
+  constexpr int kPer = 16 / sizeof(Elem);  // elements per copy
+  constexpr int kChunks = D / kPer;        // copies per row
   for (int c = threadIdx.x; c < kRows * kChunks; c += kThreads) {
     const int r = c / kChunks, ch = c % kChunks;
     const int t = t0 + r;
     const bool valid = t < T;
-    cp_async_16(tile + r * (D + 8) + ch * 8, src + (valid ? t : 0) * stride_t + ch * 8, valid);
+    cp_async_16(tile + r * LD + ch * kPer, src + (valid ? t : 0) * stride_t + ch * kPer, valid);
   }
+}
+
+// The bf16 tiles of the kernels: row stride D + 8 (see above).
+template <int D, int kRows, int kThreads>
+__device__ __forceinline__ void cp_async_rows(__nv_bfloat16* tile, const __nv_bfloat16* src,
+                                              long long stride_t, int t0, int T) {
+  cp_async_tile<__nv_bfloat16, D, D + 8, kRows, kThreads>(tile, src, stride_t, t0, T);
 }
 
 // ---------------------------------------------------------------- ldmatrix
@@ -198,6 +208,49 @@ __device__ __forceinline__ void mma_split_a_b(float (&acc)[kN][4], const uint32_
     mma_bf16_16816(acc[n + 1], hi, b[2], b[3]);
     mma_bf16_16816(acc[n + 1], lo, b[2], b[3]);
   }
+}
+
+// ------------------------------------------------ mma.sync, split TF32
+//
+// The float32 kernels multiply on the tensor cores in TF32 (10 mantissa
+// bits), each operand split as x = hi + lo with hi = tf32(x) and lo the
+// rest (split_tf32). Three products, lo*hi + hi*lo + hi*hi, go into float32
+// accumulators (3xTF32); the dropped lo*lo and the truncation of lo are
+// about 2^-21 of |x y|, so a product keeps nearly float32's precision where
+// one TF32 product (hi*hi alone) is off by up to 2^-10 of it.
+//
+// Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k8" with .tf32):
+// lane = 4 g + t.
+//   A, 16 x 8, four registers:  a0 (row g, col t)    a1 (row g+8, col t)
+//                               a2 (row g, col t+4)  a3 (row g+8, col t+4)
+//   B, 8 x 8 (k x n), two:      b0 (row t, col g)    b1 (row t+4, col g)
+//   C/D, 16 x 8 float32: as for m16n8k16 above.
+// An accumulator tile {c0, c1, c2, c3} is the A fragment {c0, c2, c1, c3} of
+// a product over its 8 columns taken in the order 0, 2, 4, 6, 1, 3, 5, 7 (A's
+// column t is the tile's column 2t, column t+4 is 2t+1), provided B's rows
+// are taken in the same order: P V with P from registers.
+
+// x = hi + lo for the TF32 tensor cores, which read only the top 19 bits
+// (sign, exponent, 10 mantissa bits) of an operand register. hi is x
+// rounded to TF32 (to nearest, ties away from zero: add half of the 13
+// dropped bits to the magnitude, then clear them); lo = x - hi is exact in
+// float32 and goes in as it is, so the tensor core truncates it to 10 bits
+// (an error below 2^-10 |lo| <= 2^-21 |x|). Three integer and float
+// operations, where cvt.rna.tf32.f32 compiles to eight or nine on sm_90
+// (with checks for infinities and NaN, which these kernels never pass).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a b: A 16 x 8 and B 8 x 8 TF32, d 16 x 8 float32.
+__device__ __forceinline__ void mma_tf32_1688(float (&d)[4], const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ------------------------------------------------------- fragment indices

@@ -17,9 +17,10 @@
 //
 // Grid. The TPU grid walks the k-blocks of one q-block in order and keeps
 // the running max / sum / accumulator in VMEM scratch between grid steps.
-// Blocks of a CUDA grid run in no order, so here one thread block of 128
-// threads owns one (batch*head, 64-row q-tile) and loops over the 64-key
-// tiles itself; m, l and acc stay in registers for the whole sweep. At the
+// Blocks of a CUDA grid run in no order, so here a thread block of 128
+// threads owns one (batch*head, q-tile) and loops over the 64-key tiles
+// itself; m, l and acc stay in registers for the whole sweep. For bf16 the
+// q-tile is 64 rows. At the
 // BERT-base shape (B=8, H=12, T=128) that is 192 blocks on the H100's 132
 // SMs, all resident at once. The bf16 kernel's tile height was measured,
 // not carried over (chip_smoke.py builds it with 32 and 128 rows too): 128
@@ -29,7 +30,7 @@
 // that lie wholly above the diagonal for every row of the q-tile are
 // skipped, as `_block_live` does on the TPU.
 //
-// Two kernels share that grid.
+// Two kernels share that scheme.
 //
 // bfloat16 inputs: flash_fwd_bf16_kernel, on the tensor cores. Each of the
 // four warps owns 16 query rows. A call with no causal mask, no segment ids
@@ -62,13 +63,49 @@
 // Shared memory: Q and two stages of K and V, 5 x 64 x (D+8) bf16, plus the
 // key segment ids: 46.6 KB at D=64, 87.6 KB at D=128.
 //
-// float32 inputs: flash_fwd_fma_kernel, exact float32 FMA on the CUDA cores
-// (the first version of this kernel, kept for float32: the token identity
-// of generation and the float32 train-step check depend on it). 128 threads
-// form a 16 x 8 grid over the 64 x 64 score tile: a thread owns 4 query rows
-// and 8 key columns of s, and 4 query rows and D/8 output columns of acc.
-// Tiles are staged as float32 with row stride D+1; the probability tile goes
-// through shared memory to the P V product.
+// float32 inputs: flash_fwd_f32_kernel<D, kRowGroups>, on the TF32 tensor
+// cores with split operands (3xTF32). Generation's prefill (B=1, causal,
+// 32..512-token buckets) and the float32 train-step check run it; their
+// token identity and gradient checks need float32 products, and one TF32
+// product (10 mantissa bits) would miss phase 2's 2e-5 by far.
+//   - Products: every operand x of Q K^T and P V is split x = hi + lo (hi
+//     = x rounded to TF32, lo = x - hi, which the tensor core truncates),
+//     and mma.sync m16n8k8 adds lo*hi, hi*lo and hi*hi in float32: each
+//     product to about 2^-21 of |x y| (attention_tiles.cuh). The split is
+//     three integer and float operations; cvt.rna.tf32.f32 would be eight
+//     or nine. A warp runs its instructions in order and a product's sum
+//     is ready some 30 cycles after it starts, so consecutive mma.sync
+//     write different accumulators: S's three terms go to three
+//     accumulators (and two copies by k-step parity at 16 keys), O's tiles
+//     are taken eight at a time, term by term. Bound: three TF32 products
+//     per float32 product, 495 / 3 = 165 TFLOP/s, above the CUDA cores' 67
+//     TFLOP/s.
+//   - Staging: Q, and K and V through a two-stage ring of 64-key tiles, go
+//     to shared memory as float32 (row stride D+4: conflict-free fragment
+//     loads, 16-byte rows) by cp.async, one barrier per tile; the wrapper
+//     checks that q, k and v are 16-byte aligned in every row. Q's A
+//     fragments are then held in registers, split, for the whole sweep
+//     (16-row q-tiles at D <= 64) or read and split at each use (32-row
+//     q-tiles, D = 128). B fragments are scalar shared-memory loads.
+//   - P stays in registers: the S accumulator is the A operand of P V with
+//     the keys of each 8-key tile taken in the order 0, 2, 4, 6, 1, 3, 5, 7
+//     and V's rows read in that order (attention_tiles.cuh).
+//   - Filling the card at batch 1. The q-tile is 16 or 32 rows (one or two
+//     row groups of 16) and the block's four warps split every k-tile
+//     between the row groups' key groups: at 16 rows each warp takes 16
+//     keys of each tile, with its own (m, l, acc), and the epilogue combines
+//     the four parts of a row in shared memory in a fixed order (no
+//     atomics: the same bits from run to run). The launch takes 32-row
+//     q-tiles where they still give every SM two blocks (f32_row_groups): a
+//     causal 512-token prefill of 12 heads runs 384 blocks of 16 rows, the
+//     B=16 training shape 768 blocks of 32 rows.
+//   - Causal imbalance: q-tiles are numbered from the last, so the blocks
+//     that walk the most k-tiles are scheduled first; a warp whose keys of a
+//     tile lie above the diagonal for all its rows skips the tile's
+//     products.
+// Shared memory: two stages of K and V, 4 x 64 x (D+4) float32, the key
+// segment ids, and Q where it is read at each use: 70.1 KB (16 rows) and
+// 78.8 KB (32 rows) at D=64, 144.1 and 152.6 KB at D=128.
 //
 // Bound on the H100 at the BERT-base shape (B=8, H=12, T=128, D=64, bf16):
 // the call must read q, k, v and write out (4 x 1.57 MB) and lse (49 KB),
@@ -76,6 +113,9 @@
 // the bf16 tensor-core peak (three products with the split of P: 0.6 us). So
 // the bound is the bytes, and mma.sync tiles suffice: wgmma and TMA pay off
 // where the tensor-core rate becomes the limit (long prefill), not here.
+// float32 at a causal 512-token prefill (B=1, H=12, D=64): 0.40 GFLOP of
+// live products, 2.4 us at 165 TFLOP/s (3xTF32), above the 6.3 MB of bytes
+// (1.9 us): the products bound it.
 // PERF.md records the measured times beside the bound.
 
 #include <cuda_bf16.h>
@@ -88,8 +128,6 @@
 namespace {
 
 constexpr int kBlockK = 64;    // keys per k-tile, both kernels
-constexpr int kBlockQ = 64;    // query rows per block of the float32 kernel
-constexpr int kThreads = 128;  // threads per block of the float32 kernel
 constexpr float kNegInf = -1e30f;  // finite mask, as on the TPU
 
 struct Strides {
@@ -375,214 +413,395 @@ __global__ void __launch_bounds__(kBf16Threads) flash_fwd_bf16_kernel(Params p) 
   }
 }
 
-// --------------------------------------------------- float32: CUDA cores
+// ------------------------------------------- float32: split-TF32 tensor cores
 
-constexpr int kColGroups = 8;                       // threads across a score row
-constexpr int kRowGroups = kThreads / kColGroups;   // 16
-constexpr int kRows = kBlockQ / kRowGroups;         // query rows per thread: 4
-constexpr int kCols = kBlockK / kColGroups;         // key columns per thread: 8
+// A block is four warps. Its q-tile is kRowGroups x 16 rows, and its four
+// warps are kRowGroups row groups times kSplits key groups: the warp (r, s)
+// owns rows 16 r .. 16 r + 15 of the q-tile and keys s KW .. s KW + KW - 1 of
+// every 64-key tile (KW = 64 / kSplits). Each warp keeps its own (m, l, acc)
+// over its keys; the epilogue combines the kSplits partial results of a row
+// in shared memory, in float32 and in a fixed order (no atomics).
+constexpr int kF32Threads = 128;
+constexpr int kF32Warps = kF32Threads / 32;
 
+// row stride, in floats, of a float32 tile in shared memory: D + 4 puts the
+// eight rows a fragment load touches on eight distinct groups of 4 banks
+// (conflict-free scalar loads of the B operands of both products) and keeps
+// every row 16-byte aligned for cp.async
 template <int D>
-constexpr size_t fma_smem_bytes() {
-  return (size_t(kBlockQ) * (D + 1) + 2 * size_t(kBlockK) * (D + 1) +
-          size_t(kBlockQ) * (kBlockK + 1)) * sizeof(float) +
-         kBlockK * sizeof(int);
+constexpr int kLdF = D + 4;
+
+// Q's A fragments stay in registers, split, for the whole sweep only where
+// that fits beside the rest: 16-row q-tiles at D <= 64 (each warp's S is
+// then 16 x 16). Elsewhere Q is staged in shared memory and its fragments
+// are loaded and split at each use.
+template <int D, int kRowGroups>
+constexpr bool kQInRegisters = D <= 64 && kRowGroups == 1;
+
+template <int D, int kRowGroups>
+constexpr size_t f32_smem_bytes() {
+  return (size_t(4 * kBlockK) + (kQInRegisters<D, kRowGroups> ? 0 : 16 * kRowGroups)) *
+             kLdF<D> * sizeof(float) +
+         2 * kBlockK * sizeof(int);
 }
 
-// Sum over the 8 lanes that share a score row (consecutive lanes).
-__device__ __forceinline__ float row_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  x += __shfl_xor_sync(0xffffffffu, x, 4);
-  return x;
-}
+template <int D, int kRowGroups>
+__global__ void __launch_bounds__(kF32Threads) flash_fwd_f32_kernel(Params p) {
+  constexpr int kSplits = kF32Warps / kRowGroups;
+  constexpr int kBlockRows = 16 * kRowGroups;
+  constexpr int LD = kLdF<D>;
+  constexpr int KW = kBlockK / kSplits;  // keys of a tile per warp
+  constexpr int kNT = KW / 8;            // 8-key accumulator tiles of S
+  constexpr int kSteps = D / 8;          // 8-deep steps of Q K^T
+  constexpr int kDT = D / 8;             // 8-column accumulator tiles of O
+  constexpr bool kQRegs = kQInRegisters<D, kRowGroups>;
+  extern __shared__ __align__(16) unsigned char smem_f32[];
+  float* Ks = reinterpret_cast<float*>(smem_f32);  // [2][64][LD]
+  float* Vs = Ks + 2 * kBlockK * LD;               // [2][64][LD]
+  int* kseg_s = reinterpret_cast<int*>(Vs + 2 * kBlockK * LD);  // [2][64]
+  float* Qs = reinterpret_cast<float*>(kseg_s + 2 * kBlockK);   // [kBlockRows][LD]
 
-__device__ __forceinline__ float row_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
-  return x;
-}
-
-template <int D>
-__device__ __forceinline__ void stage_f32(float* dst, const float* src, long long stride_t,
-                                          int t0, int T_len) {
-  constexpr int LD = D + 1;
-  for (int i = threadIdx.x; i < kBlockK * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    const int t = t0 + r;
-    dst[r * LD + d] = t < T_len ? src[t * stride_t + d] : 0.f;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_fma_kernel(Params p) {
-  constexpr int LD = D + 1;
-  constexpr int LDP = kBlockK + 1;
-  constexpr int DPT = D / kColGroups;  // output columns per thread
-  extern __shared__ float smem_f32[];
-  float* Qs = smem_f32;
-  float* Ks = Qs + kBlockQ * LD;
-  float* Vs = Ks + kBlockK * LD;
-  float* Ps = Vs + kBlockK * LD;
-  int* kseg_s = reinterpret_cast<int*>(Ps + kBlockQ * LDP);
-
-  const int tr = threadIdx.x / kColGroups;
-  const int tc = threadIdx.x % kColGroups;
-  const int bh = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int wr = warp / kSplits, ws = warp % kSplits;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
   const int b = bh / p.H, h = bh % p.H;
-  const int q0 = blockIdx.x * kBlockQ;
+  // the q-tiles in reverse: under `causal` the last q-tiles walk the most
+  // k-tiles, and blockIdx.y = 0 is scheduled first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockRows;
   const bool has_seg = p.qseg != nullptr;
 
   const float* qp = static_cast<const float*>(p.q) + b * p.sq.b + h * p.sq.h;
   const float* kp = static_cast<const float*>(p.k) + b * p.sk.b + h * p.sk.h;
   const float* vp = static_cast<const float*>(p.v) + b * p.sv.b + h * p.sv.h;
+  const int* ksp = has_seg ? p.kseg + (long long)b * p.Tk : nullptr;
 
-  for (int i = threadIdx.x; i < kBlockQ * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    const int t = q0 + r;
-    Qs[r * LD + d] = t < p.Tq ? qp[t * p.sq.t + d] : 0.f;
-  }
+  const int n_tiles = live_k_tiles(p, q0, kBlockRows);
+  auto stage_kv = [&](int kb) {
+    const int buf = kb & 1, k0 = kb * kBlockK;
+    tdl::cp_async_tile<float, D, LD, kBlockK, kF32Threads>(Ks + buf * kBlockK * LD, kp,
+                                                            p.sk.t, k0, p.Tk);
+    tdl::cp_async_tile<float, D, LD, kBlockK, kF32Threads>(Vs + buf * kBlockK * LD, vp,
+                                                            p.sv.t, k0, p.Tk);
+    if (has_seg && threadIdx.x < kBlockK) {
+      const int tk = k0 + threadIdx.x;
+      tdl::cp_async_4(kseg_s + buf * kBlockK + threadIdx.x, ksp + (tk < p.Tk ? tk : 0),
+                      tk < p.Tk);
+    }
+  };
+  // Q goes to its own tile, or, where its fragments stay in registers, to
+  // stage 1 of the K ring until they are read
+  tdl::cp_async_tile<float, D, LD, kBlockRows, kF32Threads>(kQRegs ? Ks + kBlockK * LD : Qs, qp,
+                                                            p.sq.t, q0, p.Tq);
+  if (n_tiles > 0) stage_kv(0);
+  tdl::cp_async_commit();
 
-  int qseg[kRows];
-  float m[kRows], l[kRows], acc[kRows][DPT];
+  // this lane's two query rows: g and g + 8 of the warp's 16
+  const int row0 = q0 + wr * 16 + g;
+  int qseg[2], qpos[2];
+  float m[2], l[2];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = q0 + tr + kRowGroups * i;
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
     qseg[i] = (has_seg && row < p.Tq) ? p.qseg[(long long)b * p.Tq + row] : 0;
+    qpos[i] = p.q_offset + row;
     m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) acc[i][c] = 0.f;
+    l[i] = 0.f;  // this lane's share of the row sum
   }
+  // this lane's Q in shared memory: element e of the A fragment of step ks
+  // is Qw[8 (e & 1) LD + 8 ks + 4 (e >> 1)] (row g + 8 (e & 1), column
+  // 8 ks + t + 4 (e >> 1) of the warp's 16 rows)
+  const float* Qw = (kQRegs ? Ks + kBlockK * LD : Qs) + (wr * 16 + g) * LD + t;
+  uint32_t qhi[kQRegs ? kSteps : 1][4], qlo[kQRegs ? kSteps : 1][4];
+  float acc[kDT][4];
+#pragma unroll
+  for (int n = 0; n < kDT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  const int num_k = (p.Tk + kBlockK - 1) / kBlockK;
-  const int n_tiles = live_k_tiles(p, q0, kBlockQ);
+  // the last row of this warp, and its first key in a tile
+  const int last_qpos = p.q_offset + q0 + wr * 16 + 15;
+  const int kc = ws * KW;
+
+  tdl::cp_async_wait<0>();
+  __syncthreads();
+  if constexpr (kQRegs) {
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        tdl::split_tf32(Qw[8 * (e & 1) * LD + ks * 8 + 4 * (e >> 1)], qhi[ks][e], qlo[ks][e]);
+    __syncthreads();  // stage 1 is the ring's again
+  }
   for (int kb = 0; kb < n_tiles; ++kb) {
-    const int k0 = kb * kBlockK;
-    __syncthreads();  // the previous tile's K, V and P are no longer read
-    stage_f32<D>(Ks, kp, p.sk.t, k0, p.Tk);
-    stage_f32<D>(Vs, vp, p.sv.t, k0, p.Tk);
-    if (has_seg) {
-      for (int i = threadIdx.x; i < kBlockK; i += kThreads)
-        kseg_s[i] = k0 + i < p.Tk ? p.kseg[(long long)b * p.Tk + k0 + i] : -1;
+    // the stage written here was last read in iteration kb - 1, before the
+    // barrier that ended it
+    if (kb + 1 < n_tiles) stage_kv(kb + 1);
+    tdl::cp_async_commit();
+
+    const int buf = kb & 1, k0 = kb * kBlockK;
+    const float* Kt = Ks + buf * kBlockK * LD + kc * LD;
+    const float* Vt = Vs + buf * kBlockK * LD + kc * LD;
+    const int* kseg_t = kseg_s + buf * kBlockK + kc;
+    // this warp's keys of the tile: all past Tk, or (causal) all above the
+    // diagonal for each of its rows, add nothing (a masked key's weight is
+    // exp(-1e30 - m) = 0 once any key of the row is live, and a row with no
+    // live key is rebuilt below)
+    const bool idle = k0 + kc >= p.Tk || (p.causal && k0 + kc > last_qpos);
+    if (!idle) {
+      // S = Q K^T for this warp's 16 rows x KW keys. A warp runs its
+      // instructions in order and an mma.sync's sum is ready some 30 cycles
+      // later, so the three terms go to three accumulators (hi*hi, lo*hi,
+      // hi*lo), and at 16 keys to two copies of each by the parity of the
+      // k-step: each k-step starts 3 kNT products in 3 kNT accumulators.
+      constexpr int kC = kNT == 2 ? 2 : 1;
+      float shh[kC][kNT][4], slh[kC][kNT][4], shl[kC][kNT][4];
+#pragma unroll
+      for (int c = 0; c < kC; ++c)
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) shh[c][j][e] = slh[c][j][e] = shl[c][j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < kSteps; ++ks) {
+        const int c = ks % kC;
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if constexpr (kQRegs) {
+            ah[e] = qhi[ks][e];
+            al[e] = qlo[ks][e];
+          } else {
+            tdl::split_tf32(Qw[8 * (e & 1) * LD + ks * 8 + 4 * (e >> 1)], ah[e], al[e]);
+          }
+        }
+        uint32_t bh[kNT][2], bl[kNT][2];
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+          const float* kr = Kt + (j * 8 + g) * LD + ks * 8 + t;
+          tdl::split_tf32(kr[0], bh[j][0], bl[j][0]);
+          tdl::split_tf32(kr[4], bh[j][1], bl[j][1]);
+        }
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) tdl::mma_tf32_1688(shh[c][j], ah, bh[j][0], bh[j][1]);
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) tdl::mma_tf32_1688(slh[c][j], al, bh[j][0], bh[j][1]);
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) tdl::mma_tf32_1688(shl[c][j], ah, bl[j][0], bl[j][1]);
+      }
+      // the small terms first, then hi*hi
+      float s[kNT][4];
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float small = 0.f, big = 0.f;
+#pragma unroll
+          for (int c = 0; c < kC; ++c) {
+            small += slh[c][j][e] + shl[c][j][e];
+            big += shh[c][j][e];
+          }
+          s[j][e] = small + big;
+        }
+
+      // scale and masks; the row max over the keys before Tk
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const int c = j * 8 + tdl::frag_col(lane, e);  // key k0 + kc + c
+          bool live = true;
+          if (p.causal) live = qpos[i] >= k0 + kc + c;
+          if (has_seg) live = live && qseg[i] == kseg_t[c];
+          s[j][e] = live ? s[j][e] * p.scale : kNegInf;
+          if (k0 + kc + c < p.Tk) mx[i] = fmaxf(mx[i], s[j][e]);
+        }
+      }
+      float corr[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        corr[i] = exp2f((m[i] - m_new) * kLog2e);
+        m[i] = m_new;
+        l[i] *= corr[i];
+      }
+      // s becomes p = exp(s - m), 0 past Tk
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const int c = j * 8 + tdl::frag_col(lane, e);
+          const float pj = k0 + kc + c < p.Tk ? exp2f((s[j][e] - m[i]) * kLog2e) : 0.f;
+          s[j][e] = pj;
+          l[i] += pj;
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < kDT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
+
+      // O += P V: P from registers, 8 keys per step, in the key order
+      // 0, 2, 4, 6, 1, 3, 5, 7 of its accumulator tile (attention_tiles.cuh);
+      // the output tiles in groups of kG, each term over the group before
+      // the next, so that a tile's products are kG instructions apart
+      constexpr int kG = kDT < 8 ? kDT : 8;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        uint32_t ph[4], pl[4];
+        tdl::split_tf32(s[j][0], ph[0], pl[0]);
+        tdl::split_tf32(s[j][2], ph[1], pl[1]);
+        tdl::split_tf32(s[j][1], ph[2], pl[2]);
+        tdl::split_tf32(s[j][3], ph[3], pl[3]);
+        const float* vr = Vt + (j * 8 + 2 * t) * LD + g;
+#pragma unroll
+        for (int n0 = 0; n0 < kDT; n0 += kG) {
+          uint32_t vh[kG][2], vl[kG][2];
+#pragma unroll
+          for (int i = 0; i < kG; ++i) {
+            tdl::split_tf32(vr[(n0 + i) * 8], vh[i][0], vl[i][0]);
+            tdl::split_tf32(vr[LD + (n0 + i) * 8], vh[i][1], vl[i][1]);
+          }
+#pragma unroll
+          for (int i = 0; i < kG; ++i) tdl::mma_tf32_1688(acc[n0 + i], pl, vh[i][0], vh[i][1]);
+#pragma unroll
+          for (int i = 0; i < kG; ++i) tdl::mma_tf32_1688(acc[n0 + i], ph, vl[i][0], vl[i][1]);
+#pragma unroll
+          for (int i = 0; i < kG; ++i) tdl::mma_tf32_1688(acc[n0 + i], ph, vh[i][0], vh[i][1]);
+        }
+      }
     }
+
+    // tile kb + 1 has landed, and no warp reads stage kb & 1 any more
+    tdl::cp_async_wait<0>();
     __syncthreads();
-
-    float s[kRows][kCols];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
-#pragma unroll 16
-    for (int d = 0; d < D; ++d) {
-      float qv[kRows], kv[kCols];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) qv[i] = Qs[(tr + kRowGroups * i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) kv[j] = Ks[(tc + kColGroups * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int r = tr + kRowGroups * i;
-      const int qpos = p.q_offset + q0 + r;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int c = tc + kColGroups * j;
-        bool live = true;
-        if (p.causal) live = qpos >= k0 + c;
-        if (has_seg) live = live && qseg[i] == kseg_s[c];
-        s[i][j] = live ? s[i][j] * p.scale : kNegInf;
-        if (k0 + c < p.Tk) mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float corr = expf(m[i] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int c = tc + kColGroups * j;
-        const float pj = k0 + c < p.Tk ? expf(s[i][j] - m_new) : 0.f;
-        Ps[r * LDP + c] = pj;
-        psum += pj;
-      }
-      l[i] = l[i] * corr + row_sum(psum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DPT; ++c) acc[i][c] *= corr;
-    }
-    // a score row is written and read by the 8 lanes of one warp
-    __syncwarp();
-
-    const int k_len = min(kBlockK, p.Tk - k0);
-    for (int j = 0; j < k_len; ++j) {
-      float pv[kRows], vv[DPT];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) pv[i] = Ps[(tr + kRowGroups * i) * LDP + j];
-#pragma unroll
-      for (int c = 0; c < DPT; ++c) vv[c] = Vs[j * LD + tc + kColGroups * c];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int c = 0; c < DPT; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
-    }
   }
 
-  // Rows with no live key: uniform softmax over the Tk original keys. The
-  // sweep above may have skipped tiles, so the mean of v is taken anew.
-  bool dead[kRows];
-  int any_dead = 0;
+  // the row sums over the four lanes that share a row
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    dead[i] = q0 + tr + kRowGroups * i < p.Tq && m[i] == kNegInf;
-    any_dead |= dead[i];
-  }
-  if (__syncthreads_or(any_dead)) {
-    float vsum[DPT];
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) vsum[c] = 0.f;
-    for (int kb = 0; kb < num_k; ++kb) {
-      const int k0 = kb * kBlockK;
-      __syncthreads();
-      stage_f32<D>(Vs, vp, p.sv.t, k0, p.Tk);
-      __syncthreads();
-      const int k_len = min(kBlockK, p.Tk - k0);
-      for (int j = 0; j < k_len; ++j)
-#pragma unroll
-        for (int c = 0; c < DPT; ++c) vsum[c] += Vs[j * LD + tc + kColGroups * c];
-    }
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      if (!dead[i]) continue;
-      l[i] = float(p.Tk);
-#pragma unroll
-      for (int c = 0; c < DPT; ++c) acc[i][c] = vsum[c];
-    }
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
   }
 
+  // Epilogue. Each warp leaves its (m, l) and unnormalised acc in shared
+  // memory (the ring, no longer read). One thread per row combines the
+  // kSplits parts of its row in key order, m = max m_s, l = sum l_s e_s
+  // with e_s = exp(m_s - m), writes lse = m + log l and each part's weight
+  // e_s / l; then out = sum acc_s e_s / l, four columns per thread and
+  // 16-byte stores. With one key group this is out = acc / l.
+  float* part = reinterpret_cast<float*>(smem_f32);  // [warp][16][LD]
+  float* ml = part + kF32Warps * 16 * LD;            // [warp][16][2]
+  float* wts = ml + kF32Warps * 16 * 2;              // [kBlockRows][kSplits]
+  float* vmean = wts + kBlockRows * kSplits;         // [D]
+#pragma unroll
+  for (int n = 0; n < kDT; ++n)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<float2*>(part + (warp * 16 + g + 8 * i) * LD + n * 8 + 2 * t) =
+          make_float2(acc[n][2 * i], acc[n][2 * i + 1]);
+  if (t == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      ml[(warp * 16 + g + 8 * i) * 2] = m[i];
+      ml[(warp * 16 + g + 8 * i) * 2 + 1] = l[i];
+    }
+  }
+  __syncthreads();
+
+  int dead = 0;
+  if (threadIdx.x < kBlockRows) {
+    const int row = threadIdx.x;
+    const float* mlr = ml + ((row / 16) * kSplits * 16 + row % 16) * 2;  // part 0 of the row
+    float m_tot = kNegInf, l_tot = 0.f, e[kSplits];
+#pragma unroll
+    for (int sp = 0; sp < kSplits; ++sp) m_tot = fmaxf(m_tot, mlr[sp * 32]);
+#pragma unroll
+    for (int sp = 0; sp < kSplits; ++sp) {
+      e[sp] = exp2f((mlr[sp * 32] - m_tot) * kLog2e);
+      l_tot += mlr[sp * 32 + 1] * e[sp];
+    }
+    // a row with no live key: the mean of v, with l = Tk, below
+    dead = q0 + row < p.Tq && m_tot == kNegInf;
+#pragma unroll
+    for (int sp = 0; sp < kSplits; ++sp) wts[row * kSplits + sp] = dead ? 0.f : e[sp] / l_tot;
+    if (q0 + row < p.Tq)
+      p.lse[(long long)bh * p.Tq + q0 + row] = m_tot + logf(dead ? float(p.Tk) : l_tot);
+  }
+  const int any_dead = __syncthreads_or(dead);
+
+  constexpr int kQuads = D / 4;
   float* op = static_cast<float*>(p.out) + (long long)bh * p.Tq * D;
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = q0 + tr + kRowGroups * i;
-    if (row >= p.Tq) continue;
+  for (int idx = threadIdx.x; idx < kBlockRows * kQuads; idx += kF32Threads) {
+    const int row = idx / kQuads, c4 = (idx % kQuads) * 4;
+    if (q0 + row >= p.Tq) continue;
+    const float* pr = part + ((row / 16) * kSplits * 16 + row % 16) * LD + c4;
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-    for (int c = 0; c < DPT; ++c) op[(long long)row * D + tc + kColGroups * c] = acc[i][c] / l[i];
-    if (tc == 0) p.lse[(long long)bh * p.Tq + row] = m[i] + logf(l[i]);
+    for (int sp = 0; sp < kSplits; ++sp) {
+      const float4 x = *reinterpret_cast<const float4*>(pr + sp * 16 * LD);
+      const float w = wts[row * kSplits + sp];
+      o.x += x.x * w;
+      o.y += x.y * w;
+      o.z += x.z * w;
+      o.w += x.w * w;
+    }
+    *reinterpret_cast<float4*>(op + (long long)(q0 + row) * D + c4) = o;
+  }
+
+  // Rows with no live key: uniform softmax over the Tk original keys, the
+  // mean of v (the sweep above may have skipped tiles, so it is taken anew).
+  if (any_dead) {
+    if (threadIdx.x < D) {
+      float vsum = 0.f;
+      for (int j = 0; j < p.Tk; ++j) vsum += vp[(long long)j * p.sv.t + threadIdx.x];
+      vmean[threadIdx.x] = vsum / float(p.Tk);
+    }
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < kBlockRows * D; idx += kF32Threads) {
+      const int row = idx / D, col = idx % D;
+      const float* mlr = ml + ((row / 16) * kSplits * 16 + row % 16) * 2;
+      bool live = false;
+#pragma unroll
+      for (int sp = 0; sp < kSplits; ++sp) live = live || mlr[sp * 32] != kNegInf;
+      if (q0 + row < p.Tq && !live) op[(long long)(q0 + row) * D + col] = vmean[col];
+    }
   }
 }
 
 // ------------------------------------------------------------------ launch
 
+template <int D, int kRowGroups>
+cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
+  static std::atomic<unsigned long long> attr_set{0};
+  constexpr size_t smem = f32_smem_bytes<D, kRowGroups>();
+  auto kernel = flash_fwd_f32_kernel<D, kRowGroups>;
+  const cudaError_t err = tdl::allow_smem(kernel, smem, attr_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.B * p.H, (p.Tq + 16 * kRowGroups - 1) / (16 * kRowGroups));
+  kernel<<<grid, kF32Threads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The number of row groups of the float32 kernel's q-tile: two (32-row
+// q-tiles, each K/V tile read by twice as many rows) where that still gives
+// every SM two blocks, else one (16-row q-tiles, each warp on a quarter of
+// every k-tile: a 512-token prefill of 12 heads runs 384 blocks).
+int f32_row_groups(const Params& p, int sms) {
+  return (long long)((p.Tq + 31) / 32) * p.B * p.H >= 2 * sms ? 2 : 1;
+}
+
 template <typename T, int D>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  static std::atomic<unsigned long long> attr_set{0};
   if constexpr (sizeof(T) == 2) {
-    static std::atomic<unsigned long long> masked_attr_set{0};
+    static std::atomic<unsigned long long> attr_set{0}, masked_attr_set{0};
     constexpr size_t smem = bf16_smem_bytes<D>();
     const dim3 grid((p.Tq + kBf16BlockQ - 1) / kBf16BlockQ, p.B * p.H);
     const bool masked = p.causal || p.qseg != nullptr || p.Tk % kBlockK != 0;
@@ -590,14 +809,15 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
     const cudaError_t err = tdl::allow_smem(kernel, smem, masked ? masked_attr_set : attr_set);
     if (err != cudaSuccess) return err;
     kernel<<<grid, kBf16Threads, smem, stream>>>(p);
+    return cudaGetLastError();
   } else {
-    constexpr size_t smem = fma_smem_bytes<D>();
-    const cudaError_t err = tdl::allow_smem(flash_fwd_fma_kernel<D>, smem, attr_set);
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
-    const dim3 grid((p.Tq + kBlockQ - 1) / kBlockQ, p.B * p.H);
-    flash_fwd_fma_kernel<D><<<grid, kThreads, smem, stream>>>(p);
+    return f32_row_groups(p, sms) == 2 ? launch_f32<D, 2>(p, stream)
+                                       : launch_f32<D, 1>(p, stream);
   }
-  return cudaGetLastError();
 }
 
 template <typename T>
@@ -648,6 +868,21 @@ int tdl_flash_fwd(const void* q, const void* k, const void* v, const void* qseg,
     case 1: return dispatch_d<__nv_bfloat16>(p, D, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// Rows of the float32 kernel's q-tile for a call of this shape on the
+// current device (f32_row_groups): 16 or 32, or -1 if the device cannot be
+// queried.
+int tdl_flash_fwd_f32_q_rows(int B, int H, int Tq) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return -1;
+  Params p{};
+  p.B = B;
+  p.H = H;
+  p.Tq = Tq;
+  return 16 * f32_row_groups(p, sms);
 }
 
 const char* tdl_cuda_error_string(int code) {

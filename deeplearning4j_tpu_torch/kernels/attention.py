@@ -21,9 +21,11 @@ PyTorch versions for CPU tensors: the forward ``csrc/flash_fwd.cu``
 ``torch.autograd.Function``, the two backward kernels of
 ``csrc/flash_bwd.cu`` (replacing ``_flash_bwd_dq_kernel``, which here also
 computes ``delta = rowsum(dO * out)``, and ``_flash_bwd_dkv_kernel``), all
-with tensor-core products for bfloat16 and float32 FMA for float32. A CUDA
-tensor gets the kernels or an exception; nothing falls back. The kernels
-need no pad shim: they mask the ragged last tile themselves.
+with tensor-core products for bfloat16; for float32 the forward multiplies
+on the tensor cores with split TF32 operands (3xTF32) and the backward with
+float32 FMA. A CUDA tensor gets the kernels or an exception; nothing falls
+back. The kernels need no pad shim: they mask the ragged last tile
+themselves.
 
 Rows with no live key. The forward gives such a row the uniform softmax
 over the Tk keys (out = mean of v) and lse = -1e30 + log Tk, which is -1e30
@@ -292,9 +294,9 @@ def _ptr(t):
 def rows_16_byte_aligned(ptr: int, strides, element_size: int) -> bool:
     """Whether every row of a [B, H, T, D] tensor with data pointer ``ptr``,
     element strides ``strides`` of its b/h/t axes and a contiguous last axis
-    starts on a 16-byte boundary: the bf16 kernels copy rows into shared
-    memory 16 bytes at a time (cp.async), which needs the pointer and each
-    stride, in bytes, to be multiples of 16."""
+    starts on a 16-byte boundary: the kernels copy rows into shared memory
+    16 bytes at a time (cp.async), which needs the pointer and each stride,
+    in bytes, to be multiples of 16."""
     return ptr % 16 == 0 and all(s * element_size % 16 == 0 for s in strides)
 
 
@@ -304,7 +306,8 @@ def _check_rows_aligned(name: str, **tensors) -> None:
         strides = [t.stride(i) for i in range(3) if t.shape[i] > 1]
         if not rows_16_byte_aligned(t.data_ptr(), strides, t.element_size()):
             raise ValueError(
-                f"{name}: bfloat16 {arg} must start every row on a 16-byte boundary "
+                f"{name}: {str(t.dtype).split('.')[-1]} {arg} must start every row on a "
+                f"16-byte boundary "
                 f"(data pointer {t.data_ptr():#x}, b/h/t strides {tuple(t.stride()[:3])} "
                 f"elements); pass a contiguous tensor")
 
@@ -316,13 +319,12 @@ def flash_forward(q, k, v, qseg, kseg, causal: bool, scale: float,
     Same arguments and results as :func:`flash_forward_reference`, for CUDA
     tensors only: float32 or bfloat16 q/k/v on one device with a contiguous
     last axis (other strides are passed to the kernel), head dim in
-    ``KERNEL_HEAD_DIMS``; for bfloat16, every row 16-byte aligned
+    ``KERNEL_HEAD_DIMS``; every row 16-byte aligned
     (:func:`rows_16_byte_aligned`; views of the fused QKV projection are).
     Raises on anything else, and when the launch fails; it never copies.
     ``flash_forward.launches`` counts the launches."""
     B, H, Tq, Tk, D = _check_kernel_inputs("flash_forward", q, k, v, qseg, kseg)
-    if q.dtype == torch.bfloat16:
-        _check_rows_aligned("flash_forward", q=q, k=k, v=v)
+    _check_rows_aligned("flash_forward", q=q, k=k, v=v)
     out = torch.empty((B, H, Tq, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     _launch("flash_fwd", "tdl_flash_fwd",

@@ -37,6 +37,7 @@ import torch
 from deeplearning4j_tpu.kernels import attention as JA
 from deeplearning4j_tpu_torch import set_fp32_numerics
 from deeplearning4j_tpu_torch.kernels import attention as TA
+from torch_port_fixtures import _no_leaked_children_or_shm  # noqa: F401  (per-process leak audit)
 
 ATOL = 3e-5
 DENSE_GRAD_TOL = 2e-4

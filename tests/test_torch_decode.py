@@ -17,6 +17,7 @@ import torch
 from deeplearning4j_tpu.models import transformer as J
 from deeplearning4j_tpu_torch.models import transformer as T
 from deeplearning4j_tpu_torch.models.weights import params_from_jax
+from torch_port_fixtures import _no_leaked_children_or_shm  # noqa: F401  (per-process leak audit)
 
 ATOL = 1e-5
 

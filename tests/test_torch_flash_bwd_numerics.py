@@ -36,6 +36,7 @@ import torch
 from deeplearning4j_tpu.kernels import attention as JA
 from deeplearning4j_tpu_torch import set_fp32_numerics
 from deeplearning4j_tpu_torch.kernels import attention as TA
+from torch_port_fixtures import _no_leaked_children_or_shm  # noqa: F401  (per-process leak audit)
 
 BF16_ULP_REL = 2.0 ** -7  # chip_smoke.py phase 2: one bf16 ulp of the value ...
 BWD_BF16_ATOL = 1e-4      # ... plus 1e-4 near zero (float32 sums of up to 256 terms)

@@ -26,6 +26,7 @@ from deeplearning4j_tpu_torch.kernels import _build
 from deeplearning4j_tpu_torch.kernels import attention as TA
 from deeplearning4j_tpu_torch.models import transformer as T
 from deeplearning4j_tpu_torch.models.weights import params_from_jax, qa_params_from_jax
+from torch_port_fixtures import _no_leaked_children_or_shm  # noqa: F401  (per-process leak audit)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "deeplearning4j_tpu_torch"

@@ -33,6 +33,7 @@ from deeplearning4j_tpu_torch.models.weights import (params_from_jax, params_to_
                                                      qa_params_from_jax, updater_state_from_jax,
                                                      updater_state_to_numpy)
 from deeplearning4j_tpu_torch.nn import updaters as TU
+from torch_port_fixtures import _no_leaked_children_or_shm  # noqa: F401  (per-process leak audit)
 
 LOSS_RTOL = 1e-5
 GRAD_ATOL, GRAD_RTOL = 1e-6, 1e-4

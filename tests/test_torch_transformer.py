@@ -23,6 +23,7 @@ from deeplearning4j_tpu_torch.common import bucketing as tbucket
 from deeplearning4j_tpu_torch.models import transformer as T
 from deeplearning4j_tpu_torch.models.weights import (params_from_jax, params_to_numpy,
                                                      qa_params_from_jax)
+from torch_port_fixtures import _no_leaked_children_or_shm  # noqa: F401  (per-process leak audit)
 
 FP32_ATOL = 1e-5
 BF16_ATOL = 1e-2
