@@ -8,8 +8,9 @@ Phases:
 1. build every CUDA kernel of ``deeplearning4j_tpu_torch/csrc`` with nvcc,
    and print the registers and spills of each instantiation of the bf16
    kernels (forward, dkv, dq) and of the float32 kernels (the split-TF32
-   forward per head dim and q-tile height, the FMA backward pair); no
-   forward, and no bf16 backward, may spill at D=64 and D=128;
+   forward per head dim and q-tile height, the split-TF32 backward pair per
+   head dim and masking); no forward and no bf16 backward may
+   spill at D=64 and D=128, and no float32 backward instantiation at all;
 2. hold each kernel against its plain PyTorch version on the card, over the
    shapes of the main path and the edge cases of the masking model (the
    backward's gradients, and the delta that the dq kernel computes; the
@@ -20,9 +21,12 @@ Phases:
    and 128-row q-tiles, timed in turns against its 64); the float32 forward
    at generation's causal prefills [1,12,T,64] (T = 512, 128, 256, and 512
    with keys past 300 masked) and at the float32 step check's [16,12,128,64]
-   beside SDPA in float32 with TF32 off; the two backward kernels, alone and
-   as a pair, at the training shape [16,12,128,64] and the causal prefill,
-   bf16, and at the training shape in float32;
+   beside SDPA in float32 with TF32 off; ``dot_product_attention(impl=
+   "auto")`` routing a head dim or dtype the kernels do not take to the
+   dense path with no launch; the two backward kernels, alone and as a
+   pair, at the training shape [16,12,128,64] and the causal prefill, bf16,
+   and in float32 (bound at the 3xTF32 rate) at the training shape and at
+   [4,12,512,64], whose blocks sweep four times the tiles;
 3. serve BERT-base (12 layers, d 768, vocab 30522, bf16, random weights from
    a seed): ``forward`` on tokens [8, 128], then a ragged key-padding
    request; every request must launch the flash kernel once per layer, and
@@ -39,11 +43,12 @@ Phases:
    (40 of them timed); a seeded dropout-0.1 step must repeat its loss; one
    QA fine-tune step at [8,128] must be finite and go through the kernels.
 
-The line before the last is a JSON object describing each kernel (launch
+A line before the last is a JSON object describing each kernel (launch
 counts on the main path, error against the plain version, times and the
-card's bound); the last line is ``{"ok": true, "device": {...}}``. Any
-failed phase exits non-zero and prints no result. The script imports only
-the port (``deeplearning4j_tpu_torch``), never JAX.
+card's bound), then the card's name and power limit; the last line is
+``{"ok": true, "device": {...}}``. Any failed phase exits non-zero and
+prints no result. The script imports only the port
+(``deeplearning4j_tpu_torch``), never JAX.
 """
 
 from __future__ import annotations
@@ -225,10 +230,11 @@ def ptxas_kernels(log) -> dict:
 
 BF16_KERNELS = ("flash_fwd_bf16_kernel", "flash_bwd_dkv_bf16_kernel", "flash_bwd_dq_bf16_kernel")
 # the float32 forward, instantiated per head dim and q-tile row groups (16
-# or 32 rows), and the float32 backward pair (FMA), per head dim
+# or 32 rows), and the float32 backward pair (3xTF32), per head dim and
+# masking
 F32_FWD_KERNEL = "flash_fwd_f32_kernel"
 F32_Q_ROWS = (16, 32)
-F32_BWD_KERNELS = ("flash_bwd_dkv_fma_kernel", "flash_bwd_dq_fma_kernel")
+F32_BWD_KERNELS = ("flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel")
 
 
 def report_bf16_registers(tag, log):
@@ -255,19 +261,21 @@ def report_bf16_registers(tag, log):
 
 def report_f32_registers(tag, log):
     """Print registers and spills of each float32 instantiation (forward
-    per head dim and row groups; the FMA backward pair per head dim); fail
-    if a D=64 or D=128 forward spills."""
+    per head dim and row groups; the backward pair per head dim and
+    masking); fail if a D=64 or D=128 forward spills, or if any
+    backward instantiation does."""
     fwd, bwd = {}, {}
     for name, info in ptxas_kernels(log).items():
         m = re.search(r"%sILi(\d+)ELi(\d+)E" % F32_FWD_KERNEL, name)
         if m:
             fwd[(int(m.group(1)), int(m.group(2)))] = info
-        m = re.search(r"(%s)ILi(\d+)EE" % "|".join(F32_BWD_KERNELS), name)
+        m = re.search(r"(%s)ILi(\d+)ELb([01])E" % "|".join(F32_BWD_KERNELS), name)
         if m:
-            bwd[(m.group(1), int(m.group(2)))] = info
+            bwd[(m.group(1), int(m.group(2)), m.group(3) == "1")] = info
     want = [(d, rows // 16) for d in (16, 32, 64, 128) for rows in F32_Q_ROWS]
     check(sorted(fwd) == want, f"ptxas reported float32 forward kernels {sorted(fwd)}")
-    check(sorted(bwd) == [(k, d) for k in sorted(F32_BWD_KERNELS) for d in (16, 32, 64, 128)],
+    check(sorted(bwd) == [(k, d, masked) for k in sorted(F32_BWD_KERNELS)
+                          for d in (16, 32, 64, 128) for masked in (False, True)],
           f"ptxas reported float32 backward kernels {sorted(bwd)}")
     for (d, r), info in sorted(fwd.items()):
         print(f"{tag} ptxas {F32_FWD_KERNEL}<D={d}, rows={16 * r}>: "
@@ -276,10 +284,12 @@ def report_f32_registers(tag, log):
         if d in (64, 128):
             check(info.get("spill_stores") == 0 and info.get("spill_loads") == 0,
                   f"{F32_FWD_KERNEL}<D={d}, rows={16 * r}> spills registers: {info}")
-    for (kernel, d), info in sorted(bwd.items()):
-        print(f"{tag} ptxas {kernel}<D={d}>: {info.get('registers')} registers, "
-              f"{info.get('spill_stores')} bytes spill stores, {info.get('spill_loads')} bytes "
-              f"spill loads", flush=True)
+    for (kernel, d, masked), info in sorted(bwd.items()):
+        print(f"{tag} ptxas {kernel}<D={d}, masked={masked}>: "
+              f"{info.get('registers')} registers, {info.get('spill_stores')} bytes spill "
+              f"stores, {info.get('spill_loads')} bytes spill loads", flush=True)
+        check(info.get("spill_stores") == 0 and info.get("spill_loads") == 0,
+              f"{kernel}<D={d}, masked={masked}> spills registers: {info}")
 
 
 def f32_q_rows(B, H, Tq) -> int:
@@ -668,12 +678,50 @@ def phase_backward_kernels(tag):
                                     f"plain version ({ratio:.3f} of the bound)")
 
 
+def phase_auto_routing(tag):
+    """``dot_product_attention(impl="auto")`` on the card: a head dim (48)
+    or a dtype (float16) the kernels are not built for goes to the dense
+    path, as the JAX package's ``auto`` does, with no kernel launch;
+    ``impl="flash"`` raises for both; a call the kernels take launches."""
+    import torch
+
+    from deeplearning4j_tpu_torch.kernels import attention as A
+
+    rs = np.random.RandomState(12)
+    for what, D, dtype in (("D=48 float32", 48, torch.float32),
+                           ("D=64 float16", 64, torch.float16)):
+        q, k, v = (torch.from_numpy(rs.randn(2, 4, 96, D).astype(np.float32)).to("cuda", dtype)
+                   for _ in range(3))
+        check(not A.flash_takes(q, k, v), f"flash_takes accepts {what}")
+        before = A.flash_forward.launches
+        out = A.dot_product_attention(q, k, v, causal=True)
+        check(A.flash_forward.launches == before, f"auto launched the kernel at {what}")
+        check(torch.equal(out, A.mha_reference(q, k, v, causal=True)),
+              f"auto at {what} is not the dense path")
+        try:
+            A.dot_product_attention(q, k, v, causal=True, impl="flash")
+            raised = False
+        except (TypeError, ValueError):
+            raised = True
+        check(raised, f"impl='flash' took {what}")
+    q, k, v = (torch.from_numpy(rs.randn(2, 4, 96, 64).astype(np.float32)).cuda() for _ in range(3))
+    before = A.flash_forward.launches
+    A.dot_product_attention(q, k, v, causal=True)
+    check(A.flash_forward.launches == before + 1, "auto did not launch the kernel at D=64 float32")
+    print(f"{tag} auto routing: D=48 float32 and D=64 float16 take the dense path with no "
+          f"launch, impl='flash' refuses both; D=64 float32 launches the kernel", flush=True)
+
+
 # backward timed at: the BERT-base training shape (the kernels line reports
-# it) and a causal prefill of one 512-token sequence, bf16; and the float32
-# train-step check's shape (the FMA kernels)
+# it) and a causal prefill of one 512-token sequence, bf16; the float32
+# train-step check's shape (the kernels line's float32 entries), and
+# [4,12,512,64] float32, as many blocks as that shape with 8 swept tiles
+# each instead of 2 (the two times part a block's fixed cost from its cost
+# per tile)
 BWD_TIMED_SHAPES = (("training", 16, 12, 128, 64, False, "bfloat16"),
                     ("prefill_512_causal", 1, 12, 512, 64, True, "bfloat16"),
-                    ("training_f32", 16, 12, 128, 64, False, "float32"))
+                    ("training_f32", 16, 12, 128, 64, False, "float32"),
+                    ("long_512_f32", 4, 12, 512, 64, False, "float32"))
 
 
 def time_backward(tag):
@@ -682,8 +730,9 @@ def time_backward(tag):
     ``flash_backward`` launches it, each held against its plain version
     first, then timed beside its plain version, its bound and the library
     yardstick (the backward of scaled_dot_product_attention, which computes
-    dq, dk, dv and its own delta: forward+backward minus forward). Returns
-    the training shape's numbers of the two kernels."""
+    dq, dk, dv and its own delta: forward+backward minus forward). The
+    float32 bound prices the products at the 3xTF32 rate. Returns the
+    numbers of the two kernels at the training shape, bf16 and float32."""
     import torch
     import torch.nn.functional as F
 
@@ -749,10 +798,12 @@ def time_backward(tag):
                   f"{host_us(fn):.1f} us; max|kernel-plain| {err[name]:.3e}", flush=True)
             timings[shape][name] = {"max_abs_err": err[name], **report_timing(
                 tag, f"{name} at {what}", ms, plain_ms, library_ms, nbytes, ops,
-                "sdpa backward", dtype=dt)}
+                "sdpa backward", dtype="3xtf32" if dt == "float32" else dt)}
         print(f"{tag} backward at {what}: worst |kernel - plain| / bound " + ", ".join(
             f"{g} {r:.3f}" for g, r in ratios.items()), flush=True)
-    return {name: timings["training"][name] for name in ("flash_bwd_dkv", "flash_bwd_dq")}
+    return {f"{name}{sfx}": timings[shape][name]
+            for shape, sfx in (("training", ""), ("training_f32", "_f32"))
+            for name in ("flash_bwd_dkv", "flash_bwd_dq")}
 
 
 # ------------------------------------------------------------------ phase 3
@@ -918,7 +969,9 @@ def _check_step_counts(what, counts, steps, n_layers):
 
 def phase_train(tag, launches):
     """BERT-base training through the three kernels (see the module
-    docstring). Returns the launches of each kernel on the main path."""
+    docstring). Appends the launches of each kernel on the main path to
+    ``launches``: the float32 step's backward pair under the ``_f32``
+    names, the bf16 steps' under the plain names."""
     import torch
 
     from deeplearning4j_tpu_torch.models import transformer as tfm
@@ -933,7 +986,10 @@ def phase_train(tag, launches):
     params = tfm.init_params(3, cfg32, device="cuda")
     _zero_counts()
     loss, grads = tfm.loss_and_grads(params, batch, cfg32)
-    _check_step_counts("fp32 step", _read_counts(), 1, cfg.n_layers)
+    counts = _read_counts()
+    _check_step_counts("fp32 step", counts, 1, cfg.n_layers)
+    for name in ("flash_bwd_dkv", "flash_bwd_dq"):
+        launches[f"{name}_f32"].append(counts[name])
     ref_loss, ref_grads = tfm.loss_and_grads(
         params, batch, dataclasses.replace(cfg32, attn_impl="xla"))
     loss_rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
@@ -1055,9 +1111,11 @@ def main() -> int:
         f32_timing = time_f32_forward(tag)
         time_q_tiles(tag, q_tile_builds)
         phase_backward_kernels(tag)
+        phase_auto_routing(tag)
         bwd_timing = time_backward(tag)
         print("phase 2 kernel vs plain: ok", flush=True)
-        launches = {"flash_fwd": [], "flash_fwd_f32": [], "flash_bwd_dkv": [], "flash_bwd_dq": []}
+        launches = {name: [] for name in ("flash_fwd", "flash_fwd_f32", "flash_bwd_dkv",
+                                          "flash_bwd_dq", "flash_bwd_dkv_f32", "flash_bwd_dq_f32")}
         phase_encoder(tag, launches["flash_fwd"])
         print("phase 3 encoder serving: ok", flush=True)
         phase_generate(tag, launches["flash_fwd_f32"])
@@ -1095,6 +1153,16 @@ def main() -> int:
         "name": "flash_bwd_dq", "route": "cuda", "source": bwd,
         "replaces": "deeplearning4j_tpu/kernels/attention.py:258",
         "launches": sum(launches["flash_bwd_dq"]), **bwd_timing["flash_bwd_dq"],
+    }, {
+        # the float32 backward pair (the float32 step check), kernels of
+        # their own in the same source, timed at that step's shape
+        "name": "flash_bwd_dkv_f32", "route": "cuda", "source": bwd,
+        "replaces": "deeplearning4j_tpu/kernels/attention.py:213",
+        "launches": sum(launches["flash_bwd_dkv_f32"]), **bwd_timing["flash_bwd_dkv_f32"],
+    }, {
+        "name": "flash_bwd_dq_f32", "route": "cuda", "source": bwd,
+        "replaces": "deeplearning4j_tpu/kernels/attention.py:258",
+        "launches": sum(launches["flash_bwd_dq_f32"]), **bwd_timing["flash_bwd_dq_f32"],
     }]
     check_failed = [k["name"] for k in kernels if k["launches"] < 1]
     if check_failed:

@@ -91,22 +91,66 @@
 // 105,984 B at D=128; dq Q, dO and two stages of K and V, plus two stages of
 // key ids: 55,808 B at D=64, 104,960 B at D=128.
 //
-// float32 inputs: flash_bwd_dkv_fma_kernel and flash_bwd_dq_fma_kernel,
-// float32 FMA on the CUDA cores (the first version of these kernels, kept for
-// float32: the float32 train-step check depends on its exact float32
-// products). 256 threads form a 16 x 16 grid over the 64 x 64 tile: in the
-// score phase a thread computes S and dO v^T for 4 rows x 4 keys; P and dS go
-// through shared memory; in the accumulation phase a thread owns 4 rows
-// (keys in dkv, queries in dq) x D/16 columns. Tiles are float32 with a row
-// stride of D+1 (166 KB of shared memory at D=128, 100 KB at D=64). The dq
-// kernel computes delta with four threads per row.
+// float32 inputs: flash_bwd_dkv_f32_kernel and flash_bwd_dq_f32_kernel, the
+// same two TPU kernels on the TF32 tensor cores with split operands (3xTF32,
+// as the float32 forward in flash_fwd.cu). A block is four warps.
+//   - Products: every operand x of S^T = K Q^T, dP^T = V dO^T, dV += P^T dO
+//     and dK += dS^T Q (dkv), and of S = Q K^T, dP = dO V^T and dQ += dS K
+//     (dq), is split x = hi + lo (hi = x rounded to TF32, lo = x - hi, which
+//     the tensor core truncates), and mma.sync m16n8k8 adds lo*hi, hi*lo and
+//     hi*hi in float32: each product to about 2^-21 of |x y|. One TF32
+//     product misses phase 2's float32 bound (the CPU model in
+//     tests/test_torch_flash_bwd_f32_numerics.py pins it per product). A
+//     warp issues in order and a product's sum is ready some 30 cycles
+//     later, so the products are issued term by term over 8 accumulators
+//     (S and dP tiles side by side; dV and dK, or dQ, tiles in groups): a
+//     tile's next term starts 8 instructions after its last (fewer at
+//     D <= 32).
+//   - P and dS never touch shared memory. Each warp owns 16 rows (keys in
+//     dkv, query rows in dq); P and dS are formed on the accumulator
+//     fragments (scale, masks, exp2 with lse and delta per column in dkv,
+//     per row in dq) and feed the next product from registers as A
+//     fragments, split in the same way: accumulator {c0, c1, c2, c3} is A
+//     {c0, c2, c1, c3} with B's rows (dO and Q in dkv, K in dq) read in the
+//     order 0, 2, 4, 6, 1, 3, 5, 7 (attention_tiles.cuh).
+//   - Staging: float32 tiles with a row stride of D+4 floats (kLdF), by
+//     16-byte cp.async copies, rows past Tq or Tk zero-filled by the copy.
+//     Fragments of a [n][k] tile (the own rows as A, the swept rows as B of
+//     S and dP) are read by ldmatrix.x4: an 8 x 8 b16 matrix is an 8 x 4
+//     float block, and a lane receives the word (row g, column t), the
+//     m16n8k8 .tf32 layout; the permuted rows 2t, 2t+1 of a [k][n] tile (B
+//     of dV, dK and dQ) by scalar loads. At that stride both hit 32
+//     distinct banks at D = 16..128: rows 16 bytes apart along the banks
+//     for ldmatrix, (8t + g) for the scalar loads. The swept tiles (dkv:
+//     Q, dO, lse, delta and query ids; dq: K, V and key ids) go through a
+//     two-stage ring with one barrier per tile; the wrapper checks that q,
+//     k, v, dO (and out) are 16-byte aligned in every row.
+//   - Filling the card: the block owns 64 rows, and its four warps own 16
+//     rows each and take every swept tile whole. At B=16 H=12 T=128 that is
+//     384 blocks, two per SM.
+//   - Registers: the block's own rows (K and V, or Q and dO) are read from
+//     shared memory at each use, or held raw in registers where ptxas shows
+//     room (DkvF32Tiling, DqF32Tiling); the S and dP accumulators are taken
+//     in sub-steps of 16 or 32 swept rows beside the gradient accumulators. No
+//     instantiation spills (chip_smoke.py phase 1 checks all of them).
+//   - delta (dq kernel): rowsum(dO * out) in float32 FMA, dO from shared
+//     memory and out read by 16-byte loads while the first copies are in
+//     flight, two threads per row.
+//   - Gradients are written as float32 pairs straight from the fragments.
+//   - Masked and unmasked instantiations as for bf16, and the same dead-row
+//     rule.
+// Shared memory per block at D=64: dkv 6 x 64 rows of 68 floats plus two
+// stages of lse, delta and query ids: 105,984 B; dq the same rows plus the
+// key ids and the block's delta: 105,216 B. Two blocks fit on an SM.
 //
 // Bound on the H100 at the BERT-base training shape (B=16, H=12, T=128,
-// D=64, bf16): dkv reads q, dO, k, v (4 x 3.15 MB), lse and delta (2 x
+// D=64). bf16: dkv reads q, dO, k, v (4 x 3.15 MB), lse and delta (2 x
 // 98 KB) and writes dk, dv (2 x 3.15 MB): 19.07 MB, 5.7 us at 3.35 TB/s,
 // against 8 T^2 D B H = 1.61 GFLOP, 1.6 us at the bf16 tensor-core peak
 // (2.8 us with the split's extra products); dq reads q, k, v, out, dO and
-// lse and writes dq and delta: also 19.07 MB (5.7 us), for 1.21 GFLOP. Both
+// lse and writes dq and delta: also 19.07 MB (5.7 us), for 1.21 GFLOP.
+// float32: twice the bytes, 37.9 MB or 11.3 us each, against 1.61 GFLOP
+// (9.8 us) and 1.21 GFLOP (7.3 us) at 494.7 / 3 TFLOP/s (3xTF32). All four
 // are bound by bytes, and at T=128 a block sweeps only two tiles, so the
 // fixed latency of a block (the first copies, two dependent tile steps, the
 // epilogue) is what the design has to hide: mma.sync tiles and a two-stage
@@ -160,7 +204,7 @@ __device__ __forceinline__ const T* head(const void* base, const Strides& s, int
   return static_cast<const T*>(base) + b * s.b + h * s.h;
 }
 
-// The q-tiles a 64-key tile at k0 meets: all of them, or under `causal`
+// The 64-row q-tiles a key tile at k0 meets: all of them, or under `causal`
 // those from the first that holds a row at or after the tile's first key.
 __device__ __forceinline__ int first_live_q_tile(const Params& p, int k0) {
   if (!p.causal) return 0;
@@ -611,305 +655,556 @@ __global__ void __launch_bounds__(kBf16Threads) flash_bwd_dq_bf16_kernel(Params 
                 lane);
 }
 
-// --------------------------------------------------- float32: CUDA cores
+// ------------------------------------------- float32: split-TF32 tensor cores
 
-constexpr int kThreads = 256;
-constexpr int kGroups = 16;             // a 16 x 16 thread grid over a tile
-constexpr int kPer = kBlock / kGroups;  // rows (and columns) per thread: 4
-constexpr int kLdt = kBlock + 1;        // row stride of the P and dS tiles
+constexpr int kF32Threads = 128;  // four warps
 
-// Q, dO, K, V tiles of 64 x (D+1) floats, P and dS of 64 x 65, then lse,
-// delta, qseg and kseg of the current tiles.
+// row stride, in floats, of a float32 tile in shared memory (see the note at
+// the top): conflict-free fragment loads, 16-byte rows for cp.async
 template <int D>
-constexpr size_t fma_smem_bytes() {
-  return (4 * size_t(kBlock) * (D + 1) + 2 * size_t(kBlock) * kLdt + 2 * kBlock) *
-             sizeof(float) +
-         2 * kBlock * sizeof(int);
+constexpr int kLdF = D + 4;
+
+// Register budget of each float32 kernel by head dim, from ptxas's counts
+// (no instantiation spills; ptxas settles near 168 registers, three blocks
+// of 128 threads, where it can, and spilled there with 64-row sub-steps in
+// dq at D=16 and 32-row ones at D=128):
+//   kHold  the warp's own rows (K and V, or Q and dO) stay in registers,
+//          raw, for the whole sweep, else they are read from shared memory
+//          at each use; either way they are split at each use;
+//   kSub   swept rows per sub-step of the S and dP accumulators, which stay
+//          live beside the gradient accumulators.
+template <int D>
+struct DkvF32Tiling {
+  static constexpr bool kHold = D <= 32;
+  static constexpr int kSub = D <= 64 ? 32 : 16;
+};
+template <int D>
+struct DqF32Tiling {
+  static constexpr bool kHold = D <= 64;
+  static constexpr int kSub = D <= 64 ? 32 : 16;
+};
+
+// K and V, two stages of Q and dO, and two stages of lse, delta and query
+// ids
+template <int D>
+constexpr size_t dkv_f32_smem_bytes() {
+  return 6 * size_t(kBlock) * kLdF<D> * sizeof(float) +
+         3 * 2 * kBlock * sizeof(float);
 }
 
+// Q and dO, two stages of K and V and of the key ids, and the block's delta
 template <int D>
-struct Smem {
-  float *Qs, *dOs, *Ks, *Vs, *Ps, *dSs, *lse, *delta;
-  int *qseg, *kseg;
+constexpr size_t dq_f32_smem_bytes() {
+  return 6 * size_t(kBlock) * kLdF<D> * sizeof(float) + 2 * kBlock * sizeof(int) +
+         kBlock * sizeof(float);
+}
 
-  __device__ explicit Smem(float* base) {
-    constexpr int LD = D + 1;
-    Qs = base;
-    dOs = Qs + kBlock * LD;
-    Ks = dOs + kBlock * LD;
-    Vs = Ks + kBlock * LD;
-    Ps = Vs + kBlock * LD;
-    dSs = Ps + kBlock * kLdt;
-    lse = dSs + kBlock * kLdt;
-    delta = lse + kBlock;
-    qseg = reinterpret_cast<int*>(delta + kBlock);
-    kseg = qseg + kBlock;
+// The A fragments of a warp's 16 own rows of a float32 tile: element e of
+// the 8-deep step ks is row g + 8 (e & 1), column 8 ks + t + 4 (e >> 1)
+// (mma.m16n8k8 .tf32). One ldmatrix.x4 reads them: its four 8 x 8 b16
+// matrices are the 8 x 4 float blocks (rows 0-7 | 8-15) x (columns 0-3 |
+// 4-7) of the step, and a lane receives the 32-bit word (row g, column t)
+// of each. They are held raw in registers or read at each use, and split
+// hi + lo at each use.
+template <int D, bool kHold>
+struct OwnRows {
+  static constexpr int LD = kLdF<D>;
+  const float* lane_row;  // the row and column this lane hands to ldmatrix
+  float held[kHold ? D / 8 : 1][4];
+
+  // rows16: the warp's first own row in the tile
+  __device__ __forceinline__ OwnRows(const float* rows16, int lane)
+      : lane_row(rows16 + ((lane & 7) + 8 * ((lane >> 3) & 1)) * LD + 4 * (lane >> 4)) {
+    if constexpr (kHold) {
+#pragma unroll
+      for (int ks = 0; ks < D / 8; ++ks) raw(ks, held[ks]);
+    }
+  }
+  __device__ __forceinline__ void raw(int ks, float (&x)[4]) const {
+    uint32_t r[4];
+    tdl::ldmatrix_x4(r, lane_row + ks * 8);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[e] = __uint_as_float(r[e]);
+  }
+  __device__ __forceinline__ void frag(int ks, uint32_t (&hi)[4], uint32_t (&lo)[4]) const {
+    float x[4];
+    if constexpr (kHold) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[e] = held[ks][e];
+    } else {
+      raw(ks, x);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) tdl::split_tf32(x[e], hi[e], lo[e]);
   }
 };
 
-// rows t0 .. t0+63 of a [T, D] slab (row stride stride_t); rows past T_len
-// are zero
+// The row and column of a [swept][D] tile that a lane hands to ldmatrix for
+// the B operands of score_products: matrix i of an x4 is 8 swept rows (8 (i
+// >> 1) .. + 7 from the pair's first) by 4 columns (4 (i & 1) .. + 3), so
+// that a lane receives b0 and b1 of two 8-row tiles.
 template <int D>
-__device__ __forceinline__ void stage_rows(float* dst, const float* src, long long stride_t,
-                                           int t0, int T_len) {
-  constexpr int LD = D + 1;
-  for (int i = threadIdx.x; i < kBlock * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    const int t = t0 + r;
-    dst[r * LD + d] = t < T_len ? src[t * stride_t + d] : 0.f;
-  }
+__device__ __forceinline__ int b_lane_offset(int lane) {
+  return ((lane & 7) + 8 * (lane >> 4)) * kLdF<D> + 4 * ((lane >> 3) & 1);
 }
 
-// lse, qseg and (dkv) delta of the q-tile at q0; rows past Tq get lse =
-// -1e30, so that they count as rows with no live key (P = 0)
-template <int D>
-__device__ __forceinline__ void stage_row_stats(const Smem<D>& sm, const Params& p, int b,
-                                                int bh, int q0, bool with_delta) {
-  for (int i = threadIdx.x; i < kBlock; i += kThreads) {
-    const int row = q0 + i;
-    const bool in = row < p.Tq;
-    sm.lse[i] = in ? p.lse[(long long)bh * p.Tq + row] : kNegInf;
-    if (with_delta) sm.delta[i] = in ? p.delta[(long long)bh * p.Tq + row] : 0.f;
-    sm.qseg[i] = (in && p.qseg != nullptr) ? p.qseg[(long long)b * p.Tq + row] : 0;
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void stage_kseg(const Smem<D>& sm, const Params& p, int b, int k0) {
-  if (p.kseg == nullptr) return;
-  for (int i = threadIdx.x; i < kBlock; i += kThreads)
-    sm.kseg[i] = k0 + i < p.Tk ? p.kseg[(long long)b * p.Tk + k0 + i] : -1;
-}
-
-// P (if kWriteP) and dS of the (q-tile q0, k-tile k0) pair into shared
-// memory, [query row][key]. Thread (tr, tc) computes rows tr + 16 i and keys
-// tc + 16 j.
-template <int D, bool kWriteP>
-__device__ __forceinline__ void tile_p_ds(const Smem<D>& sm, const Params& p, int q0, int k0) {
-  constexpr int LD = D + 1;
-  const int tr = threadIdx.x / kGroups, tc = threadIdx.x % kGroups;
-  float s[kPer][kPer], dp[kPer][kPer];
+// sd[0][j] += A1 B1_j and sd[1][j] += A2 B2_j over the head dim, 3xTF32: A1
+// and A2 a warp's 16 own rows; B1_j and B2_j the transposes of rows 8 j ..
+// 8 j + 7 of two [swept][D] tiles, read by ldmatrix two tiles at a time (b1
+// and b2 point at the sub-step's first row, plus b_lane_offset). The terms
+// go in term by term over the 2 kNT accumulators.
+template <int D, int kNT, bool kHold>
+__device__ __forceinline__ void score_products(float (&sd)[2][kNT][4],
+                                               const OwnRows<D, kHold>& a1,
+                                               const OwnRows<D, kHold>& a2, const float* b1,
+                                               const float* b2) {
+  static_assert(kNT % 2 == 0, "pairs of 8-row tiles");
+  constexpr int LD = kLdF<D>;
 #pragma unroll
-  for (int i = 0; i < kPer; ++i)
+  for (int ks = 0; ks < D / 8; ++ks) {
+    uint32_t ah[2][4], al[2][4];
+    a1.frag(ks, ah[0], al[0]);
+    a2.frag(ks, ah[1], al[1]);
+    uint32_t bh[2][kNT][2], bl[2][kNT][2];
 #pragma unroll
-    for (int j = 0; j < kPer; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float qv[kPer], ov[kPer], kv[kPer], vv[kPer];
+    for (int j = 0; j < kNT; j += 2) {
+      uint32_t r[2][4];  // b0, b1 of tile j, then of tile j + 1
+      tdl::ldmatrix_x4(r[0], b1 + j * 8 * LD + ks * 8);
+      tdl::ldmatrix_x4(r[1], b2 + j * 8 * LD + ks * 8);
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      qv[i] = sm.Qs[(tr + kGroups * i) * LD + d];
-      ov[i] = sm.dOs[(tr + kGroups * i) * LD + d];
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          tdl::split_tf32(__uint_as_float(r[m][i]), bh[m][j + (i >> 1)][i & 1],
+                          bl[m][j + (i >> 1)][i & 1]);
     }
 #pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      kv[j] = sm.Ks[(tc + kGroups * j) * LD + d];
-      vv[j] = sm.Vs[(tc + kGroups * j) * LD + d];
-    }
+    for (int j = 0; j < kNT; ++j)
 #pragma unroll
-    for (int i = 0; i < kPer; ++i)
+      for (int m = 0; m < 2; ++m) tdl::mma_tf32_1688(sd[m][j], al[m], bh[m][j][0], bh[m][j][1]);
 #pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-        dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-      }
-  }
-  const bool has_seg = p.qseg != nullptr;
+    for (int j = 0; j < kNT; ++j)
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int r = tr + kGroups * i;
-    const float lse = sm.lse[r];
-    const bool row_live = lse > kDeadLse;
-    const int qpos = p.q_offset + q0 + r;
+      for (int m = 0; m < 2; ++m) tdl::mma_tf32_1688(sd[m][j], ah[m], bl[m][j][0], bl[m][j][1]);
 #pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int c = tc + kGroups * j;
-      bool live = row_live && k0 + c < p.Tk;
-      if (p.causal) live = live && qpos >= k0 + c;
-      if (has_seg) live = live && sm.qseg[r] == sm.kseg[c];
-      const float pij = live ? expf(s[i][j] * p.scale - lse) : 0.f;
-      if (kWriteP) sm.Ps[r * kLdt + c] = pij;
-      sm.dSs[r * kLdt + c] = pij * (dp[i][j] - sm.delta[r]) * p.scale;
-    }
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int m = 0; m < 2; ++m) tdl::mma_tf32_1688(sd[m][j], ah[m], bh[m][j][0], bh[m][j][1]);
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_fma_kernel(Params p) {
-  constexpr int LD = D + 1;
-  constexpr int CPT = D / kGroups;  // output columns per thread
-  extern __shared__ float smem[];
-  const Smem<D> sm(smem);
+// acc[m][n] += X_m B_m,n for m < kM and n < D / 8, 3xTF32. X_m is the
+// accumulator tile sd[m + 2 - kM][j] (16 own rows x 8 swept rows) taken as
+// the A operand, its columns in the order 0, 2, 4, 6, 1, 3, 5, 7
+// (attention_tiles.cuh); B_m,n is rows 0..7 of a [swept][D] tile in the same
+// order, columns 8 n .. 8 n + 7 (b[m] points at row 2t, column g of the
+// tile's eight rows). The output tiles go in groups of 8 / kM per operand,
+// term by term.
+template <int D, int kM, int kNT>
+__device__ __forceinline__ void accumulate(float (&acc)[kM][D / 8][4],
+                                           const float (&sd)[2][kNT][4], int j,
+                                           const float* const (&b)[kM]) {
+  constexpr int LD = kLdF<D>;
+  constexpr int kDT = D / 8;
+  constexpr int kG = kDT < 8 / kM ? kDT : 8 / kM;
+  uint32_t xh[kM][4], xl[kM][4];
+#pragma unroll
+  for (int m = 0; m < kM; ++m) {
+    const float(&x)[4] = sd[m + 2 - kM][j];
+    tdl::split_tf32(x[0], xh[m][0], xl[m][0]);
+    tdl::split_tf32(x[2], xh[m][1], xl[m][1]);
+    tdl::split_tf32(x[1], xh[m][2], xl[m][2]);
+    tdl::split_tf32(x[3], xh[m][3], xl[m][3]);
+  }
+#pragma unroll
+  for (int n0 = 0; n0 < kDT; n0 += kG) {
+    uint32_t bh[kM][kG][2], bl[kM][kG][2];
+#pragma unroll
+    for (int m = 0; m < kM; ++m)
+#pragma unroll
+      for (int i = 0; i < kG; ++i)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          tdl::split_tf32(b[m][r * LD + (n0 + i) * 8], bh[m][i][r], bl[m][i][r]);
+#pragma unroll
+    for (int m = 0; m < kM; ++m)
+#pragma unroll
+      for (int i = 0; i < kG; ++i)
+        tdl::mma_tf32_1688(acc[m][n0 + i], xl[m], bh[m][i][0], bh[m][i][1]);
+#pragma unroll
+    for (int m = 0; m < kM; ++m)
+#pragma unroll
+      for (int i = 0; i < kG; ++i)
+        tdl::mma_tf32_1688(acc[m][n0 + i], xh[m], bl[m][i][0], bl[m][i][1]);
+#pragma unroll
+    for (int m = 0; m < kM; ++m)
+#pragma unroll
+      for (int i = 0; i < kG; ++i)
+        tdl::mma_tf32_1688(acc[m][n0 + i], xh[m], bh[m][i][0], bh[m][i][1]);
+  }
+}
 
-  const int tr = threadIdx.x / kGroups, tc = threadIdx.x % kGroups;
-  const int bh = blockIdx.y;
-  const int b = bh / p.H, h = bh % p.H;
+// Rows t0 + g and t0 + g + 8 (those before T) of a warp's 16 x D
+// accumulator into a contiguous [T, D] float32 slab, a column pair per
+// lane and tile.
+template <int kDT>
+__device__ __forceinline__ void store_f32(const float (&acc)[kDT][4], float* dst, int t0, int T,
+                                          int lane) {
+  constexpr int D = kDT * 8;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = t0 + (lane >> 2) + 8 * i;
+    if (row >= T) continue;
+#pragma unroll
+    for (int n = 0; n < kDT; ++n)
+      *reinterpret_cast<float2*>(dst + (long long)row * D + n * 8 + tdl::frag_col(lane, 0)) =
+          make_float2(acc[n][2 * i], acc[n][2 * i + 1]);
+  }
+}
+
+// The block owns 64 keys and sweeps the 64-row q-tiles; warp w owns keys
+// 16 w .. 16 w + 15. kMasked as for the bf16 kernels.
+template <int D, bool kMasked>
+__global__ void __launch_bounds__(kF32Threads) flash_bwd_dkv_f32_kernel(Params p) {
+  using Tiling = DkvF32Tiling<D>;
+  constexpr int LD = kLdF<D>;
+  constexpr int kSub = Tiling::kSub;
+  constexpr int kNT = kSub / 8;            // 8-query tiles of a sub-step
+  constexpr int kDT = D / 8;               // 8-column tiles of dK and dV
+  constexpr int kTile = kBlock * LD;
+  extern __shared__ __align__(16) unsigned char smem_dkv_f32[];
+  float* Ks = reinterpret_cast<float*>(smem_dkv_f32);  // [64][LD]
+  float* Vs = Ks + kTile;                              // [64][LD]
+  float* Qs = Vs + kTile;                              // [2][64][LD]
+  float* dOs = Qs + 2 * kTile;                         // [2][64][LD]
+  float* lse_s = dOs + 2 * kTile;                      // [2][64]
+  float* delta_s = lse_s + 2 * kBlock;                 // [2][64]
+  int* qseg_s = reinterpret_cast<int*>(delta_s + 2 * kBlock);  // [2][64]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
   const int k0 = blockIdx.x * kBlock;
+  const bool has_seg = kMasked && p.qseg != nullptr;
   const float* qp = head<float>(p.q, p.sq, b, h);
   const float* dop = head<float>(p.dout, p.sdo, b, h);
-
-  stage_rows<D>(sm.Ks, head<float>(p.k, p.sk, b, h), p.sk.t, k0, p.Tk);
-  stage_rows<D>(sm.Vs, head<float>(p.v, p.sv, b, h), p.sv.t, k0, p.Tk);
-  stage_kseg<D>(sm, p, b, k0);
-
-  float dk[kPer][CPT], dv[kPer][CPT];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) dk[i][c] = dv[i][c] = 0.f;
+  const float* lse_bh = p.lse + (long long)bh * p.Tq;
+  const float* delta_bh = p.delta + (long long)bh * p.Tq;
+  const int* qsp = has_seg ? p.qseg + (long long)b * p.Tq : nullptr;
 
   const int num_q = (p.Tq + kBlock - 1) / kBlock;
-  for (int qb = first_live_q_tile(p, k0); qb < num_q; ++qb) {
-    const int q0 = qb * kBlock;
-    __syncthreads();  // the previous q-tile's Q, dO, P and dS are no longer read
-    stage_rows<D>(sm.Qs, qp, p.sq.t, q0, p.Tq);
-    stage_rows<D>(sm.dOs, dop, p.sdo.t, q0, p.Tq);
-    stage_row_stats<D>(sm, p, b, bh, q0, true);
-    __syncthreads();
-    tile_p_ds<D, true>(sm, p, q0, k0);
-    __syncthreads();
-    // dV += P^T dO and dK += dS^T Q: this thread's keys tr + 16 i, columns
-    // tc + 16 c
-    const int q_len = min(kBlock, p.Tq - q0);
-    for (int r = 0; r < q_len; ++r) {
-      float pv[kPer], sv[kPer], ov[CPT], qv[CPT];
+  const int first_q = kMasked ? first_live_q_tile(p, k0) : 0;
+  auto stage_q = [&](int qb) {
+    const int buf = qb & 1, q0 = qb * kBlock;
+    tdl::cp_async_tile<float, D, LD, kBlock, kF32Threads>(Qs + buf * kTile, qp, p.sq.t, q0, p.Tq);
+    tdl::cp_async_tile<float, D, LD, kBlock, kF32Threads>(dOs + buf * kTile, dop, p.sdo.t, q0,
+                                                          p.Tq);
+    if (threadIdx.x < kBlock) {
+      const int row = q0 + threadIdx.x;
+      const bool in = row < p.Tq;
+      const int src = in ? row : 0;
+      tdl::cp_async_4(lse_s + buf * kBlock + threadIdx.x, lse_bh + src, in);
+      tdl::cp_async_4(delta_s + buf * kBlock + threadIdx.x, delta_bh + src, in);
+      if (has_seg) tdl::cp_async_4(qseg_s + buf * kBlock + threadIdx.x, qsp + src, in);
+    }
+  };
+
+  tdl::cp_async_tile<float, D, LD, kBlock, kF32Threads>(Ks, head<float>(p.k, p.sk, b, h), p.sk.t,
+                                                        k0, p.Tk);
+  tdl::cp_async_tile<float, D, LD, kBlock, kF32Threads>(Vs, head<float>(p.v, p.sv, b, h), p.sv.t,
+                                                        k0, p.Tk);
+  if (first_q < num_q) stage_q(first_q);
+  tdl::cp_async_commit();
+
+  // this lane's two keys: rows g and g + 8 of the warp's 16
+  int key[2], kseg[2];
 #pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        pv[i] = sm.Ps[r * kLdt + tr + kGroups * i];
-        sv[i] = sm.dSs[r * kLdt + tr + kGroups * i];
-      }
+  for (int i = 0; i < 2; ++i) {
+    key[i] = k0 + warp * 16 + g + 8 * i;
+    kseg[i] = (has_seg && key[i] < p.Tk) ? p.kseg[(long long)b * p.Tk + key[i]] : -1;
+  }
+  float acc[2][kDT][4];  // dV, dK
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        ov[c] = sm.dOs[r * LD + tc + kGroups * c];
-        qv[c] = sm.Qs[r * LD + tc + kGroups * c];
-      }
+  for (int m = 0; m < 2; ++m)
 #pragma unroll
-      for (int i = 0; i < kPer; ++i)
+    for (int n = 0; n < kDT; ++n)
 #pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-          dv[i][c] = fmaf(pv[i], ov[c], dv[i][c]);
-          dk[i][c] = fmaf(sv[i], qv[c], dk[i][c]);
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+  const float scale_log2 = p.scale * kLog2e;
+
+  tdl::cp_async_wait<0>();
+  __syncthreads();
+  const OwnRows<D, Tiling::kHold> kr(Ks + warp * 16 * LD, lane), vr(Vs + warp * 16 * LD, lane);
+  const int b_lane = b_lane_offset<D>(lane);
+
+  for (int qb = first_q; qb < num_q; ++qb) {
+    // the stage written here was last read in iteration qb - 1, before the
+    // barrier that ended it
+    if (qb + 1 < num_q) stage_q(qb + 1);
+    tdl::cp_async_commit();
+
+    const int buf = qb & 1, q0 = qb * kBlock;
+    const float* Qt = Qs + buf * kTile;
+    const float* dOt = dOs + buf * kTile;
+    const float* lse_t = lse_s + buf * kBlock;
+    const float* delta_t = delta_s + buf * kBlock;
+    const int* qseg_t = qseg_s + buf * kBlock;
+#pragma unroll 1
+    for (int c0 = 0; c0 < kBlock; c0 += kSub) {
+      // queries past Tq, or (causal) all before this warp's first key, add
+      // nothing
+      if (kMasked && (q0 + c0 >= p.Tq ||
+                      (p.causal && p.q_offset + q0 + c0 + kSub - 1 < k0 + warp * 16)))
+        continue;
+      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x kSub queries
+      float sd[2][kNT][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sd[m][j][e] = 0.f;
+      score_products<D, kNT>(sd, kr, vr, Qt + c0 * LD + b_lane, dOt + c0 * LD + b_lane);
+      // P^T and dS^T in place: element e of tile j is key row g + 8 (e >> 1)
+      // and query column c0 + 8 j + 2 t + (e & 1)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const int c = c0 + 8 * j + 2 * t;
+        const float2 lse2 = *reinterpret_cast<const float2*>(lse_t + c);
+        const float2 delta2 = *reinterpret_cast<const float2*>(delta_t + c);
+        const float lse[2] = {lse2.x, lse2.y}, delta[2] = {delta2.x, delta2.y};
+        float neg_lse[2];
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          // a query past Tq or with no live key gets P = 0
+          const bool live = !kMasked || (q0 + c + x < p.Tq && lse[x] > kDeadLse);
+          neg_lse[x] = live ? -lse[x] * kLog2e : neg_inf();
         }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1, x = e & 1;
+          bool live = true;
+          if (kMasked) live = key[i] < p.Tk;
+          if (kMasked && p.causal) live = live && p.q_offset + q0 + c + x >= key[i];
+          if (has_seg) live = live && qseg_t[c + x] == kseg[i];
+          const float pe = live ? exp2f(fmaf(sd[0][j][e], scale_log2, neg_lse[x])) : 0.f;
+          sd[0][j][e] = pe;
+          sd[1][j][e] = pe * (sd[1][j][e] - delta[x]) * p.scale;
+        }
+      }
+      // dV += P^T dO and dK += dS^T Q, 8 queries per step
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const int r = c0 + 8 * j + 2 * t;
+        const float* const bs[2] = {dOt + r * LD + g, Qt + r * LD + g};
+        accumulate<D, 2, kNT>(acc, sd, j, bs);
+      }
+    }
+    // tile qb + 1 has landed, and no warp reads stage qb & 1 any more
+    tdl::cp_async_wait<0>();
+    __syncthreads();
+  }
+
+  if constexpr (kMasked) {
+    // Rows with no live key: see flash_bwd_dkv_bf16_kernel.
+    int any_dead = 0;
+    for (int i = threadIdx.x; i < p.Tq; i += kF32Threads) any_dead |= lse_bh[i] <= kDeadLse;
+    if (__syncthreads_or(any_dead)) {
+      float dsum[kDT][2];
+#pragma unroll
+      for (int n = 0; n < kDT; ++n) dsum[n][0] = dsum[n][1] = 0.f;
+      for (int r = 0; r < p.Tq; ++r) {
+        if (lse_bh[r] > kDeadLse) continue;
+#pragma unroll
+        for (int n = 0; n < kDT; ++n) {
+          const float2 x =
+              *reinterpret_cast<const float2*>(dop + r * p.sdo.t + n * 8 + 2 * t);
+          dsum[n][0] += x.x;
+          dsum[n][1] += x.y;
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < kDT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[0][n][e] += dsum[n][e & 1] / float(p.Tk);
     }
   }
 
-  // Rows with no live key: see flash_bwd_dkv_bf16_kernel.
-  const float* lse_bh = p.lse + (long long)bh * p.Tq;
-  int any_dead = 0;
-  for (int i = threadIdx.x; i < p.Tq; i += kThreads) any_dead |= lse_bh[i] <= kDeadLse;
-  if (__syncthreads_or(any_dead)) {
-    float dsum[CPT];
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) dsum[c] = 0.f;
-    for (int r = 0; r < p.Tq; ++r) {
-      if (lse_bh[r] > kDeadLse) continue;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) dsum[c] += dop[r * p.sdo.t + tc + kGroups * c];
-    }
-#pragma unroll
-    for (int i = 0; i < kPer; ++i)
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) dv[i][c] += dsum[c] / float(p.Tk);
-  }
-
-  float* dkp = static_cast<float*>(p.dk) + (long long)bh * p.Tk * D;
-  float* dvp = static_cast<float*>(p.dv) + (long long)bh * p.Tk * D;
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int key = k0 + tr + kGroups * i;
-    if (key >= p.Tk) continue;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const long long off = (long long)key * D + tc + kGroups * c;
-      dkp[off] = dk[i][c];
-      dvp[off] = dv[i][c];
-    }
-  }
+  const long long out_off = (long long)bh * p.Tk * D;
+  store_f32(acc[0], static_cast<float*>(p.dv) + out_off, k0 + warp * 16, p.Tk, lane);
+  store_f32(acc[1], static_cast<float*>(p.dk) + out_off, k0 + warp * 16, p.Tk, lane);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_fma_kernel(Params p) {
-  constexpr int LD = D + 1;
-  constexpr int CPT = D / kGroups;
-  extern __shared__ float smem[];
-  const Smem<D> sm(smem);
+// The block owns 64 query rows and sweeps the 64-key tiles; warp w owns
+// rows 16 w .. 16 w + 15. It also computes delta for its rows.
+template <int D, bool kMasked>
+__global__ void __launch_bounds__(kF32Threads) flash_bwd_dq_f32_kernel(Params p) {
+  using Tiling = DqF32Tiling<D>;
+  constexpr int LD = kLdF<D>;
+  constexpr int kSub = Tiling::kSub;
+  constexpr int kNT = kSub / 8;           // 8-key tiles of a sub-step
+  constexpr int kDT = D / 8;              // 8-column tiles of dQ
+  constexpr int kTile = kBlock * LD;
+  constexpr int kTpr = kF32Threads / kBlock;  // threads per row of delta
+  constexpr int kOC = D / 4 / kTpr;           // out's 16-byte chunks per thread
+  extern __shared__ __align__(16) unsigned char smem_dq_f32[];
+  float* Qs = reinterpret_cast<float*>(smem_dq_f32);  // [64][LD]
+  float* dOs = Qs + kTile;                            // [64][LD]
+  float* Ks = dOs + kTile;                            // [2][64][LD]
+  float* Vs = Ks + 2 * kTile;                         // [2][64][LD]
+  int* kseg_s = reinterpret_cast<int*>(Vs + 2 * kTile);            // [2][64]
+  float* delta_s = reinterpret_cast<float*>(kseg_s + 2 * kBlock);  // [64]
 
-  const int tr = threadIdx.x / kGroups, tc = threadIdx.x % kGroups;
-  const int bh = blockIdx.y;
-  const int b = bh / p.H, h = bh % p.H;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
   const int q0 = blockIdx.x * kBlock;
+  const bool has_seg = kMasked && p.qseg != nullptr;
   const float* kp = head<float>(p.k, p.sk, b, h);
   const float* vp = head<float>(p.v, p.sv, b, h);
+  const float* op = head<float>(p.out, p.so, b, h);
+  const int* ksp = has_seg ? p.kseg + (long long)b * p.Tk : nullptr;
 
-  stage_rows<D>(sm.Qs, head<float>(p.q, p.sq, b, h), p.sq.t, q0, p.Tq);
-  stage_rows<D>(sm.dOs, head<float>(p.dout, p.sdo, b, h), p.sdo.t, q0, p.Tq);
-  stage_row_stats<D>(sm, p, b, bh, q0, false);
+  const int n_tiles = kMasked ? live_k_tiles(p, q0) : p.Tk / kBlock;
+  auto stage_kv = [&](int kb) {
+    const int buf = kb & 1, k0 = kb * kBlock;
+    tdl::cp_async_tile<float, D, LD, kBlock, kF32Threads>(Ks + buf * kTile, kp, p.sk.t, k0, p.Tk);
+    tdl::cp_async_tile<float, D, LD, kBlock, kF32Threads>(Vs + buf * kTile, vp, p.sv.t, k0, p.Tk);
+    if (has_seg && threadIdx.x < kBlock) {
+      const int tk = k0 + threadIdx.x;
+      tdl::cp_async_4(kseg_s + buf * kBlock + threadIdx.x, ksp + (tk < p.Tk ? tk : 0), tk < p.Tk);
+    }
+  };
+
+  tdl::cp_async_tile<float, D, LD, kBlock, kF32Threads>(Qs, head<float>(p.q, p.sq, b, h), p.sq.t,
+                                                        q0, p.Tq);
+  tdl::cp_async_tile<float, D, LD, kBlock, kF32Threads>(dOs, head<float>(p.dout, p.sdo, b, h),
+                                                        p.sdo.t, q0, p.Tq);
+  if (n_tiles > 0) stage_kv(0);
+  tdl::cp_async_commit();
+
+  // delta: kTpr neighbouring threads per row; out's chunks are read while
+  // the copies are in flight
+  const int dr = threadIdx.x / kTpr, dpart = threadIdx.x % kTpr;
+  float4 oc[kOC];
+#pragma unroll
+  for (int m = 0; m < kOC; ++m)
+    oc[m] = q0 + dr < p.Tq ? *reinterpret_cast<const float4*>(op + (q0 + dr) * p.so.t +
+                                                               (dpart + kTpr * m) * 4)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+
+  // this lane's two query rows: g and g + 8 of the warp's 16
+  float neg_lse[2];
+  int qseg[2], qpos[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + warp * 16 + g + 8 * i;
+    const bool in = row < p.Tq;
+    const float lse = in ? p.lse[(long long)bh * p.Tq + row] : kNegInf;
+    // a row past Tq or with no live key gets P = 0
+    neg_lse[i] = (!kMasked || lse > kDeadLse) ? -lse * kLog2e : neg_inf();
+    qseg[i] = (has_seg && in) ? p.qseg[(long long)b * p.Tq + row] : 0;
+    qpos[i] = p.q_offset + row;
+  }
+
+  tdl::cp_async_wait<0>();
   __syncthreads();
-
-  // delta = rowsum(dO * out): four threads per row, 64 rows
   {
-    const int r = threadIdx.x / 4, part = threadIdx.x % 4;
-    const int row = q0 + r;
-    const float* op = head<float>(p.out, p.so, b, h) + row * p.so.t;
     float sum = 0.f;
-    if (row < p.Tq)
-      for (int d = part; d < D; d += 4) sum = fmaf(sm.dOs[r * LD + d], op[d], sum);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    if (part == 0) {
-      sm.delta[r] = sum;
-      if (row < p.Tq) p.delta[(long long)bh * p.Tq + row] = sum;
+#pragma unroll
+    for (int m = 0; m < kOC; ++m) {
+      const float4 d = *reinterpret_cast<const float4*>(dOs + dr * LD + (dpart + kTpr * m) * 4);
+      sum = fmaf(d.x, oc[m].x, sum);
+      sum = fmaf(d.y, oc[m].y, sum);
+      sum = fmaf(d.z, oc[m].z, sum);
+      sum = fmaf(d.w, oc[m].w, sum);
+    }
+#pragma unroll
+    for (int s = 1; s < kTpr; s *= 2) sum += __shfl_xor_sync(0xffffffffu, sum, s);
+    if (dpart == 0) {
+      delta_s[dr] = sum;
+      if (q0 + dr < p.Tq) p.delta[(long long)bh * p.Tq + q0 + dr] = sum;
     }
   }
+  __syncthreads();
+  const float delta[2] = {delta_s[warp * 16 + g], delta_s[warp * 16 + g + 8]};
 
-  float dq[kPer][CPT];
+  const OwnRows<D, Tiling::kHold> qr(Qs + warp * 16 * LD, lane), orr(dOs + warp * 16 * LD, lane);
+  const int b_lane = b_lane_offset<D>(lane);
+  float acc[1][kDT][4];  // dQ
 #pragma unroll
-  for (int i = 0; i < kPer; ++i)
+  for (int n = 0; n < kDT; ++n)
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) dq[i][c] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[0][n][e] = 0.f;
+  const float scale_log2 = p.scale * kLog2e;
+  const int last_qpos = p.q_offset + q0 + warp * 16 + 15;
 
-  const int n_tiles = live_k_tiles(p, q0);
   for (int kb = 0; kb < n_tiles; ++kb) {
-    const int k0 = kb * kBlock;
-    __syncthreads();  // delta, or the previous k-tile's K, V and dS, are done
-    stage_rows<D>(sm.Ks, kp, p.sk.t, k0, p.Tk);
-    stage_rows<D>(sm.Vs, vp, p.sv.t, k0, p.Tk);
-    stage_kseg<D>(sm, p, b, k0);
-    __syncthreads();
-    tile_p_ds<D, false>(sm, p, q0, k0);
-    __syncthreads();
-    // dQ += dS K: this thread's rows tr + 16 i, columns tc + 16 c
-    const int k_len = min(kBlock, p.Tk - k0);
-    for (int j = 0; j < k_len; ++j) {
-      float sv[kPer], kv[CPT];
+    if (kb + 1 < n_tiles) stage_kv(kb + 1);
+    tdl::cp_async_commit();
+
+    const int buf = kb & 1, k0 = kb * kBlock;
+    const float* Kt = Ks + buf * kTile;
+    const float* Vt = Vs + buf * kTile;
+    const int* kseg_t = kseg_s + buf * kBlock;
+#pragma unroll 1
+    for (int c0 = 0; c0 < kBlock; c0 += kSub) {
+      // keys past Tk, or (causal) all after this warp's last row, add nothing
+      if (kMasked && (k0 + c0 >= p.Tk || (p.causal && k0 + c0 > last_qpos))) continue;
+      // S = Q K^T and dP = dO V^T: this warp's 16 rows x kSub keys
+      float sd[2][kNT][4];
 #pragma unroll
-      for (int i = 0; i < kPer; ++i) sv[i] = sm.dSs[(tr + kGroups * i) * kLdt + j];
+      for (int m = 0; m < 2; ++m)
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) kv[c] = sm.Ks[j * LD + tc + kGroups * c];
+        for (int j = 0; j < kNT; ++j)
 #pragma unroll
-      for (int i = 0; i < kPer; ++i)
+          for (int e = 0; e < 4; ++e) sd[m][j][e] = 0.f;
+      score_products<D, kNT>(sd, qr, orr, Kt + c0 * LD + b_lane, Vt + c0 * LD + b_lane);
+      // dS in place of dP: element e of tile j is row g + 8 (e >> 1) and key
+      // column c0 + 8 j + 2 t + (e & 1)
 #pragma unroll
-        for (int c = 0; c < CPT; ++c) dq[i][c] = fmaf(sv[i], kv[c], dq[i][c]);
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const int c = c0 + 8 * j + tdl::frag_col(lane, e);
+          bool live = true;
+          if (kMasked) live = k0 + c < p.Tk;
+          if (kMasked && p.causal) live = live && qpos[i] >= k0 + c;
+          if (has_seg) live = live && qseg[i] == kseg_t[c];
+          const float pe = live ? exp2f(fmaf(sd[0][j][e], scale_log2, neg_lse[i])) : 0.f;
+          sd[1][j][e] = pe * (sd[1][j][e] - delta[i]) * p.scale;
+        }
+      }
+      // dQ += dS K, 8 keys per step
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const float* const bs[1] = {Kt + (c0 + 8 * j + 2 * t) * LD + g};
+        accumulate<D, 1, kNT>(acc, sd, j, bs);
+      }
     }
+    // tile kb + 1 has landed, and no warp reads stage kb & 1 any more
+    tdl::cp_async_wait<0>();
+    __syncthreads();
   }
 
-  float* dqp = static_cast<float*>(p.dq) + (long long)bh * p.Tq * D;
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int row = q0 + tr + kGroups * i;
-    if (row >= p.Tq) continue;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) dqp[(long long)row * D + tc + kGroups * c] = dq[i][c];
-  }
+  store_f32(acc[0], static_cast<float*>(p.dq) + (long long)bh * p.Tq * D, q0 + warp * 16, p.Tq,
+            lane);
 }
 
 // ------------------------------------------------------------------ launch
 
+// A call with a causal mask, segment ids, or Tq or Tk not a multiple of 64
+// takes the masked instantiations.
+bool is_masked(const Params& p) {
+  return p.causal || p.qseg != nullptr || p.Tq % kBlock != 0 || p.Tk % kBlock != 0;
+}
+
 template <int D>
-cudaError_t launch_bf16(const Params& p, bool dkv, const dim3& grid, cudaStream_t stream) {
+cudaError_t launch_bf16(const Params& p, bool dkv, cudaStream_t stream) {
   // one flag word per instantiation: [dkv][masked]
   static std::atomic<unsigned long long> attr_set[2][2];
-  const bool masked = p.causal || p.qseg != nullptr || p.Tq % kBlock != 0 || p.Tk % kBlock != 0;
+  const bool masked = is_masked(p);
   void (*kernel)(Params) = nullptr;
   size_t smem = 0;
   if (dkv) {
@@ -921,28 +1216,36 @@ cudaError_t launch_bf16(const Params& p, bool dkv, const dim3& grid, cudaStream_
   }
   const cudaError_t err = tdl::allow_smem(kernel, smem, attr_set[dkv][masked]);
   if (err != cudaSuccess) return err;
+  const dim3 grid(((dkv ? p.Tk : p.Tq) + kBlock - 1) / kBlock, p.B * p.H);
   kernel<<<grid, kBf16Threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_fma(const Params& p, bool dkv, const dim3& grid, cudaStream_t stream) {
-  static std::atomic<unsigned long long> attr_set[2];
-  void (*kernel)(Params) = dkv ? flash_bwd_dkv_fma_kernel<D> : flash_bwd_dq_fma_kernel<D>;
-  constexpr size_t smem = fma_smem_bytes<D>();
-  const cudaError_t err = tdl::allow_smem(kernel, smem, attr_set[dkv]);
+cudaError_t launch_f32(const Params& p, bool dkv, cudaStream_t stream) {
+  static std::atomic<unsigned long long> attr_set[2][2];  // [dkv][masked]
+  const bool masked = is_masked(p);
+  void (*kernel)(Params) = nullptr;
+  size_t smem = 0;
+  if (dkv) {
+    kernel = masked ? flash_bwd_dkv_f32_kernel<D, true> : flash_bwd_dkv_f32_kernel<D, false>;
+    smem = dkv_f32_smem_bytes<D>();
+  } else {
+    kernel = masked ? flash_bwd_dq_f32_kernel<D, true> : flash_bwd_dq_f32_kernel<D, false>;
+    smem = dq_f32_smem_bytes<D>();
+  }
+  const cudaError_t err = tdl::allow_smem(kernel, smem, attr_set[dkv][masked]);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  const dim3 grid(((dkv ? p.Tk : p.Tq) + kBlock - 1) / kBlock, p.B * p.H);
+  kernel<<<grid, kF32Threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch(const Params& p, int dtype, bool dkv, cudaStream_t stream) {
-  const int tiles = ((dkv ? p.Tk : p.Tq) + kBlock - 1) / kBlock;
-  const dim3 grid(tiles, p.B * p.H);
   switch (dtype) {
-    case 0: return launch_fma<D>(p, dkv, grid, stream);
-    case 1: return launch_bf16<D>(p, dkv, grid, stream);
+    case 0: return launch_f32<D>(p, dkv, stream);
+    case 1: return launch_bf16<D>(p, dkv, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -985,9 +1288,9 @@ Params make_params(const void* q, const void* k, const void* v, const void* dout
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are (b, h, t) of each strided
-// tensor, in the order of the pointers. For bfloat16, every row of those
-// tensors must be 16-byte aligned (the wrappers check the pointers and
-// strides). Each returns the launch's cudaError_t.
+// tensor, in the order of the pointers. Every row of those tensors must be
+// 16-byte aligned (the wrappers check the pointers and strides). Each
+// returns the launch's cudaError_t.
 
 // dk, dv from q, k, v, dO, lse and the delta that tdl_flash_bwd_dq wrote.
 int tdl_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,

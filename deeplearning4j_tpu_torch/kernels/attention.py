@@ -21,11 +21,13 @@ PyTorch versions for CPU tensors: the forward ``csrc/flash_fwd.cu``
 ``torch.autograd.Function``, the two backward kernels of
 ``csrc/flash_bwd.cu`` (replacing ``_flash_bwd_dq_kernel``, which here also
 computes ``delta = rowsum(dO * out)``, and ``_flash_bwd_dkv_kernel``), all
-with tensor-core products for bfloat16; for float32 the forward multiplies
-on the tensor cores with split TF32 operands (3xTF32) and the backward with
-float32 FMA. A CUDA tensor gets the kernels or an exception; nothing falls
-back. The kernels need no pad shim: they mask the ragged last tile
-themselves.
+with tensor-core products: bfloat16 operands, and for float32 split TF32
+operands (3xTF32: each product to about 2^-21 of its value, within the
+float32 bounds the kernels are held to). A CUDA tensor gets the kernels or
+an exception; nothing falls back: ``dot_product_attention(impl="auto")``
+decides before any launch, by :func:`flash_takes`, whether a call goes to
+the kernels or to the dense path. The kernels need no pad shim: they mask
+the ragged last tile themselves.
 
 Rows with no live key. The forward gives such a row the uniform softmax
 over the Tk keys (out = mean of v) and lse = -1e30 + log Tk, which is -1e30
@@ -63,20 +65,23 @@ def mha_reference(q, k, v, mask=None, *, causal: bool = False,
     [B, H, Tq, Tk] score matrix, in the inputs' dtype.
 
     ``mask``: [B, Tk] or [B, 1, Tq, Tk] (or broadcastable), nonzero =
-    attend. Causal rows align to the end of the keys (``Tk - Tq``)."""
+    attend. Causal rows align to the end of the keys (``Tk - Tq``). Masked
+    scores are -1e30, or the dtype's lowest finite value where -1e30 does
+    not fit (float16): a row with no live key stays a uniform softmax."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    fill = max(_NEG_INF, torch.finfo(scores.dtype).min)
     if causal:
         Tq, Tk = scores.shape[-2], scores.shape[-1]
         qpos = torch.arange(Tq, device=q.device)[:, None] + (Tk - Tq)
         cmask = qpos >= torch.arange(Tk, device=q.device)[None, :]
-        scores = torch.where(cmask, scores, _NEG_INF)
+        scores = torch.where(cmask, scores, fill)
     if mask is not None:
         mask = torch.as_tensor(mask, device=q.device)
         if mask.dim() == 2:
             mask = mask[:, None, None, :]
-        scores = torch.where(mask.to(torch.bool), scores, _NEG_INF)
+        scores = torch.where(mask.to(torch.bool), scores, fill)
     w = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", w, v)
 
@@ -229,6 +234,36 @@ def bind_kernel(lib: ctypes.CDLL, name: str, n_ptrs: int, n_strides: int):
     return fn, lib.tdl_cuda_error_string
 
 
+def _unmet_contract(name: str, q, k, v, more=()):
+    """The kernels' input contract, decided from dtypes and shapes alone:
+    one dtype, float32 or bfloat16 (``more`` are further tensors typed like
+    q); [B, H, T, D] with D in ``KERNEL_HEAD_DIMS``, Tq, Tk >= 1 and
+    B*H <= 65535 (the grid's second axis). Returns the exception that a
+    call failing it raises, or None."""
+    dtypes = [t.dtype for t in (q, k, v, *more)]
+    if q.dtype not in _KERNEL_DTYPES or any(d != q.dtype for d in dtypes):
+        return TypeError(f"{name} takes float32 or bfloat16 q/k/v of one dtype; "
+                         f"got {', '.join(str(d) for d in dtypes)}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        return ValueError(f"{name} takes q/k/v of shape [B, H, T, D]")
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    if D not in KERNEL_HEAD_DIMS:
+        return ValueError(f"head dim {D} not supported by the kernel "
+                          f"(one of {KERNEL_HEAD_DIMS})")
+    if Tq < 1 or Tk < 1 or B * H > 65535:
+        return ValueError(f"{name} needs Tq, Tk >= 1 and B*H <= 65535; "
+                          f"got Tq={Tq}, Tk={Tk}, B*H={B * H}")
+    return None
+
+
+def flash_takes(q, k, v) -> bool:
+    """Whether the flash kernels take q/k/v of these dtypes and shapes
+    (:func:`_unmet_contract`); :func:`_check_kernel_inputs` raises for a
+    call that they do not take."""
+    return _unmet_contract("flash_attention", q, k, v) is None
+
+
 def _check_kernel_inputs(name: str, q, k, v, qseg, kseg, more=()):
     """The checks every attention kernel's wrapper makes; ``more`` are
     further tensors shaped and typed like q (the backward's out and dO).
@@ -238,12 +273,9 @@ def _check_kernel_inputs(name: str, q, k, v, qseg, kseg, more=()):
     tensors = [q, k, v, *more] + ([qseg, kseg] if qseg is not None else [])
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError(f"{name} needs every tensor on one CUDA device")
-    dtypes = [t.dtype for t in (q, k, v, *more)]
-    if q.dtype not in _KERNEL_DTYPES or any(d != q.dtype for d in dtypes):
-        raise TypeError(f"{name} takes float32 or bfloat16 q/k/v of one dtype; "
-                        f"got {', '.join(str(d) for d in dtypes)}")
-    if q.dim() != 4 or k.dim() != 4:
-        raise ValueError(f"{name} takes q/k/v of shape [B, H, T, D]")
+    err = _unmet_contract(name, q, k, v, more)
+    if err is not None:
+        raise err
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     if tuple(k.shape) != (B, H, Tk, D) or v.shape != k.shape:
@@ -252,12 +284,6 @@ def _check_kernel_inputs(name: str, q, k, v, qseg, kseg, more=()):
     if any(t.shape != q.shape for t in more):
         raise ValueError(f"{name}: the forward's output and the upstream gradient must "
                          f"be shaped like q {tuple(q.shape)}")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head dim {D} not supported by the kernel "
-                         f"(one of {KERNEL_HEAD_DIMS})")
-    if Tq < 1 or Tk < 1 or B * H > 65535:
-        raise ValueError(f"{name} needs Tq, Tk >= 1 and B*H <= 65535; "
-                         f"got Tq={Tq}, Tk={Tk}, B*H={B * H}")
     if any(t.stride(-1) != 1 for t in (q, k, v, *more)):
         raise ValueError(f"{name} needs q/k/v with a contiguous last axis")
     if qseg is not None:
@@ -352,12 +378,11 @@ def flash_backward_dkv(q, k, v, do, lse, delta, qseg, kseg, causal: bool,
     TPU's ``_flash_bwd_dkv_kernel``). Same arguments and results as
     :func:`flash_backward_dkv_reference`, for CUDA tensors only (checked as
     in :func:`flash_forward`; ``do`` like q, ``lse``/``delta`` contiguous
-    float32 [B,H,Tq]; for bfloat16, every row of q, k, v and ``do`` 16-byte
-    aligned). ``flash_backward_dkv.launches`` counts the launches."""
+    float32 [B,H,Tq]; every row of q, k, v and ``do`` 16-byte aligned).
+    ``flash_backward_dkv.launches`` counts the launches."""
     B, H, Tq, Tk, D = _check_kernel_inputs("flash_backward_dkv", q, k, v, qseg, kseg, (do,))
     _check_row_stats(q, B, H, Tq, lse=lse, delta=delta)
-    if q.dtype == torch.bfloat16:
-        _check_rows_aligned("flash_backward_dkv", q=q, k=k, v=v, do=do)
+    _check_rows_aligned("flash_backward_dkv", q=q, k=k, v=v, do=do)
     dk = torch.empty((B, H, Tk, D), dtype=k.dtype, device=k.device)
     dv = torch.empty((B, H, Tk, D), dtype=v.dtype, device=v.device)
     _launch("flash_bwd", "tdl_flash_bwd_dkv",
@@ -382,8 +407,7 @@ def flash_backward_dq(q, k, v, out, do, lse, qseg, kseg, causal: bool,
     B, H, Tq, Tk, D = _check_kernel_inputs("flash_backward_dq", q, k, v, qseg, kseg,
                                            (out, do))
     _check_row_stats(q, B, H, Tq, lse=lse)
-    if q.dtype == torch.bfloat16:
-        _check_rows_aligned("flash_backward_dq", q=q, k=k, v=v, out=out, do=do)
+    _check_rows_aligned("flash_backward_dq", q=q, k=k, v=v, out=out, do=do)
     dq = torch.empty((B, H, Tq, D), dtype=q.dtype, device=q.device)
     delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     _launch("flash_bwd", "tdl_flash_bwd_dq",
@@ -509,9 +533,12 @@ def dot_product_attention(q, k, v, mask=None, *, causal: bool = False,
 
     ``xla`` is :func:`mha_reference` (the JAX package's name for the dense
     path), ``flash`` is :func:`flash_attention`. ``auto`` takes flash for
-    CUDA tensors whenever the mask is None or a key padding mask, at every
-    length, and the dense path for CPU tensors and for a full per-query
-    [B,1,Tq,Tk] mask."""
+    CUDA tensors whenever the mask is None or a key padding mask and the
+    kernels take the call (:func:`flash_takes`), at every length; it takes
+    the dense path for CPU tensors, for a full per-query [B,1,Tq,Tk] mask,
+    and for a head dim or dtype the kernels are not built for, which is what
+    the JAX package's ``auto`` returns for such calls. This is routing
+    before any launch: ``impl="flash"`` still raises for them."""
     if impl == "flash":
         return flash_attention(q, k, v, mask, causal=causal, scale=scale)
     if impl == "xla":
@@ -519,7 +546,8 @@ def dot_product_attention(q, k, v, mask=None, *, causal: bool = False,
     if impl == "auto":
         if mask is not None:
             mask = torch.as_tensor(mask, device=q.device)
-        if q.is_cuda and (mask is None or _as_key_mask(mask) is not None):
+        if (q.is_cuda and flash_takes(q, k, v)
+                and (mask is None or _as_key_mask(mask) is not None)):
             return flash_attention(q, k, v, mask, causal=causal, scale=scale)
         return mha_reference(q, k, v, mask, causal=causal, scale=scale)
     if impl in ("ring", "ulysses"):

@@ -229,6 +229,24 @@ def test_dot_product_attention_rejects_what_flash_cannot_take():
         TA.dot_product_attention(q, k, v, impl="cudnn")
 
 
+def test_dense_path_masks_float16_without_overflow():
+    """float16 cannot hold the -1e30 mask: the dense path (where ``auto``
+    sends float16) fills with float16's lowest finite value instead, so a
+    masked float16 call agrees with float32 to float16's precision, and a
+    row with no live key is still the uniform softmax, not NaN."""
+    q, k, v = _torch(*_qkv(30, 2, 2, 24, 24, 64))
+    mask = torch.from_numpy(_key_mask(31, 2, 24))
+    mask[0] = 0.0  # example 0: no live key
+    ref = TA.mha_reference(q, k, v, mask, causal=True)
+    half = [t.to(torch.float16) for t in (q, k, v)]
+    out = TA.dot_product_attention(*half, mask, causal=True)
+    assert out.dtype == torch.float16 and bool(torch.isfinite(out).all())
+    np.testing.assert_allclose(out.float().numpy(), ref.numpy(), atol=1e-2)
+    np.testing.assert_allclose(out[0].float().numpy(),
+                               v[0].mean(dim=1, keepdim=True).expand(2, 24, 64).numpy(),
+                               atol=1e-2)
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     """The wrapper launches the kernel or raises: CPU tensors are refused,
     never run through the plain version."""

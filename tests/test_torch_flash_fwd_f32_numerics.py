@@ -39,40 +39,13 @@ from deeplearning4j_tpu.kernels import attention as JA
 from deeplearning4j_tpu_torch import set_fp32_numerics
 from deeplearning4j_tpu_torch.kernels import attention as TA
 from torch_port_fixtures import _no_leaked_children_or_shm  # noqa: F401  (per-process leak audit)
+from torch_port_fixtures import product, split, tf32, truncate_tf32
 
 FP32_ATOL = 2e-5  # chip_smoke.py phase 2: float32 output, kernel vs plain
 LSE_TOL = 1e-5    # relative, float32 lse
 LOG2E = 1.4426950408889634
 NEG_INF = -1e30
 TILE_K = 64
-
-
-def tf32(x):
-    """x rounded to TF32 as the kernel's ``split_tf32`` does: add half of
-    the 13 dropped mantissa bits to the magnitude, then clear them."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def truncate_tf32(x):
-    """x as the tensor core reads a float32 register: its top 19 bits."""
-    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
-
-
-def split(x):
-    """(hi, lo) as the products see them: hi rounded, lo = x - hi
-    truncated."""
-    hi = tf32(x)
-    return hi, truncate_tf32(x - hi)
-
-
-def product(a, b, terms):
-    """a @ b as the kernel computes it: 3xTF32, or one TF32 product."""
-    ah, al = split(a)
-    bh, bl = split(b)
-    if terms == 1:
-        return ah @ bh
-    return al @ bh + ah @ bl + ah @ bh
 
 
 def kernel_model(q, k, v, qseg, kseg, causal, scale, q_offset, splits=4, terms=3):

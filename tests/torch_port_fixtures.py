@@ -10,6 +10,11 @@ and unlinked under the ETL service that still uses it. This audit checks
 the same two things for what this process can leak: its own live child
 processes, and the ``tdl_*`` segments named after this process's pid (the
 ETL service names its rings ``tdl_etl_<pid>_<id>``) or after no pid.
+
+``tf32``, ``truncate_tf32``, ``split`` and ``product`` model the float32
+kernels' products on the TF32 tensor cores (3xTF32, ``csrc/attention_tiles.cuh``
+``split_tf32``) for the CPU numerics models of the forward and backward
+kernels.
 """
 
 import multiprocessing as mp
@@ -18,6 +23,7 @@ import re
 import time
 
 import pytest
+import torch
 
 _SHM_DIR = "/dev/shm"
 _CREATOR_PID = re.compile(r"^tdl_[a-z]+_(\d+)_")
@@ -69,3 +75,31 @@ def _no_leaked_children_or_shm():
     assert not leaked_procs and not leaked_shm, (
         f"test leaked live child processes {leaked_procs} and/or "
         f"shared-memory segments {sorted(leaked_shm)}")
+
+
+def tf32(x):
+    """x rounded to TF32 as the kernels' ``split_tf32`` does: add half of
+    the 13 dropped mantissa bits to the magnitude, then clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def truncate_tf32(x):
+    """x as the tensor core reads a float32 register: its top 19 bits."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def split(x):
+    """(hi, lo) as the products see them: hi rounded, lo = x - hi
+    truncated."""
+    hi = tf32(x)
+    return hi, truncate_tf32(x - hi)
+
+
+def product(a, b, terms):
+    """a @ b as the kernels compute it: 3xTF32, or one TF32 product."""
+    ah, al = split(a)
+    bh, bl = split(b)
+    if terms == 1:
+        return ah @ bh
+    return al @ bh + ah @ bl + ah @ bh
