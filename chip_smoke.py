@@ -35,6 +35,17 @@ Phases:
    ``DecodeSlotPool(slots=4)``: 6 ragged prompts, 16 new tokens each; every
    prefill must go through the kernel, and the tokens must equal those of
    the dense-attention path;
+4b. paged generation on phase 4's model and prompts: (a) ``generate`` with
+   no pool builds a ``PagedDecodeSlotPool``, whose tokens must equal phase
+   4's, with 12 kernel launches per prefill, one capture of the decode step
+   (``decode_traces == 1``) and every block free afterwards; (b) two prompts
+   sharing a 256-token prefix share its 16 blocks (copy-on-write) and
+   generate what each does alone; (c) speculative decoding (spec_tokens 4)
+   with an identity-tail 2-layer draft (acceptance at least 0.9) and with a
+   random 2-layer draft gives the tokens of plain paged decoding; (d) the
+   paged step, replayed as one CUDA graph, timed against the dense eager
+   step in turns (4 live slots, 30 steps each), with a profile, and the
+   speculative step's time and tokens per step;
 5. train BERT-base (fp32 parameters, bf16 compute, dropout 0) on the
    ``bench.py`` batch: B=16, T=128, 19 sorted MLM positions, Adam(1e-4).
    One float32 step through the kernels must match the dense-attention
@@ -870,7 +881,36 @@ def _timed(fn, sink):
     return run
 
 
+def check_near_ties(tag, what, params, cfg, prompts, got, ref) -> int:
+    """Hold generated tokens to reference tokens: a sequence may differ only
+    from a token where the dense path's top-2 logit margin (a full forward
+    through ``attn_impl="xla"``) is at most TIE_EPS, a float32 near-tie
+    that another order of the sums can flip. Prints each such case; returns
+    how many sequences are identical."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+
+    xla = dataclasses.replace(cfg, attn_impl="xla")
+    for prompt, a, b in zip(prompts, got, ref):
+        if a == b:
+            continue
+        t = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        check(t < min(len(a), len(b)), f"{what}: {len(a)} tokens against {len(b)}")
+        logits = tfm.forward(params, [prompt + b[:t]], xla)[0, -1]
+        top2 = torch.topk(logits, 2).values
+        margin = (top2[0] - top2[1]).item()
+        print(f"{tag} {what}: prompt of {len(prompt)} diverges at token {t}; "
+              f"dense path's top-2 margin there {margin:.3e}", flush=True)
+        check(margin <= TIE_EPS, f"{what}: tokens differ from the reference at a "
+                                 f"margin of {margin} > {TIE_EPS}")
+    return sum(a == b for a, b in zip(got, ref))
+
+
 def phase_generate(tag, launches):
+    """Generation through the dense ``DecodeSlotPool`` (see the module
+    docstring). Returns what phase 4b reuses: the model, its config, the
+    prompts, the new-token budget and the generated tokens."""
     import torch
 
     from deeplearning4j_tpu_torch.kernels.attention import flash_forward
@@ -906,18 +946,7 @@ def phase_generate(tag, launches):
     xla = dataclasses.replace(cfg, attn_impl="xla")
     ref = tfm.generate(params, prompts, max_new, xla,
                        pool=tfm.DecodeSlotPool(params, xla, slots=4))
-    for prompt, a, b in zip(prompts, got, ref):
-        if a == b:
-            continue
-        t = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
-        logits = tfm.forward(params, [prompt + b[:t]], xla)[0, -1]
-        top2 = torch.topk(logits, 2).values
-        margin = (top2[0] - top2[1]).item()
-        print(f"{tag} generate: prompt of {len(prompt)} diverges at token {t}; "
-              f"dense path's top-2 margin there {margin:.3e}", flush=True)
-        check(margin <= TIE_EPS, f"generate: tokens differ from the dense path at a "
-                                 f"margin of {margin} > {TIE_EPS}")
-    same = sum(a == b for a, b in zip(got, ref))
+    same = check_near_ties(tag, "generate", params, cfg, prompts, got, ref)
     decode_tokens = sum(live_per_step)
     print(f"{tag} generate: {same}/{len(prompts)} sequences token-identical to the dense "
           f"path; flash launches {n} for {len(prompts)} admissions", flush=True)
@@ -931,6 +960,222 @@ def phase_generate(tag, launches):
     device_profile(tag, "prefill of a 300-token prompt (512 bucket) fp32",
                    lambda: pool._prefill_fn(slot, np.zeros((1, 512), np.int64), 300))
     device_profile(tag, "decode step, slots=4 fp32", lambda: pool.step(), reps=5)
+    return {"params": params, "cfg": cfg, "prompts": prompts, "max_new": max_new, "tokens": got}
+
+
+# ----------------------------------------------------------------- phase 4b
+
+
+def identity_tail_models(params, cfg, layers):
+    """(target, draft, draft_cfg): a copy of ``params`` whose blocks from
+    ``layers`` on get zero ``out_w`` and ``ffn_w2``, and a draft holding its
+    first ``layers`` blocks. The zeroed blocks are exact no-ops only because
+    the config is pre-LN (``norm_position="pre"``, the default) and
+    ``init_params`` leaves every bias at zero: each then adds zero to the
+    residual stream, so the draft's argmax is the target's."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+
+    check(cfg.norm_position == "pre", "identity-tail draft needs a pre-LN config")
+    target = tfm.Transformer(cfg, device=params.device)
+    target.load_state_dict(params.state_dict())
+    with torch.no_grad():
+        for blk in target.blocks[layers:]:
+            check(not blk.out_b.any().item() and not blk.ffn_b2.any().item(),
+                  "identity-tail draft needs zero out_b and ffn_b2")
+            blk.out_w.zero_()
+            blk.ffn_w2.zero_()
+    draft_cfg = dataclasses.replace(cfg, n_layers=layers)
+    draft = tfm.Transformer(draft_cfg, device=params.device)
+    draft.load_state_dict({k: v for k, v in target.state_dict().items()
+                           if not k.startswith("blocks.") or int(k.split(".")[1]) < layers})
+    return target, draft, draft_cfg
+
+
+def _step_times(pools, n):
+    """Host times (ms) of ``n`` steps of each pool, in turns (one step of
+    each pool per round), each step ending in a synchronize; returns
+    ({name: [ms]}, {name: [step outputs]})."""
+    import torch
+
+    times = {name: [] for name in pools}
+    outs = {name: [] for name in pools}
+    for _ in range(n):
+        for name, pool in pools.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[name].append(pool.step())
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    return times, outs
+
+
+def phase_paged_generate(tag, launches, gen):
+    """Generation through ``PagedDecodeSlotPool``, ``generate``'s default,
+    on phase 4's model and prompts (``gen``): (a) the default path, tokens
+    held to phase 4's; (b) copy-on-write prefix sharing; (c) speculative
+    decoding with an identity-tail and with a random 2-layer draft; (d) the
+    graph-replayed paged step timed against the dense eager step, in turns.
+    Appends the prefill kernel launches of (a) and (c) to ``launches``."""
+    import torch
+
+    from deeplearning4j_tpu_torch.kernels.attention import flash_forward
+    from deeplearning4j_tpu_torch.models import paged_decode as pd
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+
+    params, cfg, prompts, max_new = gen["params"], gen["cfg"], gen["prompts"], gen["max_new"]
+    L = cfg.n_layers
+
+    def check_pool_drained(what, pool):
+        stats = pool.block_stats()
+        check(pool.free_slots == pool.slots and stats["blocks_free"] == pool.total_blocks
+              and stats["blocks_free"] == stats["blocks_total"],
+              f"{what}: slots or blocks left taken: {stats}")
+        check(pool.decode_traces == 1, f"{what}: decode_traces {pool.decode_traces}, expected 1")
+        check(pool.graph_replays > 0, f"{what}: the step never ran as a graph replay")
+
+    # (a) the default path: generate builds the paged pool
+    built = []
+
+    class Recorder(pd.PagedDecodeSlotPool):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            built.append(self)
+
+    tfm.PagedDecodeSlotPool = Recorder
+    try:
+        flash_forward.launches = 0
+        paged = tfm.generate(params, prompts, max_new, cfg, slots=4)
+        torch.cuda.synchronize()
+        n = flash_forward.launches
+    finally:
+        del tfm.PagedDecodeSlotPool  # back to the module's lazy export
+    launches.append(n)
+    check(len(built) == 1, f"generate built {len(built)} paged pools, expected 1")
+    pool = built.pop()
+    check(n == L * len(prompts), f"paged generate: {n} kernel launches, expected "
+                                 f"{L} x {len(prompts)} admissions")
+    check(all(len(g) == max_new for g in paged), "paged generate: wrong number of tokens")
+    same = check_near_ties(tag, "paged generate", params, cfg, prompts, paged, gen["tokens"])
+    check_pool_drained("paged generate", pool)
+    print(f"{tag} paged generate (default pool, block_T {pool.block_T}, {pool.total_blocks} "
+          f"blocks): {same}/{len(prompts)} sequences token-identical to phase 4's dense pool; "
+          f"flash launches {n} for {len(prompts)} admissions; decode_traces "
+          f"{pool.decode_traces}, {pool.graph_replays} graph replays; blocks free "
+          f"{pool.block_stats()['blocks_free']}/{pool.total_blocks}", flush=True)
+    del pool
+
+    # (b) copy-on-write: a 256-token prefix (16 full blocks), tails of 7 and 19
+    rs = np.random.RandomState(9)
+    prefix = rs.randint(0, cfg.vocab_size, 256).tolist()
+    pair = [prefix + rs.randint(0, cfg.vocab_size, n).tolist() for n in (7, 19)]
+    solo_pool = pd.PagedDecodeSlotPool(params, cfg, slots=4)
+    solo = [tfm.generate(params, [p], max_new, cfg, pool=solo_pool)[0] for p in pair]
+    del solo_pool
+    pool = pd.PagedDecodeSlotPool(params, cfg, slots=4)
+    free0 = pool.block_stats()["blocks_free"]
+    sa, fa = pool.admit(pair[0], max_new)
+    used_a = free0 - pool.block_stats()["blocks_free"]
+    sb, fb = pool.admit(pair[1], max_new)
+    used_b = free0 - used_a - pool.block_stats()["blocks_free"]
+    stats = pool.block_stats()
+    check(stats["cow_shared_blocks"] == 16, f"CoW: {stats['cow_shared_blocks']} shared blocks, "
+                                            f"expected 16")
+    check(used_b < used_a, f"CoW: the sharer paid {used_b} blocks, the first {used_a}")
+    toks = {sa: [fa], sb: [fb]}
+    while min(len(t) for t in toks.values()) < max_new:
+        for slot, new in pool.step().items():
+            toks[slot].extend(new)
+    shared = [toks[sa][:max_new], toks[sb][:max_new]]
+    pool.release(sa)
+    pool.release(sb)
+    same = check_near_ties(tag, "CoW", params, cfg, pair, shared, solo)
+    check_pool_drained("CoW", pool)
+    print(f"{tag} paged CoW: prompts of {len(pair[0])} and {len(pair[1])} tokens sharing a "
+          f"256-token prefix: first paid {used_a} blocks, sharer {used_b}; "
+          f"cow_shared_blocks {stats['cow_shared_blocks']}, cow_saved_blocks "
+          f"{stats['cow_saved_blocks']}; {same}/2 token-identical to solo runs", flush=True)
+    del pool
+
+    # (c) speculative decoding, spec_tokens=4
+    spec_pools = {}
+    target, draft, draft_cfg = identity_tail_models(params, cfg, 2)
+    plain = tfm.generate(target, prompts, max_new, cfg, slots=4)
+    random_cfg = dataclasses.replace(cfg, n_layers=2)
+    random_draft = tfm.init_params(7, random_cfg, device="cuda")
+    for kind, tgt, drf, dcfg, ref in (("identity-tail", target, draft, draft_cfg, plain),
+                                      ("random", params, random_draft, random_cfg, paged)):
+        pool = pd.PagedDecodeSlotPool(tgt, cfg, slots=4, draft_params=drf, draft_cfg=dcfg,
+                                      spec_tokens=4)
+        flash_forward.launches = 0
+        got = tfm.generate(tgt, prompts, max_new, cfg, pool=pool)
+        torch.cuda.synchronize()
+        n = flash_forward.launches
+        launches.append(n)
+        want = (L + dcfg.n_layers) * len(prompts)
+        check(n == want, f"speculative ({kind}): {n} kernel launches, expected {want}")
+        same = check_near_ties(tag, f"speculative ({kind})", tgt, cfg, prompts, got, ref)
+        check_pool_drained(f"speculative ({kind})", pool)
+        stats = pool.block_stats()
+        rate = stats["spec_accepted"] / stats["spec_proposed"]
+        print(f"{tag} speculative ({kind} {dcfg.n_layers}-layer draft, spec_tokens 4): "
+              f"{same}/{len(prompts)} sequences token-identical to plain paged decoding; "
+              f"acceptance {stats['spec_accepted']}/{stats['spec_proposed']} = {rate:.3f}; "
+              f"flash launches {n}; decode_traces {pool.decode_traces}", flush=True)
+        if kind == "identity-tail":
+            check(rate >= 0.9, f"identity-tail acceptance {rate:.3f} < 0.9")
+        spec_pools[kind] = pool
+
+    # (d) step time: 4 live slots at the same positions, dense eager step
+    # against the paged graph replay, in turns
+    steps = 30
+    dense = tfm.DecodeSlotPool(params, cfg, slots=4)
+    paged_pool = pd.PagedDecodeSlotPool(params, cfg, slots=4)
+    for p in prompts[:4]:
+        dense.admit(p, 64)
+        paged_pool.admit(p, 64)
+    for pool in (dense, paged_pool):  # warm-up; the paged pool captures here
+        pool.step()
+    check(paged_pool.decode_traces == 1 and paged_pool.graph_replays == 1,
+          "paged step: not captured once and replayed")
+    eager_runs = []
+    body = paged_pool._step_body
+    paged_pool._step_body = lambda *a: eager_runs.append(1) or body(*a)
+    times, _ = _step_times({"dense eager": dense, "paged graph": paged_pool}, steps)
+    check(not eager_runs and paged_pool.graph_replays == 1 + steps
+          and paged_pool.decode_traces == 1,
+          f"paged step: {len(eager_runs)} eager runs, {paged_pool.graph_replays} replays")
+    check(np.array_equal(dense._positions[:4], paged_pool._positions[:4]),
+          "dense and paged pools at different positions")
+    for name, ts in times.items():
+        print(f"{tag} decode step slots=4 fp32, {name}: {spread(ts)}, "
+              f"{4 / statistics.median(ts) * 1e3:.1f} tokens/s at the median", flush=True)
+    print(f"{tag} decode step paged graph / dense eager: "
+          f"{statistics.median(times['paged graph']) / statistics.median(times['dense eager']):.3f}"
+          f" (medians, {steps} steps each in turns, all {steps} paged steps replays)", flush=True)
+    device_profile(tag, "paged decode step (graph replay), slots=4 fp32",
+                   lambda: paged_pool.step(), reps=5)
+    paged_pool._step_body = body
+    check(not eager_runs, "paged step ran eagerly under the profiler")
+    del dense, paged_pool
+
+    # the speculative step: 4 live slots, step time and tokens per step
+    for kind, pool in spec_pools.items():
+        for p in prompts[:4]:
+            pool.admit(p, 200)
+        pool.step()
+        accepted, replays = pool.spec_accepted, pool.graph_replays
+        times, outs = _step_times({kind: pool}, steps)
+        check(pool.graph_replays == replays + steps and pool.decode_traces == 1,
+              f"speculative ({kind}) step: not replayed")
+        per_slot = statistics.mean(sum(len(v) for v in out.values()) / len(out)
+                                   for out in outs[kind])
+        acc = (pool.spec_accepted - accepted) / (steps * 4)
+        print(f"{tag} speculative step ({kind} draft) slots=4 fp32: {spread(times[kind])}; "
+              f"{per_slot:.3f} tokens per slot per step ({acc:.3f} drafted tokens accepted), "
+              f"{4 * per_slot / statistics.median(times[kind]) * 1e3:.1f} tokens/s at the median",
+              flush=True)
 
 
 # ------------------------------------------------------------------ phase 5
@@ -1118,8 +1363,12 @@ def main() -> int:
                                           "flash_bwd_dq", "flash_bwd_dkv_f32", "flash_bwd_dq_f32")}
         phase_encoder(tag, launches["flash_fwd"])
         print("phase 3 encoder serving: ok", flush=True)
-        phase_generate(tag, launches["flash_fwd_f32"])
+        gen = phase_generate(tag, launches["flash_fwd_f32"])
         print("phase 4 generation: ok", flush=True)
+        t4b = time.perf_counter()
+        phase_paged_generate(tag, launches["flash_fwd_f32"], gen)
+        del gen
+        print(f"phase 4b paged generation: ok ({time.perf_counter() - t4b:.1f} s)", flush=True)
         phase_train(tag, launches)
         print("phase 5 training: ok", flush=True)
     except SmokeFailure as e:

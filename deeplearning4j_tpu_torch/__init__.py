@@ -16,6 +16,9 @@ Ported so far (serving and training of the flagship BERT-base transformer):
   ``qa_forward``), greedy generation (``prefill_forward``,
   ``DecodeSlotPool``, ``generate``), and training (dropout,
   ``loss_fn``, ``qa_loss_fn``, ``make_train_step``, ``make_qa_train_step``);
+- ``models.paged_decode`` — the block-paged KV cache with copy-on-write
+  prefix sharing and speculative decoding (``PagedDecodeSlotPool``,
+  ``generate``'s default pool), its decode step replayed as one CUDA graph;
 - ``nn.updaters`` — ``Adam``, ``Sgd``, ``NoOp`` and two schedules;
 - ``models.weights`` — the bridge from the JAX parameter and updater-state
   pytrees.

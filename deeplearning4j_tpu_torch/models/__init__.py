@@ -1,5 +1,6 @@
 """Models of the port: the flagship BERT-base transformer (serving and training)."""
 
+from .paged_decode import BlockAllocator, NoFreeBlocksError, PagedDecodeSlotPool
 from .transformer import (
     DecodeSlotPool,
     KvCacheLostError,
@@ -25,8 +26,11 @@ from .weights import (
 )
 
 __all__ = [
+    "BlockAllocator",
     "DecodeSlotPool",
     "KvCacheLostError",
+    "NoFreeBlocksError",
+    "PagedDecodeSlotPool",
     "QaHead",
     "Transformer",
     "TransformerConfig",

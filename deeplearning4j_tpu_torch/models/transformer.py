@@ -17,9 +17,10 @@ back, and the tied decoder of ``mlm_head`` with compute-dtype operands and
 float32 products.
 
 Serving: the inference forward (``forward``, ``encode``, ``qa_forward``,
-run under ``torch.inference_mode``) and greedy generation through a dense
-KV-cache slot pool. Training: dropout, ``token_ce_loss``, ``loss_fn``,
-``qa_loss_fn`` and the train steps (``make_train_step``,
+run under ``torch.inference_mode``) and greedy generation through a KV-cache
+slot pool (the block-paged ``models.paged_decode.PagedDecodeSlotPool`` by
+default, or the dense :class:`DecodeSlotPool`). Training: dropout,
+``token_ce_loss``, ``loss_fn``, ``qa_loss_fn`` and the train steps (``make_train_step``,
 ``make_qa_train_step``) with the updaters of ``nn.updaters``; gradients come
 from autograd, through the flash backward kernels for the attention.
 Randomness: where the JAX package takes a ``jax.random`` key (``rng``), the
@@ -302,19 +303,29 @@ def _block(cfg: TransformerConfig, p: Block, h, pad_mask, generator=None,
         o = o.transpose(1, 2).reshape(B, T, D)
         return _dropout(o @ p.out_w.to(cd) + p.out_b.to(cd), cfg, generator, train)
 
-    def ffn_sub(x):
-        x = _gelu(x @ p.ffn_w1.to(cd) + p.ffn_b1.to(cd), cfg)
-        return _dropout(x @ p.ffn_w2.to(cd) + p.ffn_b2.to(cd), cfg, generator, train)
-
-    if cfg.norm_position == "pre":  # h + f(LN(h))
-        h = h + attn_sub(_layer_norm(h, p.ln1_scale, p.ln1_bias).to(cd)).to(h.dtype)
-        h = h + ffn_sub(_layer_norm(h, p.ln2_scale, p.ln2_bias).to(cd)).to(h.dtype)
-    else:  # original-BERT post-LN: LN(h + f(h))
-        h = _layer_norm(h + attn_sub(h.to(cd)).to(h.dtype),
-                        p.ln1_scale, p.ln1_bias).to(h.dtype)
-        h = _layer_norm(h + ffn_sub(h.to(cd)).to(h.dtype),
-                        p.ln2_scale, p.ln2_bias).to(h.dtype)
+    h = _residual(cfg, p, h, attn_sub,
+                  lambda x: _dropout(_ffn(cfg, p, x), cfg, generator, train))
     return (h, kv["k"], kv["v"]) if return_kv else h
+
+
+def _ffn(cfg: TransformerConfig, p: Block, x):
+    """The feed-forward sublayer: gelu(x W1 + b1) W2 + b2 in compute dtype."""
+    cd = cfg.compute_dtype
+    x = _gelu(x @ p.ffn_w1.to(cd) + p.ffn_b1.to(cd), cfg)
+    return x @ p.ffn_w2.to(cd) + p.ffn_b2.to(cd)
+
+
+def _residual(cfg: TransformerConfig, p: Block, h, attn_sub, ffn_sub):
+    """One layer's two sublayers around the residual stream h: pre-LN,
+    ``h + f(LN(h))`` (GPT-style), or post-LN, ``LN(h + f(h))`` (original
+    BERT); sublayers take and return the compute dtype, the stream keeps
+    h's dtype."""
+    cd = cfg.compute_dtype
+    if cfg.norm_position == "pre":
+        h = h + attn_sub(_layer_norm(h, p.ln1_scale, p.ln1_bias).to(cd)).to(h.dtype)
+        return h + ffn_sub(_layer_norm(h, p.ln2_scale, p.ln2_bias).to(cd)).to(h.dtype)
+    h = _layer_norm(h + attn_sub(h.to(cd)).to(h.dtype), p.ln1_scale, p.ln1_bias).to(h.dtype)
+    return _layer_norm(h + ffn_sub(h.to(cd)).to(h.dtype), p.ln2_scale, p.ln2_bias).to(h.dtype)
 
 
 # The functions below come in pairs: ``_embed``/``_encode``/``_mlm_head``/
@@ -589,19 +600,7 @@ def _decode_block(cfg: TransformerConfig, p: Block, h, kc, vc, positions, kv_mas
         o = torch.einsum("sht,sthd->shd", w, vc.to(cd)).reshape(S, D)
         return o @ p.out_w.to(cd) + p.out_b.to(cd)
 
-    def ffn_sub(x):
-        x = _gelu(x @ p.ffn_w1.to(cd) + p.ffn_b1.to(cd), cfg)
-        return x @ p.ffn_w2.to(cd) + p.ffn_b2.to(cd)
-
-    if cfg.norm_position == "pre":
-        h = h + attn_sub(_layer_norm(h, p.ln1_scale, p.ln1_bias).to(cd)).to(h.dtype)
-        h = h + ffn_sub(_layer_norm(h, p.ln2_scale, p.ln2_bias).to(cd)).to(h.dtype)
-    else:
-        h = _layer_norm(h + attn_sub(h.to(cd)).to(h.dtype),
-                        p.ln1_scale, p.ln1_bias).to(h.dtype)
-        h = _layer_norm(h + ffn_sub(h.to(cd)).to(h.dtype),
-                        p.ln2_scale, p.ln2_bias).to(h.dtype)
-    return h
+    return _residual(cfg, p, h, attn_sub, lambda x: _ffn(cfg, p, x))
 
 
 class KvCacheLostError(RuntimeError):
@@ -789,32 +788,56 @@ class DecodeSlotPool:
 
 def generate(params: Transformer, prompts, max_new_tokens: int, cfg: TransformerConfig,
              *, slots: Optional[int] = None, eos_id: Optional[int] = None,
-             max_len: Optional[int] = None, pool: Optional[DecodeSlotPool] = None,
+             max_len: Optional[int] = None, pool=None, draft_params: Optional[Transformer] = None,
+             draft_cfg: Optional[TransformerConfig] = None, spec_tokens: int = 4,
              device="cuda"):
     """Greedy batch generation through a decode pool (offline API).
 
     ``prompts``: 1-D int token sequences (ragged ok). Returns one list of
     generated tokens per prompt, each ending at ``eos_id`` (inclusive) or
     ``max_new_tokens``. Admission is continuous: a finished sequence's slot
-    is refilled at once. Without ``pool`` a dense :class:`DecodeSlotPool`
-    is built on ``device`` (the JAX package builds its paged pool there;
-    the paged pool is not ported yet — the two give the same tokens)."""
+    is refilled at once.
+
+    Without ``pool`` a block-paged :class:`PagedDecodeSlotPool` is built on
+    ``device`` (which must be where ``params`` live), as in the JAX package;
+    pass ``draft_params``/``draft_cfg`` to decode speculatively, with the
+    tokens of plain greedy decoding. A dense :class:`DecodeSlotPool` still
+    works through ``pool=``; both step protocols (``{slot: tok}`` and
+    ``{slot: [toks...]}``) are understood."""
     if max_new_tokens < 1:
         raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
     prompts = list(prompts)
     if not prompts:
         return []
     if pool is None:
-        pool = DecodeSlotPool(params, cfg, slots=slots or min(8, len(prompts)),
-                              eos_id=eos_id, max_len=max_len, device=device)
+        T = max_len or cfg.max_len
+        # the largest power-of-two block size (<= 16) that divides max_len
+        block_T = 16
+        while T % block_T:
+            block_T //= 2
+        # looked up through the module globals first, so that a patched
+        # ``transformer.PagedDecodeSlotPool`` is the one built
+        pool_cls = globals().get("PagedDecodeSlotPool") or __getattr__("PagedDecodeSlotPool")
+        pool = pool_cls(params, cfg, slots=slots or min(8, len(prompts)), eos_id=eos_id,
+                        max_len=max_len, block_T=block_T, draft_params=draft_params,
+                        draft_cfg=draft_cfg, spec_tokens=spec_tokens, device=device)
     eos = eos_id if eos_id is not None else pool.eos_id
     pending = deque(enumerate(prompts))
     live: Dict[int, list] = {}  # slot -> [prompt index, generated tokens]
     results: Dict[int, list] = {}
     while pending or live:
         while pending and pool.free_slots:
-            idx, prompt = pending.popleft()
-            slot, first = pool.admit(prompt, max_new_tokens)
+            idx, prompt = pending[0]
+            try:
+                slot, first = pool.admit(prompt, max_new_tokens)
+            except Exception as e:
+                # a paged pool can have a free slot and no free blocks: drain
+                # the live sequences and retry (with nothing live an empty
+                # pool would have admitted it, so re-raise)
+                if getattr(e, "retry_admission", False) and live:
+                    break
+                raise
+            pending.popleft()
             if max_new_tokens == 1 or (eos is not None and first == eos):
                 results[idx] = [first]
                 pool.release(slot)
@@ -822,13 +845,31 @@ def generate(params: Transformer, prompts, max_new_tokens: int, cfg: Transformer
                 live[slot] = [idx, [first]]
         if not live:
             continue
-        for slot, tok in pool.step().items():
+        for slot, step_toks in pool.step().items():
+            if not isinstance(step_toks, (list, tuple)):
+                step_toks = (step_toks,)
             idx, toks = live.get(slot, (None, None))
             if idx is None:
                 continue
-            toks.append(tok)
-            if len(toks) >= max_new_tokens or (eos is not None and tok == eos):
-                results[idx] = toks
-                pool.release(slot)
-                del live[slot]
+            for tok in step_toks:
+                toks.append(tok)
+                if len(toks) >= max_new_tokens or (eos is not None and tok == eos):
+                    results[idx] = toks
+                    pool.release(slot)
+                    del live[slot]
+                    break
     return [results[i] for i in range(len(prompts))]
+
+
+_PAGED_EXPORTS = ("BlockAllocator", "NoFreeBlocksError", "PagedDecodeSlotPool")
+
+
+def __getattr__(name):
+    # Lazy re-export of the paged pool (PEP 562): paged_decode imports this
+    # module's building blocks, so importing it here at the top would be
+    # cyclic whenever paged_decode is imported first.
+    if name in _PAGED_EXPORTS:
+        from . import paged_decode
+
+        return getattr(paged_decode, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -2,10 +2,11 @@
 the JAX package — ``prefill_forward``, the dense ``DecodeSlotPool`` and
 ``generate`` on the same weights (the config of tests/test_generate.py).
 
-Token ids must be identical. The port's ``generate`` builds a dense pool;
-the JAX ``generate`` builds its paged pool by default, and both JAX pools
-give the same tokens (tests/test_paged_decode.py), so the port is held
-against both. Hidden states and K/V: float32, atol 1e-5.
+Token ids must be identical. Without a pool, the ``generate`` of both
+packages builds the paged pool (tests/test_torch_paged_decode.py holds the
+two paged pools against each other); the dense-pool tests here pass
+``pool=DecodeSlotPool(...)``, and the port is held against both JAX pools.
+Hidden states and K/V: float32, atol 1e-5.
 """
 
 import jax

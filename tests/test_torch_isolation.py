@@ -137,6 +137,7 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         "qa_params_from_jax": lambda: qa_params_from_jax(qa_tree, cfg),
         "init_kv_cache": lambda: T.init_kv_cache(cfg, 2),
         "DecodeSlotPool": lambda: T.DecodeSlotPool(cpu_params, cfg, slots=2),
+        "PagedDecodeSlotPool": lambda: T.PagedDecodeSlotPool(cpu_params, cfg, slots=2),
         "generate": lambda: T.generate(cpu_params, [[1, 2, 3]], 2, cfg),
     }
     for name, call in calls.items():
