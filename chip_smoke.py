@@ -7,18 +7,19 @@ Phases:
 
 1. build every CUDA kernel of ``deeplearning4j_tpu_torch/csrc`` with nvcc,
    and print the registers and spills of each instantiation of the bf16
-   kernels (forward, dkv, dq) and of the float32 kernels (the split-TF32
-   forward per head dim and q-tile height, the split-TF32 backward pair per
-   head dim and masking); no forward and no bf16 backward may
-   spill at D=64 and D=128, and no float32 backward instantiation at all;
+   kernels (the forward per head dim, q-tile height and masking; dkv, dq)
+   and of the float32 kernels (the split-TF32 forward per head dim and
+   q-tile height, the split-TF32 backward pair per head dim and masking);
+   no forward and no bf16 backward may spill at D=64 and D=128, and no
+   float32 backward instantiation at all;
 2. hold each kernel against its plain PyTorch version on the card, over the
    shapes of the main path and the edge cases of the masking model (the
    backward's gradients, and the delta that the dq kernel computes; the
-   float32 forward at each of its q-tile heights), and time the kernel, the
+   forward at each of its q-tile heights, bf16 32/64/128 rows and float32
+   16/32, every height launched), and time the kernel, the
    plain version and the nearest PyTorch library call: the bf16 flash
    forward at the serving shape [8,12,128,64], the training shape
-   [16,12,128,64] and a causal prefill [1,12,512,64] (also built with 32-
-   and 128-row q-tiles, timed in turns against its 64); the float32 forward
+   [16,12,128,64] and a causal prefill [1,12,512,64]; the float32 forward
    at generation's causal prefills [1,12,T,64] (T = 512, 128, 256, and 512
    with keys past 300 masked) and at the float32 step check's [16,12,128,64]
    beside SDPA in float32 with TF32 off; ``dot_product_attention(impl=
@@ -27,6 +28,15 @@ Phases:
    pair, at the training shape [16,12,128,64] and the causal prefill, bf16,
    and in float32 (bound at the 3xTF32 rate) at the training shape and at
    [4,12,512,64], whose blocks sweep four times the tiles;
+2b. the autotune search (``autotune_flash_attention``, into a temporary
+   ``TDL_AUTOTUNE_DIR``) at the serving and training shapes (bf16), the
+   causal float32 prefills of 32, 64, 128 and 512 tokens and a causal bf16
+   512-token prefill: every q-tile height launches and is timed, beside SDPA
+   and the dense ``mha_reference``; ``resolve_blocks`` and ``flash_attention``
+   then take each winner, also after the table is read back from disk; the
+   table's static float32 rule equals the kernel's on this card; the host
+   cost of the table lookup per call; the training shape searched again,
+   forward plus backward;
 3. serve BERT-base (12 layers, d 768, vocab 30522, bf16, random weights from
    a seed): ``forward`` on tokens [8, 128], then a ragged key-padding
    request; every request must launch the flash kernel once per layer, and
@@ -52,11 +62,23 @@ Phases:
    step (loss and every gradient); every step must launch each of the three
    kernels once per layer; 45 steps on one batch must lower a finite loss
    (40 of them timed); a seeded dropout-0.1 step must repeat its loss; one
-   QA fine-tune step at [8,128] must be finite and go through the kernels.
+   QA fine-tune step at [8,128] must be finite and go through the kernels;
+5b. on phase 5's model and batch, each of the seven updaters of this slice
+   (Nesterovs, AdaGrad, RmsProp, AdaDelta, AdaMax, Nadam, AMSGrad) with a
+   schedule: three steps from a bridged nonzero state, a finite loss, the
+   first update of three tensors within 1e-5 of a float64 update from the
+   same gradient and state, 12 launches of each kernel per step;
+5c. per-block remat on the same model and batch: a float32 step with
+   remat against one without at dropout 0.1 (loss and every gradient within
+   1e-6, 24 forward launches and 12 of each backward), remat's lower peak
+   memory, and 20 bf16 steps of each in turns; then the train step's
+   achieved share of the dense bf16 peak, from ``layer_costs`` and phase
+   5's median step.
 
 A line before the last is a JSON object describing each kernel (launch
 counts on the main path, error against the plain version, times and the
-card's bound), then the card's name and power limit; the last line is
+card's bound; the forward also by q-tile instantiation, with the launches
+of the autotune search), then the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero and
 prints no result. The script imports only the port
 (``deeplearning4j_tpu_torch``), never JAX.
@@ -239,7 +261,9 @@ def ptxas_kernels(log) -> dict:
     return kernels
 
 
-BF16_KERNELS = ("flash_fwd_bf16_kernel", "flash_bwd_dkv_bf16_kernel", "flash_bwd_dq_bf16_kernel")
+BF16_FWD_KERNEL = "flash_fwd_bf16_kernel"
+BF16_Q_ROWS = (32, 64, 128)
+BF16_BWD_KERNELS = ("flash_bwd_dkv_bf16_kernel", "flash_bwd_dq_bf16_kernel")
 # the float32 forward, instantiated per head dim and q-tile row groups (16
 # or 32 rows), and the float32 backward pair (3xTF32), per head dim and
 # masking
@@ -250,24 +274,29 @@ F32_BWD_KERNELS = ("flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel")
 
 def report_bf16_registers(tag, log):
     """Print registers and spills of each instantiation of the bf16 kernels
-    (forward, dkv, dq; head dim D, and whether it applies masks); fail if a
-    main-path width (D=64, D=128) spills."""
+    (the forward per head dim D, q-tile rows and masking; dkv and dq per D
+    and masking); fail if a main-path width (D=64, D=128) spills."""
     found = {}
     for name, info in ptxas_kernels(log).items():
-        m = re.search(r"(%s)ILi(\d+)ELb([01])E" % "|".join(BF16_KERNELS), name)
+        m = re.search(r"(%s)ILi(\d+)ELi(\d+)ELb([01])E" % BF16_FWD_KERNEL, name)
         if m:
-            found[(m.group(1), int(m.group(2)), m.group(3) == "1")] = info
-    want = [(k, d, masked) for k in sorted(BF16_KERNELS) for d in (16, 32, 64, 128)
-            for masked in (False, True)]
+            found[(m.group(1), int(m.group(2)), int(m.group(3)), m.group(4) == "1")] = info
+        m = re.search(r"(%s)ILi(\d+)ELb([01])E" % "|".join(BF16_BWD_KERNELS), name)
+        if m:
+            found[(m.group(1), int(m.group(2)), 64, m.group(3) == "1")] = info
+    want = sorted([(k, d, 64, masked) for k in BF16_BWD_KERNELS for d in (16, 32, 64, 128)
+                   for masked in (False, True)]
+                  + [(BF16_FWD_KERNEL, d, rows, masked) for d in (16, 32, 64, 128)
+                     for rows in BF16_Q_ROWS for masked in (False, True)])
     check(sorted(found) == want, f"ptxas reported bf16 kernels {sorted(found)}")
-    for (kernel, d, masked), info in sorted(found.items()):
-        print(f"{tag} ptxas {kernel}<D={d}, masked={masked}>: "
+    for (kernel, d, rows, masked), info in sorted(found.items()):
+        print(f"{tag} ptxas {kernel}<D={d}, rows={rows}, masked={masked}>: "
               f"{info.get('registers')} registers, {info.get('spill_stores')} bytes spill "
               f"stores, {info.get('spill_loads')} bytes spill loads", flush=True)
-    for (kernel, d, masked), info in found.items():
+    for (kernel, d, rows, masked), info in found.items():
         if d in (64, 128):
             check(info.get("spill_stores") == 0 and info.get("spill_loads") == 0,
-                  f"{kernel}<D={d}, masked={masked}> spills registers: {info}")
+                  f"{kernel}<D={d}, rows={rows}, masked={masked}> spills registers: {info}")
 
 
 def report_f32_registers(tag, log):
@@ -374,8 +403,10 @@ def phase_kernels(tag):
 
     from deeplearning4j_tpu_torch.kernels import attention as A
 
+    from deeplearning4j_tpu_torch.kernels.autotune import FWD_Q_ROWS
+
     rs = np.random.RandomState(0)
-    errors = {}
+    errors, tile_errors = {}, {}
     q_rows = set()
     for name, B, H, Tq, Tk, D, causal, kind in _kernel_cases():
         for dtype in (torch.bfloat16, torch.float32):
@@ -407,9 +438,31 @@ def phase_kernels(tag):
             check(ok, f"kernel {name} {dt}: output disagrees with the plain version")
             check(lse_ok, f"kernel {name} {dt}: lse disagrees with the plain version")
             errors[(name, dt)] = diff.max().item()
+            # every q-tile height the kernel has, held to the same bounds
+            worst = []
+            for rows in FWD_Q_ROWS[dt]:
+                before = A.flash_forward.launches_by_q_rows[(dt, rows)]
+                got, got_lse = A.flash_attention(q, k, v, mask, segment_ids=seg, causal=causal,
+                                                 return_lse=True, block_q=rows, block_k=64)
+                torch.cuda.synchronize()
+                check(A.flash_forward.launches_by_q_rows[(dt, rows)] == before + 1,
+                      f"kernel {name} {dt}: the {rows}-row q-tile did not launch")
+                d = (got.float() - ref.float()).abs()
+                if dtype == torch.float32:
+                    ok = bool((d <= FP32_ATOL).all())
+                else:
+                    ok = bool((d <= BF16_ULP_REL * ref.float().abs() + BF16_ATOL).all())
+                lse_ok = bool(((got_lse - ref_lse).abs()
+                               <= LSE_TOL * ref_lse.abs().clamp(min=1.0)).all())
+                check(ok and lse_ok, f"kernel {name} {dt} with {rows}-row q-tiles disagrees "
+                                     f"with the plain version")
+                tile_errors[(dt, rows)] = max(tile_errors.get((dt, rows), 0.0), d.max().item())
+                worst.append(f"{rows} rows {d.max().item():.3e}")
+            print(f"{tag} kernel {name} {dt} by q-tile height: max|out-plain| "
+                  + ", ".join(worst), flush=True)
     check(q_rows == set(F32_Q_ROWS),
           f"phase 2 ran the float32 forward with {sorted(q_rows)}-row q-tiles only")
-    return errors
+    return errors, tile_errors
 
 
 # bf16 forward timed at: the serving shape (the kernels line reports it), the
@@ -521,81 +574,6 @@ def time_f32_forward(tag):
             tag, what, ms, plain_ms, library_ms, nbytes, ops, "sdpa float32", dtype="3xtf32")}
         print(f"{tag} {what}: max|kernel-plain| {diff:.3e}", flush=True)
     return timings["prefill_512_causal"]
-
-
-# q-tile heights the bf16 forward is also built with, to time against its 64
-Q_TILE_VARIANTS = (32, 128)
-
-
-def start_q_tile_builds() -> dict:
-    """Start nvcc on csrc/flash_fwd.cu with -DTDL_FWD_BLOCK_Q=n for each n of
-    ``Q_TILE_VARIANTS`` (beside the main build, all at once); returns
-    {n: (process, library path)}."""
-    from deeplearning4j_tpu_torch.kernels import _build
-
-    nvcc = _build.find_nvcc()
-    out_dir = _build.build_dir() / "q_tiles"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    builds = {}
-    for n in Q_TILE_VARIANTS:
-        lib = out_dir / f"libflash_fwd_q{n}.so"
-        cmd = _build.nvcc_command(nvcc, _build.CSRC / "flash_fwd.cu", lib) + [
-            f"-DTDL_FWD_BLOCK_Q={n}"]
-        builds[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                      text=True), lib)
-    return builds
-
-
-def time_q_tiles(tag, builds):
-    """The bf16 forward with 32-, 64- and 128-row q-tiles at each shape of
-    ``FWD_TIMED_SHAPES``: each held against the plain version, then timed in
-    turns (64, 32, 128, 128, 32, 64) in this call; prints the mean of each
-    height's two timings."""
-    import ctypes
-
-    import torch
-
-    from deeplearning4j_tpu_torch.kernels import attention as A
-
-    fns = {}
-    for n, (proc, lib) in builds.items():
-        output, _ = proc.communicate()
-        check(proc.returncode == 0, f"nvcc failed for the {n}-row q-tile build:\n{output}")
-        fns[n] = A.bind_kernel(ctypes.CDLL(str(lib)), "tdl_flash_fwd", 7, 9)
-
-    def variant(n, q, k, v, causal, scale):
-        fn, err_str = fns[n]
-        B, H, T, D = q.shape
-        out = torch.empty((B, H, T, D), dtype=q.dtype, device=q.device)
-        lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-        strides = [s for t in (q, k, v) for s in t.stride()[:3]]
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, out.data_ptr(),
-                lse.data_ptr(), B, H, T, T, D, 1, *strides, int(causal), scale, 0,
-                torch.cuda.current_stream().cuda_stream)
-        check(rc == 0, f"{n}-row q-tile launch failed: {err_str(rc).decode()}")
-        return out
-
-    rs = np.random.RandomState(7)
-    for name, B, H, T, D, causal in FWD_TIMED_SHAPES:
-        q, k, v = _attention_inputs(rs, B, H, T, T, D, torch.bfloat16, strided=True)
-        scale = 1.0 / math.sqrt(D)
-        runs = {64: lambda: A.flash_forward(q, k, v, None, None, causal, scale, 0)[0]}
-        for n in fns:
-            runs[n] = lambda n=n: variant(n, q, k, v, causal, scale)
-        ref = A.flash_forward_reference(q, k, v, None, None, causal, scale, 0)[0].float()
-        for n, run in runs.items():
-            diff = (run().float() - ref).abs()
-            check(bool((diff <= BF16_ULP_REL * ref.abs() + BF16_ATOL).all()),
-                  f"{n}-row q-tile forward at the {name} shape disagrees with the plain version")
-        order = [64, *fns, *reversed(list(fns)), 64]
-        times = {n: [] for n in runs}
-        for n in order:
-            times[n].append(time_ms(runs[n]))
-        blocks = {n: -(-T // n) * B * H for n in runs}
-        print(f"{tag} flash_fwd q-tile rows at {name} B={B} H={H} T={T} D={D} bf16"
-              + (" causal" if causal else "") + ": " + ", ".join(
-                  f"{n} rows ({blocks[n]} blocks) {statistics.mean(times[n]):.4f} ms"
-                  for n in sorted(runs)), flush=True)
 
 
 def report_timing(tag, what, ms, plain_ms, library_ms, nbytes, ops, library,
@@ -815,6 +793,206 @@ def time_backward(tag):
     return {f"{name}{sfx}": timings[shape][name]
             for shape, sfx in (("training", ""), ("training_f32", "_f32"))
             for name in ("flash_bwd_dkv", "flash_bwd_dq")}
+
+
+
+# ----------------------------------------------------------------- phase 2b
+
+# the autotune search's shapes: serving and training (bf16), generation's
+# causal float32 prefills at the 32-, 64-, 128- and 512-token buckets, and a
+# causal bf16 512-token prefill. (name, B, H, T, dtype, causal)
+AUTOTUNE_SHAPES = (("serving", 8, 12, 128, "bfloat16", False),
+                   ("training", 16, 12, 128, "bfloat16", False),
+                   ("prefill_32_causal", 1, 12, 32, "float32", True),
+                   ("prefill_64_causal", 1, 12, 64, "float32", True),
+                   ("prefill_128_causal", 1, 12, 128, "float32", True),
+                   ("prefill_512_causal", 1, 12, 512, "float32", True),
+                   ("prefill_512_causal_bf16", 1, 12, 512, "bfloat16", True))
+# where the kernels line reports each q-tile instantiation
+TILE_REPORT_SHAPE = {"bfloat16": "serving", "float32": "prefill_512_causal"}
+
+
+def phase_autotune(tag, tile_errors):
+    """The autotune search (``autotune_flash_attention``) into a temporary
+    ``TDL_AUTOTUNE_DIR`` at each shape of ``AUTOTUNE_SHAPES``: every q-tile
+    height the kernel has is launched and timed; the winner must be what
+    ``resolve_blocks`` then returns and what ``flash_attention`` launches
+    with no tile named, and must survive a reload of the table. Beside each
+    search: the winner, SDPA and the dense ``mha_reference`` timed alike.
+    The directory and the default table are put back afterwards, so the
+    later phases run on the static table. Returns the kernels-line entries
+    of each q-tile instantiation."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from deeplearning4j_tpu_torch.kernels import attention as A
+    from deeplearning4j_tpu_torch.kernels import autotune as AT
+
+    sms = AT.sm_count(torch.device("cuda"))
+    for B, H, T in ((1, 12, 32), (1, 12, 64), (1, 12, 128), (1, 12, 512), (8, 12, 128),
+                    (16, 12, 128), (4, 12, 512), (2, 4, 256), (1, 2, 130)):
+        rule = AT.static_flash_blocks(T, T, "float32", batch_heads=B * H, sms=sms)[0]
+        check(rule == f32_q_rows(B, H, T), f"static float32 rule at B={B} H={H} T={T}: "
+                                          f"{rule} rows, the kernel's {f32_q_rows(B, H, T)}")
+    print(f"{tag} autotune: the static float32 rule equals tdl_flash_fwd_f32_q_rows on this "
+          f"card ({sms} SMs) at 9 shapes", flush=True)
+    old = os.environ.get(AT.ENV_DIR)
+    tmp = tempfile.mkdtemp(prefix="tdl_autotune_")
+    os.environ[AT.ENV_DIR] = tmp
+    AT.reset_table()
+    try:
+        return _autotune_search(tag, tile_errors, sms)
+    finally:
+        if old is None:
+            os.environ.pop(AT.ENV_DIR, None)
+        else:
+            os.environ[AT.ENV_DIR] = old
+        AT.reset_table()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _autotune_search(tag, tile_errors, sms):
+    import torch
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.kernels import attention as A
+    from deeplearning4j_tpu_torch.kernels import autotune as AT
+
+    D = 64
+    # the search is this slice's path: its launches by q-tile height
+    A.flash_forward.launches_by_q_rows.clear()
+    entries = {}
+    t0 = time.perf_counter()
+    for name, B, H, T, dt, causal in AUTOTUNE_SHAPES:
+        entries[name] = AT.autotune_flash_attention(B, H, T, D, getattr(torch, dt),
+                                                    causal=causal, trials=20)
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    launches = dict(A.flash_forward.launches_by_q_rows)
+    for dt, heights in AT.FWD_Q_ROWS.items():
+        for rows in heights:
+            check(launches.get((dt, rows), 0) >= 1,
+                  f"the autotune search never launched the {dt} {rows}-row q-tile")
+    print(f"{tag} autotune search: {len(AUTOTUNE_SHAPES)} shapes in {search_s:.2f} s; launches "
+          "by q-tile " + ", ".join(f"{dt} {rows} rows {n}" for (dt, rows), n in
+                                    sorted(launches.items())), flush=True)
+
+    table = AT.get_table()
+    inputs, differs = {}, []
+    for name, B, H, T, dt, causal in AUTOTUNE_SHAPES:
+        entry = entries[name]
+        dtype = getattr(torch, dt)
+        static = AT.static_flash_blocks(T, T, dt, batch_heads=B * H, sms=sms)[0]
+        check(entry["measured"] and entry["block_k"] == 64
+              and entry["block_q"] in AT.FWD_Q_ROWS[dt], f"autotune {name}: entry {entry}")
+        rs = np.random.RandomState(0)  # the search's own inputs
+        q, k, v = (torch.from_numpy(rs.randn(B, H, T, D).astype(np.float32)).to("cuda", dtype)
+                   for _ in range(3))
+        inputs[name] = (q, k, v, causal)
+        check(AT.resolve_blocks("flash_attention", B=B, H=H, Tq=T, Tk=T, D=D, dtype=dt, sms=sms)
+              == (entry["block_q"], 64), f"autotune {name}: resolve_blocks is not the winner")
+        before = A.flash_forward.launches_by_q_rows[(dt, entry["block_q"])]
+        hits = AT.METRICS["tdl_autotune_lookups_total"][("flash_attention", "table")]
+        A.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        check(A.flash_forward.launches_by_q_rows[(dt, entry["block_q"])] == before + 1
+              and AT.METRICS["tdl_autotune_lookups_total"][("flash_attention", "table")]
+              == hits + 1, f"autotune {name}: flash_attention did not launch the table's winner")
+        flash_ms = time_ms(lambda: A.flash_attention(q, k, v, causal=causal))
+        sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
+        dense_ms = time_ms(lambda: A.mha_reference(q, k, v, causal=causal))
+        if entry["block_q"] != static:
+            differs.append(name)
+        print(f"{tag} autotune {name} B={B} H={H} T={T} D={D} {dt}"
+              + (" causal" if causal else "") + ": candidates (best of 20, device us) "
+              + ", ".join(f"{rows} rows {us:.3f}" for rows, us in entry["candidates_us"].items())
+              + f"; winner {entry['block_q']} rows, static {static} rows"
+              + (" (the winner differs from the static table)" if entry["block_q"] != static
+                 else "")
+              + f"; median device ms: flash (winner, through flash_attention) {flash_ms:.4f}, "
+              f"sdpa {sdpa_ms:.4f}, dense mha_reference {dense_ms:.4f}; flash / sdpa "
+              f"{flash_ms / sdpa_ms:.2f}, flash / dense {flash_ms / dense_ms:.2f}", flush=True)
+    print(f"{tag} autotune: winners differing from the static table: "
+          f"{', '.join(differs) or 'none'}", flush=True)
+    # the training shape timed forward plus backward with each forward
+    # height (the backward kernels have one tile), into a table of its own
+    both = AT.autotune_flash_attention(16, 12, 128, D, torch.bfloat16, trials=20,
+                                       include_backward=True, table=AT.AutotuneTable(None))
+    check(both["measured"] and both["block_q"] in AT.FWD_Q_ROWS["bfloat16"],
+          f"autotune with the backward: entry {both}")
+    print(f"{tag} autotune training shape, forward+backward (best of 20, device us): "
+          + ", ".join(f"{rows} rows {us:.3f}" for rows, us in both["candidates_us"].items())
+          + f"; winner {both['block_q']} rows", flush=True)
+
+    # the table read back from disk answers the same
+    saved = {key: table.lookup(key) for key in (
+        AT.shape_key("flash_attention", B=B, H=H, Tq=T, Tk=T, D=D, dtype=dt)
+        for _, B, H, T, dt, _ in AUTOTUNE_SHAPES)}
+    AT.reset_table()
+    reloaded = AT.get_table()
+    check(reloaded is not table and len(reloaded) == len(AUTOTUNE_SHAPES)
+          and all(reloaded.lookup(key) == e for key, e in saved.items()),
+          "autotune: the table did not read back from disk")
+    hits = AT.METRICS["tdl_autotune_lookups_total"][("flash_attention", "table")]
+    for name, B, H, T, dt, causal in AUTOTUNE_SHAPES:
+        check(AT.resolve_blocks("flash_attention", B=B, H=H, Tq=T, Tk=T, D=D, dtype=dt, sms=sms)
+              == (entries[name]["block_q"], 64), f"autotune {name}: reloaded winner differs")
+    check(AT.METRICS["tdl_autotune_lookups_total"][("flash_attention", "table")]
+          == hits + len(AUTOTUNE_SHAPES), "autotune: reloaded lookups did not hit the table")
+    print(f"{tag} autotune: table reloaded from disk ({len(reloaded)} entries, card "
+          f"{reloaded.device!r}); every winner resolves again", flush=True)
+
+    # the per-call cost of the lookup: flash_attention resolving its tile
+    # against naming it, in turns, and resolve_blocks alone
+    q, k, v, _ = inputs["serving"]
+    named = lambda: A.flash_attention(q, k, v, block_q=64, block_k=64)  # noqa: E731
+    resolved = lambda: A.flash_attention(q, k, v)  # noqa: E731
+    pairs = []  # (resolved, named) host us, 10 pairs, the order alternating
+    for i in range(10):
+        first, second = (resolved, named) if i % 2 == 0 else (named, resolved)
+        a, b = host_us(first, n=500), host_us(second, n=500)
+        pairs.append((a, b) if i % 2 == 0 else (b, a))
+    lookup_us = host_us(lambda: AT.resolve_blocks("flash_attention", B=8, H=12, Tq=128, Tk=128,
+                                                  D=D, dtype="bfloat16", sms=sms), n=5000)
+    print(f"{tag} host time per flash_attention call at the serving shape (launch included, "
+          f"10 pairs of 500 calls, in turns): tile resolved by the table median "
+          f"{statistics.median(r for r, _ in pairs):.1f} us, tile named median "
+          f"{statistics.median(n for _, n in pairs):.1f} us, median paired difference "
+          f"{statistics.median(r - n for r, n in pairs):+.1f} us (resolved faster in "
+          f"{sum(r < n for r, n in pairs)}/10); resolve_blocks alone {lookup_us:.2f} us",
+          flush=True)
+
+    # each q-tile instantiation at its report shape, for the kernels line
+    kernels = []
+    for dt, heights in AT.FWD_Q_ROWS.items():
+        shape = TILE_REPORT_SHAPE[dt]
+        B, H, T = next((b, h, t) for n, b, h, t, _, _ in AUTOTUNE_SHAPES if n == shape)
+        q, k, v, causal = inputs[shape]
+        args = (None, None, causal, 1.0 / math.sqrt(D), 0)
+        ref = A.flash_forward_reference(q, k, v, *args)[0]
+        plain_ms = time_ms(lambda: A.flash_forward_reference(q, k, v, *args))
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
+        pairs = T * (T + 1) // 2 if causal else T * T
+        ops = 2 * 2 * B * H * pairs * D
+        nbytes = 4 * B * H * T * D * q.element_size() + B * H * T * 4
+        for rows in heights:
+            out = A.flash_forward(q, k, v, *args, rows)[0]
+            err = (out.float() - ref.float()).abs().max().item()
+            ms = time_ms(lambda: A.flash_forward(q, k, v, *args, rows))
+            short = "bf16" if dt == "bfloat16" else "f32"
+            kernels.append({
+                "name": f"flash_fwd_{short}_q{rows}", "route": "cuda",
+                "source": "deeplearning4j_tpu_torch/csrc/flash_fwd.cu",
+                "replaces": "deeplearning4j_tpu/kernels/attention.py:70",
+                "launches": launches[(dt, rows)],
+                "max_abs_err": max(err, tile_errors[(dt, rows)]), **report_timing(
+                    tag, f"flash_fwd {dt} {rows}-row q-tiles at {shape} B={B} H={H} T={T} "
+                    f"D={D}" + (" causal" if causal else ""), ms, plain_ms, library_ms,
+                    nbytes, ops, "sdpa", dtype="3xtf32" if dt == "float32" else dt)})
+    return kernels
 
 
 # ------------------------------------------------------------------ phase 3
@@ -1320,6 +1498,260 @@ def phase_train(tag, launches):
     _check_step_counts("QA step", counts, 1, cfg.n_layers)
     check(all(torch.isfinite(p).all().item() for p in qa.parameters()),
           "QA step: non-finite span head")
+    return ms
+
+
+# the seven updaters of this slice's training surface, each with one of the
+# five schedules it added (AdaDelta takes no learning rate, in either
+# package: its schedule rides along unused)
+def _new_updaters():
+    from deeplearning4j_tpu_torch.nn import updaters as U
+
+    return [U.Nesterovs(1e-3, momentum=0.9, lr_schedule=U.ExponentialSchedule(1e-3, 0.97)),
+            U.AdaGrad(1e-3, lr_schedule=U.InverseSchedule(1e-3, 0.1, 0.75)),
+            U.RmsProp(1e-4, lr_schedule=U.StepSchedule(1e-4, 0.5, 2.0)),
+            U.AdaDelta(lr_schedule=U.SigmoidSchedule(1e-3, 0.3, 10)),
+            U.AdaMax(1e-4, lr_schedule=U.SigmoidSchedule(1e-4, 0.3, 10)),
+            U.Nadam(1e-4, lr_schedule=U.PolySchedule(1e-4, 1.0, 50)),
+            U.AMSGrad(1e-4, lr_schedule=U.ExponentialSchedule(1e-4, 0.9, "EPOCH"))]
+
+
+# the kind of value each state slot holds: a mean of squares (>= 0), a
+# maximum of |g| (>= 0, the scale of |g|), or else a signed mean of g
+SQUARE_SLOTS = {"h", "g2", "msg", "msdx", "v", "vhat"}
+ABS_SLOTS = {"u"}
+# the first step's update is checked on these tensors
+UPDATE_CHECKED = ("embed.tok", "blocks.0.qkv_w", "mlm.ln_bias")
+UPDATE_REL = 1e-5  # float32 on the card against float64 on the CPU, of the norm
+
+
+def reference_update(upd, g, state, it):
+    """One tensor's update at iteration ``it`` in float64 (numpy) from its
+    gradient and state: each updater's formula written out on its own,
+    independent of ``nn.updaters``."""
+    name = type(upd).__name__
+    lr = upd.lr_schedule.value(it, 0) if upd.lr_schedule is not None else upd.learning_rate
+    t = it + 1
+    if name == "Nesterovs":
+        v = upd.momentum * state["v"] - lr * g
+        return lr * g - upd.momentum * v
+    if name == "AdaGrad":
+        return lr * g / (np.sqrt(state["h"] + g * g) + upd.epsilon)
+    if name == "RmsProp":
+        a = upd.rms_decay * state["g2"] + (1 - upd.rms_decay) * g * g
+        return lr * g / (np.sqrt(a) + upd.epsilon)
+    if name == "AdaDelta":
+        msg = upd.rho * state["msg"] + (1 - upd.rho) * g * g
+        return g * np.sqrt(state["msdx"] + upd.epsilon) / np.sqrt(msg + upd.epsilon)
+    b1, b2, eps = upd.beta1, upd.beta2, upd.epsilon
+    m = b1 * state["m"] + (1 - b1) * g
+    if name == "AdaMax":
+        return lr / (1 - b1 ** t) * m / (np.maximum(b2 * state["u"], np.abs(g)) + eps)
+    v = b2 * state["v"] + (1 - b2) * g * g
+    if name == "Nadam":
+        c1, c2 = 1 - b1 ** t, 1 - b2 ** t
+        return lr * (b1 * m / c1 + (1 - b1) * g / c1) / (np.sqrt(v / c2) + eps)
+    if name == "AMSGrad":
+        vhat = np.maximum(state["vhat"], v)
+        return lr * np.sqrt(1 - b2 ** t) / (1 - b1 ** t) * m / (np.sqrt(vhat) + eps)
+    raise SmokeFailure(f"no reference update for {name}")
+
+
+def phase_updaters(tag, launches):
+    """Phase 5's model and batch (BERT-base, bf16, B=16, T=128, P=19) under
+    each of the seven new updaters with a schedule: three train steps from
+    the same initial weights and a nonzero state bridged in as a JAX-shaped
+    numpy pytree (``updater_state_from_jax``); a finite loss every step;
+    the first step's update of three tensors within UPDATE_REL (of its
+    norm) of the float64 update from the same gradient and state; 12
+    launches of each kernel per step."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+    from deeplearning4j_tpu_torch.models.weights import params_to_numpy, updater_state_from_jax
+
+    B, T, P = 16, 128, 19
+    cfg = tfm.TransformerConfig.bert_base(max_len=T, dropout=0.0)
+    batch = _mlm_batch(cfg, np.random.RandomState(5), B, T, P)
+    params = tfm.init_params(3, cfg, device="cuda")
+    initial = {n: t.detach().clone() for n, t in params.state_dict().items()}
+    # three nonzero JAX-shaped state trees from a numpy seed, of the scales
+    # a state has after some steps with gradients ~1e-4: signed means (first
+    # moments, momentum), means of squares, and maxima of |g|
+    rng = np.random.default_rng(11)
+    shapes = params_to_numpy(params)
+
+    def tree(node, kind):
+        if isinstance(node, dict):
+            return {k: tree(v, kind) for k, v in node.items()}
+        if isinstance(node, list):
+            return [tree(v, kind) for v in node]
+        x = rng.standard_normal(node.shape, dtype=np.float32)
+        if kind == "square":
+            return x * x * np.float32(1e-8)
+        return (np.abs(x) if kind == "abs" else x) * np.float32(1e-4)
+
+    trees = {kind: tree(shapes, kind) for kind in ("signed", "square", "abs")}
+
+    def kind(slot):
+        return "square" if slot in SQUARE_SLOTS else "abs" if slot in ABS_SLOTS else "signed"
+
+    for upd in _new_updaters():
+        name = type(upd).__name__
+        params.load_state_dict(initial)
+        state = updater_state_from_jax({slot: trees[kind(slot)]
+                                        for slot in upd.init({"x": torch.zeros(1)})}, params)
+        first = {}
+        apply = upd.apply
+
+        def spy(grads, st, prm, it, epoch=0):
+            if not first:  # the first step's gradient and state, before the update
+                first["g"] = {n: grads[n].double().cpu().numpy() for n in UPDATE_CHECKED}
+                first["s"] = {slot: {n: st[slot][n].double().cpu().numpy()
+                                     for n in UPDATE_CHECKED} for slot in st}
+            u, st = apply(grads, st, prm, it, epoch)
+            if "u" not in first:
+                first["u"] = {n: u[n].double().cpu().numpy() for n in UPDATE_CHECKED}
+            return u, st
+
+        upd.apply = spy
+        step = tfm.make_train_step(cfg, upd)
+        losses, times = [], []
+        _zero_counts()
+        for it in range(3):
+            t0 = time.perf_counter()
+            _, state, loss = step(params, state, batch, it)
+            losses.append(loss.item())
+            times.append((time.perf_counter() - t0) * 1e3)
+        counts = _read_counts()
+        _check_step_counts(f"{name} steps", counts, 3, cfg.n_layers)
+        for kernel, n in counts.items():
+            launches[kernel].append(n)
+        check(all(math.isfinite(x) for x in losses), f"{name}: non-finite loss {losses}")
+        errs = {}
+        for n in UPDATE_CHECKED:
+            ref = reference_update(upd, first["g"][n], {s: v[n] for s, v in first["s"].items()}, 0)
+            errs[n] = np.linalg.norm(first["u"][n] - ref) / max(np.linalg.norm(ref), 1e-300)
+        print(f"{tag} updater {name} + {type(upd.lr_schedule).__name__} (slots "
+              f"{', '.join(sorted(state)) or 'none'}): losses "
+              + " ".join(f"{x:.5f}" for x in losses) + "; first update vs float64: "
+              + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+              + f"; step ms (steps 2 and 3; step 1 also copies the checked tensors to the "
+              f"host) {times[1]:.1f} {times[2]:.1f}; launches {counts}", flush=True)
+        for n, e in errs.items():
+            check(e <= UPDATE_REL, f"{name}: the first update of {n} is {e:.2e} of its norm "
+                                   f"from the float64 update")
+        del state, first
+    del params, initial, trees
+
+
+REMAT_REL = 1e-6  # remat against no remat, float32 compute: loss, and each gradient's norm
+
+
+def phase_remat(tag, launches):
+    """Per-block remat at phase 5's model and batch: a float32-compute step
+    with ``remat=True`` against one without, at dropout 0.1 from two
+    generators seeded alike (loss and each gradient within REMAT_REL, the
+    generators left alike); the peak memory of a bf16 Adam step with and
+    without remat (remat's must be lower); 20 bf16 steps of each, in turns;
+    24 forward and 12 of each backward launch per remat step."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+
+    B, T, P = 16, 128, 19
+    base = tfm.TransformerConfig.bert_base(max_len=T, dropout=0.1)
+    batch = _mlm_batch(base, np.random.RandomState(5), B, T, P)
+    cfg32 = dataclasses.replace(base, compute_dtype=torch.float32)
+    params = tfm.init_params(3, cfg32, device="cuda")
+    gens = [torch.Generator(device="cuda").manual_seed(21) for _ in range(2)]
+    loss, grads = tfm.loss_and_grads(params, batch, cfg32, gens[0])
+    _zero_counts()
+    rloss, rgrads = tfm.loss_and_grads(params, batch, dataclasses.replace(cfg32, remat=True),
+                                       gens[1])
+    counts = _read_counts()
+    check(counts == {"flash_fwd": 2 * base.n_layers, "flash_bwd_dkv": base.n_layers,
+                     "flash_bwd_dq": base.n_layers}, f"remat fp32 step: launches {counts}")
+    launches["flash_fwd_f32"].append(counts["flash_fwd"])
+    for name in ("flash_bwd_dkv", "flash_bwd_dq"):
+        launches[f"{name}_f32"].append(counts[name])
+    loss_rel = abs(rloss.item() - loss.item()) / abs(loss.item())
+    worst_name, worst = max(((n, ((rgrads[n] - g).norm() / g.norm().clamp(min=1e-30)).item())
+                             for n, g in grads.items()), key=lambda x: x[1])
+    print(f"{tag} remat fp32 step, dropout 0.1: loss {rloss.item():.7f} vs {loss.item():.7f} "
+          f"(rel {loss_rel:.2e}, bitwise {rloss.item() == loss.item()}); largest gradient "
+          f"difference {worst:.2e} of its norm ({worst_name}); launches {counts}", flush=True)
+    check(loss_rel <= REMAT_REL, f"remat: loss differs by {loss_rel:.2e} relative")
+    check(worst <= REMAT_REL, f"remat: gradient {worst_name} differs by {worst:.2e} of its norm")
+    check(torch.equal(gens[0].get_state(), gens[1].get_state()),
+          "remat: the generator ends the step elsewhere than without remat")
+    del params, grads, rgrads
+
+    # bf16 Adam steps: peak memory once each, then 20 of each in turns
+    models = {}
+    for remat in (False, True):
+        cfg = dataclasses.replace(base, remat=remat)
+        prm = tfm.init_params(3, cfg, device="cuda")
+        upd = Adam(1e-4)
+        models[remat] = [cfg, prm, upd.init(prm), tfm.make_train_step(cfg, upd),
+                         torch.Generator(device="cuda").manual_seed(5)]
+    def peak_of(fn):
+        """(peak bytes allocated during ``fn``, bytes allocated before it)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated(), resident
+
+    peak, fwd_bwd = {}, {}
+    for remat, (cfg, prm, st, step, gen) in models.items():
+        step(prm, st, batch, 0, gen)  # warm-up
+        peak[remat] = peak_of(lambda: step(prm, st, batch, 1, gen))
+        # the forward and backward alone: the updater's temporaries left out
+        fwd_bwd[remat] = peak_of(lambda: tfm.loss_and_grads(prm, batch, cfg, gen))
+    for what, pk in (("step", peak), ("forward+backward (loss_and_grads)", fwd_bwd)):
+        print(f"{tag} remat bf16 {what} peak memory: without {pk[False][0] / 2**20:.1f} MiB "
+              f"({(pk[False][0] - pk[False][1]) / 2**20:.1f} MiB above the resident "
+              f"{pk[False][1] / 2**20:.1f} MiB), with remat {pk[True][0] / 2**20:.1f} MiB "
+              f"({(pk[True][0] - pk[True][1]) / 2**20:.1f} MiB above the resident "
+              f"{pk[True][1] / 2**20:.1f} MiB)", flush=True)
+    check(peak[True][0] < peak[False][0], f"remat did not lower the peak memory: {peak}")
+    n = 20
+    times = {False: [], True: []}
+    _zero_counts()
+    for it in range(2, 2 + n):
+        for remat, (cfg, prm, st, step, gen) in models.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(prm, st, batch, it, gen)[2].item()
+            times[remat].append((time.perf_counter() - t0) * 1e3)
+    counts = _read_counts()
+    L = base.n_layers
+    check(counts == {"flash_fwd": 3 * L * n, "flash_bwd_dkv": 2 * L * n,
+                     "flash_bwd_dq": 2 * L * n},
+          f"remat timing: launches {counts} for {n} steps of each")
+    for name, c in counts.items():
+        launches[name].append(c)
+    print(f"{tag} train step bf16 dropout 0.1, in turns: without remat {spread(times[False])}, "
+          f"with remat {spread(times[True])}; remat / plain "
+          f"{statistics.median(times[True]) / statistics.median(times[False]):.3f}; launches "
+          f"{counts} ({2 * L} forward per remat step)", flush=True)
+    del models
+
+
+def print_peak_share(tag, step_ms):
+    """The train step's achieved share of the card's dense bf16 peak: the
+    flops ``layer_costs`` counts for phase 5's step, over its median time."""
+    from deeplearning4j_tpu_torch.models import TransformerConfig, layer_costs
+
+    flops = sum(r["flops"] for r in layer_costs(
+        TransformerConfig.bert_base(max_len=128), 16, 128, 19, train=True))
+    share = flops / (step_ms / 1e3) / PEAK_OPS_PER_S["bfloat16"]
+    print(f"{tag} train step achieved share of the dense bf16 peak: {share:.4f} "
+          f"({flops:.4e} flops by layer_costs(bert_base, 16, 128, 19, train=True) in the "
+          f"{step_ms:.3f} ms median step of phase 5, against 989 TFLOP/s)", flush=True)
 
 
 # --------------------------------------------------------------------- main
@@ -1338,10 +1770,8 @@ def main() -> int:
     card = card_line()
     tag = f"[{card}]"
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
-    q_tile_builds = {}
     try:
         t0 = time.perf_counter()
-        q_tile_builds = start_q_tile_builds()
         _build.build_all()
         print(f"{tag} phase 1 build: {time.perf_counter() - t0:.2f} s "
               f"({', '.join(_build.build_info['built']) or 'cached'})", flush=True)
@@ -1351,14 +1781,16 @@ def main() -> int:
         report_bf16_registers(tag, _build.build_info["log"])
         report_f32_registers(tag, _build.build_info["log"])
 
-        errors = phase_kernels(tag)
+        errors, tile_errors = phase_kernels(tag)
         timing = time_kernel(tag)
         f32_timing = time_f32_forward(tag)
-        time_q_tiles(tag, q_tile_builds)
         phase_backward_kernels(tag)
         phase_auto_routing(tag)
         bwd_timing = time_backward(tag)
         print("phase 2 kernel vs plain: ok", flush=True)
+        t2b = time.perf_counter()
+        tile_kernels = phase_autotune(tag, tile_errors)
+        print(f"phase 2b autotune: ok ({time.perf_counter() - t2b:.1f} s)", flush=True)
         launches = {name: [] for name in ("flash_fwd", "flash_fwd_f32", "flash_bwd_dkv",
                                           "flash_bwd_dq", "flash_bwd_dkv_f32", "flash_bwd_dq_f32")}
         phase_encoder(tag, launches["flash_fwd"])
@@ -1369,16 +1801,18 @@ def main() -> int:
         phase_paged_generate(tag, launches["flash_fwd_f32"], gen)
         del gen
         print(f"phase 4b paged generation: ok ({time.perf_counter() - t4b:.1f} s)", flush=True)
-        phase_train(tag, launches)
+        step_ms = phase_train(tag, launches)
         print("phase 5 training: ok", flush=True)
+        t5 = time.perf_counter()
+        phase_updaters(tag, launches)
+        print(f"phase 5b updaters: ok ({time.perf_counter() - t5:.1f} s)", flush=True)
+        t5 = time.perf_counter()
+        phase_remat(tag, launches)
+        print(f"phase 5c remat: ok ({time.perf_counter() - t5:.1f} s)", flush=True)
+        print_peak_share(tag, step_ms)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
-    finally:
-        for proc, _ in q_tile_builds.values():
-            if proc.poll() is None:  # a phase failed before its build was read
-                proc.kill()
-                proc.wait()
 
     main_path = [e for (name, dt), e in errors.items() if name.startswith("bert_base")]
     bwd = "deeplearning4j_tpu_torch/csrc/flash_bwd.cu"
@@ -1412,7 +1846,7 @@ def main() -> int:
         "name": "flash_bwd_dq_f32", "route": "cuda", "source": bwd,
         "replaces": "deeplearning4j_tpu/kernels/attention.py:258",
         "launches": sum(launches["flash_bwd_dq_f32"]), **bwd_timing["flash_bwd_dq_f32"],
-    }]
+    }, *tile_kernels]
     check_failed = [k["name"] for k in kernels if k["launches"] < 1]
     if check_failed:
         print(f"FAIL: kernels never launched on the main path: {check_failed}", flush=True)

@@ -6,7 +6,8 @@ two against each other on the same weights and inputs. This package
 imports ``torch`` and numpy only — never ``jax`` and nothing of the JAX
 package.
 
-Ported so far (serving and training of the flagship BERT-base transformer):
+Ported so far (serving and training of the flagship BERT-base transformer, and
+the runtime plumbing the next slices need):
 
 - ``kernels.attention`` — dense reference attention, and differentiable
   flash attention whose forward and two backward passes are hand-written
@@ -15,11 +16,16 @@ Ported so far (serving and training of the flagship BERT-base transformer):
 - ``models.transformer`` — the encoder forward (``forward``, ``encode``,
   ``qa_forward``), greedy generation (``prefill_forward``,
   ``DecodeSlotPool``, ``generate``), and training (dropout,
-  ``loss_fn``, ``qa_loss_fn``, ``make_train_step``, ``make_qa_train_step``);
+  ``loss_fn``, ``qa_loss_fn``, ``make_train_step``, ``make_qa_train_step``,
+  per-block remat) with its cost table ``layer_costs``;
 - ``models.paged_decode`` — the block-paged KV cache with copy-on-write
   prefix sharing and speculative decoding (``PagedDecodeSlotPool``,
   ``generate``'s default pool), its decode step replayed as one CUDA graph;
-- ``nn.updaters`` — ``Adam``, ``Sgd``, ``NoOp`` and two schedules;
+- ``kernels.autotune`` — the flash forward's q-tile table: measured
+  winners per card in ``autotune_cuda.json``, else the static H100 table;
+- ``nn.updaters`` — all ten updaters and all seven schedules;
+- ``common.environment``, ``common.dtypes``, ``common.precision`` — the
+  ``TDL_*`` flags, nd4j's dtypes and promotion, the precision policy;
 - ``models.weights`` — the bridge from the JAX parameter and updater-state
   pytrees.
 

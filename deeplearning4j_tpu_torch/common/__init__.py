@@ -1,1 +1,2 @@
-"""Host-side helpers of the port (device resolution, shape bucketing)."""
+"""Host-side helpers of the port: device resolution, shape buckets, the
+``TDL_*`` environment flags, dtypes and the mixed-precision policy."""

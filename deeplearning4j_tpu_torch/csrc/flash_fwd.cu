@@ -17,24 +17,27 @@
 //
 // Grid. The TPU grid walks the k-blocks of one q-block in order and keeps
 // the running max / sum / accumulator in VMEM scratch between grid steps.
-// Blocks of a CUDA grid run in no order, so here a thread block of 128
-// threads owns one (batch*head, q-tile) and loops over the 64-key tiles
-// itself; m, l and acc stay in registers for the whole sweep. For bf16 the
-// q-tile is 64 rows. At the
-// BERT-base shape (B=8, H=12, T=128) that is 192 blocks on the H100's 132
-// SMs, all resident at once. The bf16 kernel's tile height was measured,
-// not carried over (chip_smoke.py builds it with 32 and 128 rows too): 128
-// rows tie with 64 at the serving shape and lose at the training shape (192
-// blocks of 8 warps) and at a 512-token causal prefill (48 blocks); 32 rows
-// lose everywhere (K and V read twice as often). Under `causal`, k-tiles
-// that lie wholly above the diagonal for every row of the q-tile are
+// Blocks of a CUDA grid run in no order, so here a thread block owns one
+// (batch*head, q-tile) and loops over the 64-key tiles itself; m, l and acc
+// stay in registers for the whole sweep. The q-tile height is chosen at
+// launch (`block_q`, from the wrapper's autotune table, kernels/autotune.py):
+// 32, 64 or 128 rows for bf16, 16 or 32 for float32; 0 takes the kernel's
+// default, 64 rows for bf16 and f32_row_groups's rule for float32. At the
+// BERT-base shape (B=8, H=12, T=128) 64-row tiles make 192 blocks on the
+// H100's 132 SMs, all resident at once. The heights were measured, not
+// carried over (PERF.md §6): 64 rows are the fastest or within 3% of it at
+// the serving, training and causal 512-token prefill shapes; 128 rows (8
+// warps) lose at the training shape and at the prefill (48 blocks), 32 rows
+// (K and V read twice as often) at the training shape. Under `causal`,
+// k-tiles that lie wholly above the diagonal for every row of the q-tile are
 // skipped, as `_block_live` does on the TPU.
 //
 // Two kernels share that scheme.
 //
-// bfloat16 inputs: flash_fwd_bf16_kernel, on the tensor cores. Each of the
-// four warps owns 16 query rows. A call with no causal mask, no segment ids
-// and Tk a multiple of 64 takes an instantiation without mask tests.
+// bfloat16 inputs: flash_fwd_bf16_kernel<D, rows, masked>, on the tensor
+// cores. Each warp owns 16 query rows (two, four or eight warps). A call
+// with no causal mask, no segment ids and Tk a multiple of 64 takes an
+// instantiation without mask tests.
 //   - Q, K and V are staged in shared memory as bf16 (row stride D+8, see
 //     attention_tiles.cuh) by 16-byte cp.async copies; rows past Tq or Tk
 //     are zero-filled by the copy itself. K, V and the key segment ids go
@@ -60,8 +63,9 @@
 //     about 2^-16 of its value.
 //   - out = acc / l is rounded to bf16 once, staged through shared memory
 //     and written with 16-byte stores.
-// Shared memory: Q and two stages of K and V, 5 x 64 x (D+8) bf16, plus the
-// key segment ids: 46.6 KB at D=64, 87.6 KB at D=128.
+// Shared memory: Q and two stages of K and V, (rows + 4 x 64) x (D+8) bf16,
+// plus the key segment ids: 46.6 KB at D=64 with 64 rows, 104.9 KB at
+// D=128 with 128 rows.
 //
 // float32 inputs: flash_fwd_f32_kernel<D, kRowGroups>, on the TF32 tensor
 // cores with split operands (3xTF32). Generation's prefill (B=1, causal,
@@ -95,10 +99,10 @@
 //     between the row groups' key groups: at 16 rows each warp takes 16
 //     keys of each tile, with its own (m, l, acc), and the epilogue combines
 //     the four parts of a row in shared memory in a fixed order (no
-//     atomics: the same bits from run to run). The launch takes 32-row
-//     q-tiles where they still give every SM two blocks (f32_row_groups): a
-//     causal 512-token prefill of 12 heads runs 384 blocks of 16 rows, the
-//     B=16 training shape 768 blocks of 32 rows.
+//     atomics: the same bits from run to run). A launch that names no height
+//     takes 32-row q-tiles where they still give every SM two blocks
+//     (f32_row_groups): a causal 512-token prefill of 12 heads runs 384
+//     blocks of 16 rows, the B=16 training shape 768 blocks of 32 rows.
 //   - Causal imbalance: q-tiles are numbered from the last, so the blocks
 //     that walk the most k-tiles are scheduled first; a warp whose keys of a
 //     tile lie above the diagonal for all its rows skips the tile's
@@ -160,47 +164,46 @@ __device__ __forceinline__ int live_k_tiles(const Params& p, int q0, int block_q
 
 // ------------------------------------------------------ bf16: tensor cores
 
-// Query rows of a block: 64, four warps of 16 rows. Building with
-// -DTDL_FWD_BLOCK_Q=32 or 128 gives two or eight warps instead; chip_smoke.py
-// times those builds to show that 64 rows is the right tile on the H100.
-#ifndef TDL_FWD_BLOCK_Q
-#define TDL_FWD_BLOCK_Q 64
-#endif
-constexpr int kBf16BlockQ = TDL_FWD_BLOCK_Q;
-constexpr int kBf16Threads = 2 * kBf16BlockQ;  // one warp per 16 query rows
-static_assert(kBf16BlockQ % 16 == 0 && kBf16Threads >= kBlockK, "q-tile of whole warps");
+// Query rows of a block (the q-tile height): 32, 64 or 128, one warp per 16
+// rows; 64 unless the launch asks for another.
+constexpr int kBf16DefaultRows = 64;
+template <int kRows>
+constexpr int kBf16Threads = 2 * kRows;  // one warp per 16 query rows
 constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = exp2(x log2 e)
 
 // row stride, in elements, of a bf16 tile in shared memory
 template <int D>
 constexpr int kLd = D + 8;
 
-template <int D>
+template <int D, int kRows>
 constexpr size_t bf16_smem_bytes() {
-  return size_t(kBf16BlockQ + 4 * kBlockK) * kLd<D> * sizeof(__nv_bfloat16) +
+  return size_t(kRows + 4 * kBlockK) * kLd<D> * sizeof(__nv_bfloat16) +
          2 * kBlockK * sizeof(int);
 }
 
-// rows [t0, t0 + kRows) of a [T, D] bf16 slab into a kRows x (D+8) tile
-template <int D, int kRows>
+// rows [t0, t0 + kTileRows) of a [T, D] bf16 slab into a kTileRows x (D+8)
+// tile, by the kThreads threads of the block
+template <int D, int kTileRows, int kThreads>
 __device__ __forceinline__ void stage_bf16(__nv_bfloat16* tile, const __nv_bfloat16* src,
                                            long long stride_t, int t0, int T) {
-  tdl::cp_async_rows<D, kRows, kBf16Threads>(tile, src, stride_t, t0, T);
+  tdl::cp_async_rows<D, kTileRows, kThreads>(tile, src, stride_t, t0, T);
 }
 
 // kMasked: the call has a causal mask, segment ids, or a ragged last k-tile
 // (Tk not a multiple of 64). The unmasked instantiation drops every mask
 // test from the softmax, the main path's case (BERT-base serving and
 // training at T=128).
-template <int D, bool kMasked>
-__global__ void __launch_bounds__(kBf16Threads) flash_fwd_bf16_kernel(Params p) {
+template <int D, int kRows, bool kMasked>
+__global__ void __launch_bounds__(2 * kRows) flash_fwd_bf16_kernel(Params p) {
+  constexpr int kThreads = kBf16Threads<kRows>;
+  static_assert(kRows % 16 == 0 && kThreads >= kBlockK, "q-tile of whole warps");
   constexpr int LD = kLd<D>;
   constexpr int kSteps = D / 16;       // 16-deep steps of Q K^T
   constexpr int kNT = kBlockK / 8;     // 8-key accumulator tiles of S
   constexpr int kDT = D / 8;           // 8-column accumulator tiles of O
   extern __shared__ __align__(16) unsigned char smem_bf16[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_bf16);
-  __nv_bfloat16* Ks = Qs + kBf16BlockQ * LD;   // [2][64][LD]
+  __nv_bfloat16* Ks = Qs + kRows * LD;         // [2][64][LD]
   __nv_bfloat16* Vs = Ks + 2 * kBlockK * LD;   // [2][64][LD]
   int* kseg_s = reinterpret_cast<int*>(Vs + 2 * kBlockK * LD);  // [2][64]
 
@@ -208,7 +211,7 @@ __global__ void __launch_bounds__(kBf16Threads) flash_fwd_bf16_kernel(Params p) 
   const int warp = threadIdx.x >> 5;
   const int bh = blockIdx.y;
   const int b = bh / p.H, h = bh % p.H;
-  const int q0 = blockIdx.x * kBf16BlockQ;
+  const int q0 = blockIdx.x * kRows;
   const bool has_seg = p.qseg != nullptr;
 
   const __nv_bfloat16* qp = static_cast<const __nv_bfloat16*>(p.q) + b * p.sq.b + h * p.sq.h;
@@ -216,11 +219,11 @@ __global__ void __launch_bounds__(kBf16Threads) flash_fwd_bf16_kernel(Params p) 
   const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(p.v) + b * p.sv.b + h * p.sv.h;
   const int* ksp = has_seg ? p.kseg + (long long)b * p.Tk : nullptr;
 
-  const int n_tiles = live_k_tiles(p, q0, kBf16BlockQ);
+  const int n_tiles = live_k_tiles(p, q0, kRows);
   auto stage_kv = [&](int kb) {
     const int buf = kb & 1, k0 = kb * kBlockK;
-    stage_bf16<D, kBlockK>(Ks + buf * kBlockK * LD, kp, p.sk.t, k0, p.Tk);
-    stage_bf16<D, kBlockK>(Vs + buf * kBlockK * LD, vp, p.sv.t, k0, p.Tk);
+    stage_bf16<D, kBlockK, kThreads>(Ks + buf * kBlockK * LD, kp, p.sk.t, k0, p.Tk);
+    stage_bf16<D, kBlockK, kThreads>(Vs + buf * kBlockK * LD, vp, p.sv.t, k0, p.Tk);
     if (has_seg && threadIdx.x < kBlockK) {
       const int t = k0 + threadIdx.x;
       tdl::cp_async_4(kseg_s + buf * kBlockK + threadIdx.x, ksp + (t < p.Tk ? t : 0),
@@ -228,7 +231,7 @@ __global__ void __launch_bounds__(kBf16Threads) flash_fwd_bf16_kernel(Params p) 
     }
   };
 
-  stage_bf16<D, kBf16BlockQ>(Qs, qp, p.sq.t, q0, p.Tq);
+  stage_bf16<D, kRows, kThreads>(Qs, qp, p.sq.t, q0, p.Tq);
   if (n_tiles > 0) stage_kv(0);
   tdl::cp_async_commit();
 
@@ -355,7 +358,7 @@ __global__ void __launch_bounds__(kBf16Threads) flash_fwd_bf16_kernel(Params p) 
     const int num_k = (p.Tk + kBlockK - 1) / kBlockK;
     for (int kb = 0; kb < num_k; ++kb) {
       __syncthreads();  // the previous tile is no longer read
-      stage_bf16<D, kBlockK>(Vs, vp, p.sv.t, kb * kBlockK, p.Tk);
+      stage_bf16<D, kBlockK, kThreads>(Vs, vp, p.sv.t, kb * kBlockK, p.Tk);
       tdl::cp_async_commit();
       tdl::cp_async_wait<0>();
       __syncthreads();
@@ -790,43 +793,66 @@ cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The number of row groups of the float32 kernel's q-tile: two (32-row
-// q-tiles, each K/V tile read by twice as many rows) where that still gives
-// every SM two blocks, else one (16-row q-tiles, each warp on a quarter of
-// every k-tile: a 512-token prefill of 12 heads runs 384 blocks).
+// The number of row groups of the float32 kernel's q-tile when the launch
+// names none: two (32-row q-tiles, each K/V tile read by twice as many rows)
+// where that still gives every SM two blocks, else one (16-row q-tiles, each
+// warp on a quarter of every k-tile: a 512-token prefill of 12 heads runs
+// 384 blocks). kernels/autotune.py's static table keeps the same rule.
 int f32_row_groups(const Params& p, int sms) {
   return (long long)((p.Tq + 31) / 32) * p.B * p.H >= 2 * sms ? 2 : 1;
 }
 
+template <int D, int kRows>
+cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
+  static std::atomic<unsigned long long> attr_set{0}, masked_attr_set{0};
+  constexpr size_t smem = bf16_smem_bytes<D, kRows>();
+  const dim3 grid((p.Tq + kRows - 1) / kRows, p.B * p.H);
+  const bool masked = p.causal || p.qseg != nullptr || p.Tk % kBlockK != 0;
+  auto kernel = masked ? flash_fwd_bf16_kernel<D, kRows, true>
+                       : flash_fwd_bf16_kernel<D, kRows, false>;
+  const cudaError_t err = tdl::allow_smem(kernel, smem, masked ? masked_attr_set : attr_set);
+  if (err != cudaSuccess) return err;
+  constexpr int threads = kBf16Threads<kRows>;
+  kernel<<<grid, threads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// block_q: the q-tile's rows, or 0 for the default; a height with no
+// instantiation is cudaErrorInvalidValue (the wrapper names the heights)
 template <typename T, int D>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
+cudaError_t launch(const Params& p, int block_q, cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
-    static std::atomic<unsigned long long> attr_set{0}, masked_attr_set{0};
-    constexpr size_t smem = bf16_smem_bytes<D>();
-    const dim3 grid((p.Tq + kBf16BlockQ - 1) / kBf16BlockQ, p.B * p.H);
-    const bool masked = p.causal || p.qseg != nullptr || p.Tk % kBlockK != 0;
-    auto kernel = masked ? flash_fwd_bf16_kernel<D, true> : flash_fwd_bf16_kernel<D, false>;
-    const cudaError_t err = tdl::allow_smem(kernel, smem, masked ? masked_attr_set : attr_set);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, kBf16Threads, smem, stream>>>(p);
-    return cudaGetLastError();
+    switch (block_q) {
+      case 0:
+      case kBf16DefaultRows: return launch_bf16<D, kBf16DefaultRows>(p, stream);
+      case 32: return launch_bf16<D, 32>(p, stream);
+      case 128: return launch_bf16<D, 128>(p, stream);
+      default: return cudaErrorInvalidValue;
+    }
   } else {
-    int dev = 0, sms = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    return f32_row_groups(p, sms) == 2 ? launch_f32<D, 2>(p, stream)
-                                       : launch_f32<D, 1>(p, stream);
+    if (block_q == 0) {
+      int dev = 0, sms = 0;
+      cudaError_t err = cudaGetDevice(&dev);
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (err != cudaSuccess) return err;
+      block_q = 16 * f32_row_groups(p, sms);
+    }
+    switch (block_q) {
+      case 16: return launch_f32<D, 1>(p, stream);
+      case 32: return launch_f32<D, 2>(p, stream);
+      default: return cudaErrorInvalidValue;
+    }
   }
 }
 
 template <typename T>
-cudaError_t dispatch_d(const Params& p, int D, cudaStream_t stream) {
+cudaError_t dispatch_d(const Params& p, int D, int block_q, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16>(p, stream);
-    case 32: return launch<T, 32>(p, stream);
-    case 64: return launch<T, 64>(p, stream);
-    case 128: return launch<T, 128>(p, stream);
+    case 16: return launch<T, 16>(p, block_q, stream);
+    case 32: return launch<T, 32>(p, block_q, stream);
+    case 64: return launch<T, 64>(p, block_q, stream);
+    case 128: return launch<T, 128>(p, block_q, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -835,15 +861,17 @@ cudaError_t dispatch_d(const Params& p, int D, cudaStream_t stream) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the launch's cudaError_t. For
-// bfloat16, q, k and v must be 16-byte aligned in every row (the wrapper
-// checks the pointers and the b/h/t strides).
+// dtype: 0 = float32, 1 = bfloat16. block_q: the q-tile's rows (bfloat16:
+// 32, 64 or 128; float32: 16 or 32), or 0 for the kernel's default.
+// Returns the launch's cudaError_t (cudaErrorInvalidValue for a block_q
+// with no instantiation). q, k and v must be 16-byte aligned in every row
+// (the wrapper checks the pointers and the b/h/t strides).
 int tdl_flash_fwd(const void* q, const void* k, const void* v, const void* qseg,
                   const void* kseg, void* out, void* lse, int B, int H, int Tq,
                   int Tk, int D, int dtype, long long q_sb, long long q_sh,
                   long long q_st, long long k_sb, long long k_sh, long long k_st,
                   long long v_sb, long long v_sh, long long v_st, int causal,
-                  float scale, int q_offset, void* stream) {
+                  float scale, int q_offset, int block_q, void* stream) {
   Params p;
   p.q = q;
   p.k = k;
@@ -864,15 +892,15 @@ int tdl_flash_fwd(const void* q, const void* k, const void* v, const void* qseg,
   p.q_offset = q_offset;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return dispatch_d<float>(p, D, s);
-    case 1: return dispatch_d<__nv_bfloat16>(p, D, s);
+    case 0: return dispatch_d<float>(p, D, block_q, s);
+    case 1: return dispatch_d<__nv_bfloat16>(p, D, block_q, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // Rows of the float32 kernel's q-tile for a call of this shape on the
-// current device (f32_row_groups): 16 or 32, or -1 if the device cannot be
-// queried.
+// current device when the launch names none (f32_row_groups): 16 or 32, or
+// -1 if the device cannot be queried.
 int tdl_flash_fwd_f32_q_rows(int B, int H, int Tq) {
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -883,6 +911,17 @@ int tdl_flash_fwd_f32_q_rows(int B, int H, int Tq) {
   p.H = H;
   p.Tq = Tq;
   return 16 * f32_row_groups(p, sms);
+}
+
+// Dynamic shared memory a block may opt in to on the current device
+// (cudaDevAttrMaxSharedMemoryPerBlockOptin), or -1 if it cannot be queried.
+int tdl_smem_optin_bytes() {
+  int dev = 0, bytes = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+          cudaSuccess)
+    return -1;
+  return bytes;
 }
 
 const char* tdl_cuda_error_string(int code) {

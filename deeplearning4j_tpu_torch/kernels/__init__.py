@@ -14,9 +14,12 @@ from .attention import (
     flash_forward_reference,
     mha_reference,
 )
+from .autotune import AutotuneTable, autotune_flash_attention, resolve_blocks, static_flash_blocks
 
 __all__ = [
+    "AutotuneTable",
     "FlashAttentionFunction",
+    "autotune_flash_attention",
     "dot_product_attention",
     "flash_attention",
     "flash_backward",
@@ -26,4 +29,6 @@ __all__ = [
     "flash_forward",
     "flash_forward_reference",
     "mha_reference",
+    "resolve_blocks",
+    "static_flash_blocks",
 ]

@@ -43,11 +43,13 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import math
+from collections import Counter
 from typing import Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, autotune
+from .autotune import BLOCK_K, FWD_Q_ROWS
 
 _NEG_INF = -1e30
 # a row's lse at or below this means the row had no live key (see above)
@@ -210,24 +212,24 @@ def flash_backward_reference(q, k, v, out, lse, do, qseg, kseg, causal: bool,
 _kernel_fns = {}
 
 
-def _kernel_fn(stem: str, name: str, n_ptrs: int, n_strides: int):
+def _kernel_fn(stem: str, name: str, n_ptrs: int, n_strides: int, n_extra: int):
     """The ctypes binding of ``name`` in ``csrc/<stem>.cu`` (built at first
     use), whose arguments are ``n_ptrs`` pointers, B, H, Tq, Tk, D, dtype,
-    ``n_strides`` element strides, causal, scale, q_offset and the stream;
-    and that library's error-string function."""
+    ``n_strides`` element strides, causal, scale, q_offset, ``n_extra``
+    further ints and the stream; and that library's error-string function."""
     key = (stem, name)
     if key not in _kernel_fns:
-        _kernel_fns[key] = bind_kernel(_build.library(stem), name, n_ptrs, n_strides)
+        _kernel_fns[key] = bind_kernel(_build.library(stem), name, n_ptrs, n_strides, n_extra)
     return _kernel_fns[key]
 
 
-def bind_kernel(lib: ctypes.CDLL, name: str, n_ptrs: int, n_strides: int):
+def bind_kernel(lib: ctypes.CDLL, name: str, n_ptrs: int, n_strides: int, n_extra: int = 0):
     """(function, error-string function) of ``name`` in a loaded kernel
     library, with the argument types described in :func:`_kernel_fn`."""
     fn = getattr(lib, name)
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn.argtypes = ([ptr] * n_ptrs + [i32] * 6 + [i64] * n_strides
-                   + [i32, ctypes.c_float, i32, ptr])
+                   + [i32, ctypes.c_float, i32] + [i32] * n_extra + [ptr])
     fn.restype = i32
     lib.tdl_cuda_error_string.argtypes = [i32]
     lib.tdl_cuda_error_string.restype = ctypes.c_char_p
@@ -298,17 +300,18 @@ def _check_kernel_inputs(name: str, q, k, v, qseg, kseg, more=()):
 
 
 def _launch(stem: str, name: str, pointers, strided, shape, dtype, causal, scale,
-            q_offset, device) -> None:
+            q_offset, device, extra=()) -> None:
     """Call ``name`` of ``csrc/<stem>.cu`` on the current stream with the
     pointers, then B, H, Tq, Tk, D and the dtype code, then the (b, h, t)
-    strides of each tensor of ``strided``; raises if the launch fails."""
+    strides of each tensor of ``strided``, then causal, scale, q_offset and
+    the ints of ``extra``; raises if the launch fails."""
     strides = [s for t in strided for s in (t.stride(0), t.stride(1), t.stride(2))]
-    fn, err_str = _kernel_fn(stem, name, len(pointers), len(strides))
+    fn, err_str = _kernel_fn(stem, name, len(pointers), len(strides), len(extra))
     # the launch goes to the current device's context: switch only if needed
     on_current = device.index == torch.cuda.current_device()
     with contextlib.nullcontext() if on_current else torch.cuda.device(device):
         rc = fn(*pointers, *shape, _KERNEL_DTYPES[dtype], *strides, int(bool(causal)),
-                float(scale), int(q_offset), torch.cuda.current_stream().cuda_stream)
+                float(scale), int(q_offset), *extra, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: {err_str(rc).decode()} ({rc})")
 
@@ -338,8 +341,17 @@ def _check_rows_aligned(name: str, **tensors) -> None:
                 f"elements); pass a contiguous tensor")
 
 
+def check_block_q(dtype, block_q: int) -> None:
+    """Raise ``ValueError`` unless the forward kernel has a q-tile of
+    ``block_q`` rows for ``dtype`` (``autotune.FWD_Q_ROWS``)."""
+    allowed = FWD_Q_ROWS.get(autotune.dtype_name(dtype))
+    if allowed is not None and block_q not in allowed:
+        raise ValueError(f"block_q={block_q}: the {autotune.dtype_name(dtype)} flash forward "
+                         f"has q-tiles of {', '.join(map(str, allowed))} rows")
+
+
 def flash_forward(q, k, v, qseg, kseg, causal: bool, scale: float,
-                  q_offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                  q_offset: int, block_q: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA flash forward kernel (``csrc/flash_fwd.cu``).
 
     Same arguments and results as :func:`flash_forward_reference`, for CUDA
@@ -347,21 +359,32 @@ def flash_forward(q, k, v, qseg, kseg, causal: bool, scale: float,
     last axis (other strides are passed to the kernel), head dim in
     ``KERNEL_HEAD_DIMS``; every row 16-byte aligned
     (:func:`rows_16_byte_aligned`; views of the fused QKV projection are).
-    Raises on anything else, and when the launch fails; it never copies.
-    ``flash_forward.launches`` counts the launches."""
+    ``block_q`` is the q-tile's rows (``autotune.FWD_Q_ROWS``), or 0 for
+    the static table's (:func:`autotune.static_flash_blocks`). Raises on
+    anything else, and when the launch fails; it never copies.
+    ``flash_forward.launches`` counts the launches, and
+    ``flash_forward.launches_by_q_rows`` counts them by (dtype name, rows)."""
     B, H, Tq, Tk, D = _check_kernel_inputs("flash_forward", q, k, v, qseg, kseg)
     _check_rows_aligned("flash_forward", q=q, k=k, v=v)
+    dt = autotune.dtype_name(q.dtype)
+    if block_q == 0:
+        block_q = autotune.static_flash_blocks(Tq, Tk, dt, batch_heads=B * H,
+                                               sms=autotune.sm_count(q.device))[0]
+    check_block_q(q.dtype, block_q)
     out = torch.empty((B, H, Tq, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     _launch("flash_fwd", "tdl_flash_fwd",
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(qseg), _ptr(kseg),
              out.data_ptr(), lse.data_ptr()],
-            (q, k, v), (B, H, Tq, Tk, D), q.dtype, causal, scale, q_offset, q.device)
+            (q, k, v), (B, H, Tq, Tk, D), q.dtype, causal, scale, q_offset, q.device,
+            (block_q,))
     flash_forward.launches += 1
+    flash_forward.launches_by_q_rows[(dt, block_q)] += 1
     return out, lse
 
 
 flash_forward.launches = 0
+flash_forward.launches_by_q_rows = Counter()
 
 
 def _check_row_stats(q, B, H, Tq, **stats):
@@ -436,14 +459,18 @@ def flash_backward(q, k, v, out, lse, do, qseg, kseg, causal: bool, scale: float
 class FlashAttentionFunction(torch.autograd.Function):
     """Flash attention with its backward, the counterpart of the JAX
     package's ``custom_vjp`` (attention.py:179-189, :403). ``apply(q, k, v,
-    qseg, kseg, causal, scale, q_offset)`` returns (out, lse); lse carries
-    no gradient. CUDA tensors go through the kernels, CPU tensors through
-    the plain versions."""
+    qseg, kseg, causal, scale, q_offset, block_q)`` returns (out, lse); lse
+    carries no gradient. CUDA tensors go through the kernels, CPU tensors
+    through the plain versions. ``block_q`` (the forward's q-tile rows)
+    reaches the forward kernel only: the backward kernels have one tile,
+    and the plain version's result does not depend on the tile."""
 
     @staticmethod
-    def forward(ctx, q, k, v, qseg, kseg, causal, scale, q_offset):
-        fwd = flash_forward if q.is_cuda else flash_forward_reference
-        out, lse = fwd(q, k, v, qseg, kseg, causal, scale, q_offset)
+    def forward(ctx, q, k, v, qseg, kseg, causal, scale, q_offset, block_q):
+        if q.is_cuda:
+            out, lse = flash_forward(q, k, v, qseg, kseg, causal, scale, q_offset, block_q)
+        else:
+            out, lse = flash_forward_reference(q, k, v, qseg, kseg, causal, scale, q_offset)
         ctx.save_for_backward(q, k, v, out, lse, qseg, kseg)
         ctx.attrs = (causal, scale, q_offset)
         ctx.mark_non_differentiable(lse)
@@ -456,7 +483,7 @@ class FlashAttentionFunction(torch.autograd.Function):
             do = do.contiguous()
         bwd = flash_backward if q.is_cuda else flash_backward_reference
         dq, dk, dv = bwd(q, k, v, out, lse, do, qseg, kseg, *ctx.attrs)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def _segment_ids(segment_ids, B, Tq, Tk, device):
@@ -499,7 +526,8 @@ def attention_segments(mask, segment_ids, B: int, Tq: int, Tk: int, device):
 
 
 def flash_attention(q, k, v, mask=None, *, segment_ids=None, causal: bool = False,
-                    scale: Optional[float] = None, return_lse: bool = False):
+                    scale: Optional[float] = None, return_lse: bool = False,
+                    block_q: Optional[int] = None, block_k: Optional[int] = None):
     """Flash attention: O(T) memory both ways, no [Tq, Tk] matrix in memory.
 
     ``mask``: key padding mask [B, Tk] (or [B,1,1,Tk]), nonzero = attend.
@@ -513,17 +541,32 @@ def flash_attention(q, k, v, mask=None, *, segment_ids=None, causal: bool = Fals
     Differentiable in q, k and v (:class:`FlashAttentionFunction`). CUDA
     tensors go through the CUDA kernels (:func:`flash_forward`, and
     :func:`flash_backward` for the gradients), CPU tensors through their
-    plain versions."""
+    plain versions.
+
+    ``block_q``/``block_k``: the forward's tile, as in the JAX package.
+    ``None`` asks the autotune table (:func:`autotune.resolve_blocks`: a
+    measured winner for the shape's bucket, else the static table); a
+    ``block_q`` the kernel has no q-tile of (``autotune.FWD_Q_ROWS``) and a
+    ``block_k`` other than 64 raise ``ValueError``."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes q/k/v of shape [B, H, T, D]")
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     if scale is None:
         scale = 1.0 / math.sqrt(D)
+    if block_k is not None and block_k != BLOCK_K:
+        raise ValueError(f"block_k={block_k}: every flash kernel's k-tile is {BLOCK_K} keys")
+    if block_q is None:
+        block_q, _ = autotune.resolve_blocks(
+            "flash_attention", B=B, H=H, Tq=Tq, Tk=Tk, D=D, dtype=autotune.dtype_name(q.dtype),
+            sms=autotune.sm_count(q.device) if q.is_cuda else autotune.H100_SMS)
+    else:
+        check_block_q(q.dtype, block_q)
     qseg, kseg = attention_segments(mask, segment_ids, B, Tq, Tk, q.device)
     if q.is_cuda:
         q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
-    out, lse = FlashAttentionFunction.apply(q, k, v, qseg, kseg, causal, scale, Tk - Tq)
+    out, lse = FlashAttentionFunction.apply(q, k, v, qseg, kseg, causal, scale, Tk - Tq,
+                                            block_q)
     return (out, lse) if return_lse else out
 
 

@@ -10,6 +10,7 @@ from .transformer import (
     generate,
     init_params,
     init_qa_head,
+    layer_costs,
     loss_and_grads,
     loss_fn,
     make_qa_train_step,
@@ -37,6 +38,7 @@ __all__ = [
     "generate",
     "init_params",
     "init_qa_head",
+    "layer_costs",
     "loss_and_grads",
     "loss_fn",
     "make_qa_train_step",

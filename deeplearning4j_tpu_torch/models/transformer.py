@@ -38,6 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..common.bucketing import bucket_size
 from ..common.device import resolve_device
@@ -62,8 +63,9 @@ class TransformerConfig:
     attn_impl: str = "auto"          # auto | xla | flash (ring/ulysses: not ported)
     norm_position: str = "pre"       # "pre" (GPT-style) | "post" (original BERT)
     gelu_approximate: bool = True    # True = tanh gelu, False = erf gelu
-    # The JAX config's ``sequence_axis`` (ring attention) and ``remat``
-    # (activation checkpointing) have no counterpart until those are ported.
+    remat: bool = False              # recompute each block in the backward (memory for FLOPs)
+    # The JAX config's ``sequence_axis`` (ring attention) has no counterpart
+    # until sequence parallelism is ported.
 
     @property
     def head_dim(self) -> int:
@@ -382,9 +384,46 @@ def _encode(params: Transformer, tokens, cfg: TransformerConfig, *, segments=Non
     h = _embed(params, tokens, cfg, segments=segments)
     if pad_mask is not None:
         pad_mask = torch.as_tensor(pad_mask, device=h.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for p in params.blocks:
-        h = _block(cfg, p, h, pad_mask, generator, train)
+        if remat:
+            h = _remat_block(cfg, p, h, pad_mask, generator, train)
+        else:
+            h = _block(cfg, p, h, pad_mask, generator, train)
     return h
+
+
+def _remat_block(cfg: TransformerConfig, p: Block, h, pad_mask, generator, train: bool):
+    """``_block`` under ``torch.utils.checkpoint``: its activations are not
+    kept, and the backward runs the block again to get them (the JAX
+    package's ``jax.checkpoint`` per block).
+
+    The recompute must draw the dropout masks of the forward.
+    ``checkpoint``'s ``preserve_rng_state`` restores only the default CPU and
+    CUDA generators, not the explicit ``generator`` the masks come from; so
+    the block's first run notes the generator's state, and the recompute
+    sets it back to that state for the block and afterwards returns it to
+    where the step had left it (later blocks, and the next step, draw what
+    they would draw without remat). No other op of the block draws random
+    numbers, so the default generators need no saving."""
+    if generator is None:
+        return checkpoint(_block, cfg, p, h, pad_mask, None, train,
+                          use_reentrant=False, preserve_rng_state=False)
+    start = generator.get_state()
+    recompute = []
+
+    def run(h):
+        if not recompute:  # the forward: draw from where the step is
+            recompute.append(True)
+            return _block(cfg, p, h, pad_mask, generator, train)
+        now = generator.get_state()
+        generator.set_state(start)
+        try:
+            return _block(cfg, p, h, pad_mask, generator, train)
+        finally:
+            generator.set_state(now)
+
+    return checkpoint(run, h, use_reentrant=False, preserve_rng_state=False)
 
 
 @torch.inference_mode()
@@ -450,6 +489,64 @@ def loss_fn(params: Transformer, batch, cfg: TransformerConfig, generator=None,
                 pad_mask=batch.get("pad_mask"), generator=generator, train=train)
     logits = _mlm_head(params, h, cfg, positions=batch.get("mlm_positions"))
     return token_ce_loss(logits, batch["labels"], batch.get("weights"))
+
+
+def layer_costs(cfg: TransformerConfig, batch: int, seq: int,
+                mlm_positions: Optional[int] = None, train: bool = True) -> list:
+    """Per-layer cost rows ``{layer, kind, flops, param_bytes,
+    activation_bytes}``: the embedding front end, every block and the MLM
+    head (the JAX package's ``layer_costs``, the same rows and constants).
+    Flops count 2 per multiply-add; ``train=True`` applies the forward +
+    backward factor of 3 (the embedding's scatter-add on the backward is
+    counted as bytes, not flops). Byte sizes follow the config's parameter
+    and compute dtypes."""
+    B, T = batch, seq
+    D, F_, V, H = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_heads
+    P = mlm_positions if mlm_positions is not None else T
+    pbytes = cfg.param_dtype.itemsize
+    abytes = cfg.compute_dtype.itemsize
+    factor = 3.0 if train else 1.0
+
+    # elementwise expansions as XLA's cost model counts them (the JAX
+    # package's constants): a numerically stable softmax ~32 flops per
+    # score, tanh gelu ~28 per element, a float32 layer norm ~15 per element
+    SOFTMAX, GELU, LN = 32.0, 28.0, 15.0
+    rows = [{
+        "layer": "embed", "kind": "Embedding",
+        "flops": (LN * T * D) * B * factor,
+        "param_bytes": (V * D + cfg.max_len * D + cfg.type_vocab * D + 2 * D) * pbytes,
+        "activation_bytes": B * T * D * abytes,
+    }]
+    per_block_fwd = (
+        2.0 * T * D * 3 * D        # qkv projection
+        + 2.0 * T * D * D          # attention output projection
+        + 4.0 * T * T * D          # QK^T and AV contractions
+        + SOFTMAX * H * T * T      # stable softmax over the scores
+        + 2.0 * 2.0 * T * D * F_   # the two FFN matmuls
+        + GELU * T * F_            # gelu over the FFN hidden
+        + 2.0 * LN * T * D         # the two layer norms
+        + 2.0 * T * D)             # residual adds
+    block_params = (D * 3 * D + 3 * D + D * D + D
+                    + D * F_ + F_ + F_ * D + D + 4 * D) * pbytes
+    for i in range(cfg.n_layers):
+        rows.append({
+            "layer": f"block{i}", "kind": "TransformerBlock",
+            "flops": per_block_fwd * B * factor,
+            "param_bytes": block_params,
+            "activation_bytes": B * T * D * abytes,
+        })
+    rows.append({
+        "layer": "mlm_head", "kind": "MlmHead",
+        "flops": (2.0 * P * D * D       # dense projection
+                  + GELU * P * D        # gelu on the projection
+                  + LN * P * D          # layer norm
+                  + 2.0 * P * D * V     # tied-decoder projection
+                  + 8.0 * P * V         # token cross-entropy (logsumexp)
+                  ) * B * factor,
+        "param_bytes": (D * D + D + 2 * D + V) * pbytes,
+        "activation_bytes": B * P * V * 4,  # float32 logits
+    })
+    return rows
 
 
 def qa_loss_fn(params: Transformer, qa_params: QaHead, batch, cfg: TransformerConfig,

@@ -1,6 +1,28 @@
 """Neural-network building blocks of the port: updaters and schedules."""
 
-from .updaters import Adam, FixedSchedule, IUpdater, NoOp, Schedule, Sgd, WarmupLinearDecay
+from .updaters import (
+    AdaDelta,
+    AdaGrad,
+    AdaMax,
+    Adam,
+    AMSGrad,
+    ExponentialSchedule,
+    FixedSchedule,
+    InverseSchedule,
+    IUpdater,
+    Nadam,
+    Nesterovs,
+    NoOp,
+    PolySchedule,
+    RmsProp,
+    Schedule,
+    Sgd,
+    SigmoidSchedule,
+    StepSchedule,
+    WarmupLinearDecay,
+)
 
-__all__ = ["Adam", "FixedSchedule", "IUpdater", "NoOp", "Schedule", "Sgd",
+__all__ = ["AdaDelta", "AdaGrad", "AdaMax", "Adam", "AMSGrad", "ExponentialSchedule",
+           "FixedSchedule", "InverseSchedule", "IUpdater", "Nadam", "Nesterovs", "NoOp",
+           "PolySchedule", "RmsProp", "Schedule", "Sgd", "SigmoidSchedule", "StepSchedule",
            "WarmupLinearDecay"]

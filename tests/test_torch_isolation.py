@@ -56,6 +56,9 @@ def test_importing_the_port_loads_no_jax():
     assert "deeplearning4j_tpu_torch.models.transformer" in added
     assert "deeplearning4j_tpu_torch.kernels._build" in added
     assert "deeplearning4j_tpu_torch.nn.updaters" in added
+    for module in ("common.environment", "common.dtypes", "common.precision",
+                   "kernels.autotune"):
+        assert f"deeplearning4j_tpu_torch.{module}" in added
     assert [m for m in added if _forbidden(m)] == []
 
 
