@@ -73,7 +73,23 @@ Phases:
    1e-6, 24 forward launches and 12 of each backward), remat's lower peak
    memory, and 20 bf16 steps of each in turns; then the train step's
    achieved share of the dense bf16 peak, from ``layer_costs`` and phase
-   5's median step.
+   5's median step;
+6. the MultiLayerNetwork path: (a) LeNet (conv 20 and 50 of 5x5 "same",
+   max pool 2x2, dense 500, Adam 1e-3) at batch 128 of the synthetic MNIST:
+   a float32 fit against the same fit on the CPU (score 1e-5 relative, each
+   update within 1e-4 of its norm), then bf16 training until held-out
+   accuracy reaches 0.90 (at most 6 epochs of 1280 examples), fit step time
+   and images/s, ``output()`` latency, a profile and the share of the bf16
+   peak; (b) the GravesLSTM char-RNN (vocab 77, hidden 256, 2 layers, tbptt
+   50) at B=64, T=200: a float32 fit against the CPU's, 10 bf16 fits with a
+   falling score, chars/s, a profile, and ``rnn_time_step`` over 20 steps
+   against ``output()``; (c) SelfAttentionLayer (4 heads of 64) →
+   GlobalPooling → Output on [16, 256, 128] with a ragged features mask: a
+   float32 Sgd step through the flash kernels against the same step on the
+   CPU, the dense path (phase 5's limits), bf16 Adam steps each launching
+   the flash forward, dkv and dq once, and then the bf16 kernels on the
+   layer's own q/k/v and key mask against their plain versions (phase 2's
+   bf16 limits). Phase 6a and 6b time batches staged on the card.
 
 A line before the last is a JSON object describing each kernel (launch
 counts on the main path, error against the plain version, times and the
@@ -86,7 +102,9 @@ prints no result. The script imports only the port
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import itertools
 import json
 import math
 import re
@@ -1754,6 +1772,308 @@ def print_peak_share(tag, step_ms):
           f"{step_ms:.3f} ms median step of phase 5, against 989 TFLOP/s)", flush=True)
 
 
+# ------------------------------------------------------------------ phase 6
+
+# The MultiLayerNetwork models at bench.py's CUDA shapes, their published widths
+LENET_BATCH, LENET_EXAMPLES, LENET_MAX_EPOCHS, LENET_TARGET = 128, 1280, 6, 0.90
+LSTM_B, LSTM_T, LSTM_FITS = 64, 200, 10
+ATTN_B, ATTN_C, ATTN_T, ATTN_HEADS, ATTN_STEPS = 16, 256, 128, 4, 20
+# the card's float32 fit against the CPU's, same weights and batch: the score
+# within 1e-5 relative, each parameter's update within 1e-4 of its norm
+MLN_LOSS_REL = 1e-5
+MLN_UPDATE_REL = 1e-4
+# rnn_time_step one step at a time against output() over the sequence,
+# float32 softmax outputs: products in another order
+RNN_STEP_ATOL = 1e-5
+
+
+@contextlib.contextmanager
+def float32_policy():
+    """The precision policy set to float32 (no bf16 compute) for a block."""
+    from deeplearning4j_tpu_torch.common.environment import env
+
+    old = env().matmul_precision
+    env().set("matmul_precision", "float32")
+    try:
+        yield
+    finally:
+        env().set("matmul_precision", old)
+
+
+def _update_errors(net, ref, before, ref_before):
+    """Each parameter's update on ``net`` against ``ref``'s, as a share of
+    the norm of ``ref``'s update: {name: error}."""
+    errs = {}
+    for (i, k, p), (_, _, r) in zip(net._param_entries(), ref._param_entries()):
+        got = p.detach().double().cpu() - before[f"{i}.{k}"]
+        want = r.detach().double().cpu() - ref_before[f"{i}.{k}"]
+        errs[f"{i}.{k}"] = ((got - want).norm() / want.norm().clamp(min=1e-300)).item()
+    return errs
+
+
+def _snapshot(net):
+    return {f"{i}.{k}": p.detach().double().cpu().clone() for i, k, p in net._param_entries()}
+
+
+def check_fit_on_cpu(tag, what, make_net, ds, loss_rel=MLN_LOSS_REL,
+                     update_rel=MLN_UPDATE_REL):
+    """One float32 fit of the same network on the card and on the CPU (the
+    explicit reference), from the same weights and batch: the score and
+    every parameter's update. Returns the kernels' launches in the card's
+    fit."""
+    with float32_policy():
+        card, cpu = make_net("cuda"), make_net("cpu")
+        cpu.set_params(card.params().cpu())
+        before, cpu_before = _snapshot(card), _snapshot(cpu)
+        _zero_counts()
+        t0 = time.perf_counter()
+        card.fit(ds)
+        card_score = card.score_
+        card_s = time.perf_counter() - t0
+        counts = _read_counts()
+        t0 = time.perf_counter()
+        cpu.fit(ds)
+        cpu_s = time.perf_counter() - t0
+        rel = abs(card_score - cpu.score_) / abs(cpu.score_)
+        errs = _update_errors(card, cpu, before, cpu_before)
+    worst = max(errs, key=errs.get)
+    print(f"{tag} {what} float32 fit, card vs CPU: score {card_score:.7f} vs {cpu.score_:.7f} "
+          f"(rel {rel:.2e}); largest update error {errs[worst]:.2e} of its norm ({worst}, "
+          f"{len(errs)} tensors); card {card_s:.3f} s, CPU {cpu_s:.3f} s", flush=True)
+    check(rel <= loss_rel, f"{what}: float32 score differs from the CPU's by {rel:.2e}")
+    check(errs[worst] <= update_rel,
+          f"{what}: update of {worst} differs from the CPU's by {errs[worst]:.2e}")
+    return counts
+
+
+def print_mln_peak_share(tag, what, conf, batch, step_ms, input_type=None):
+    """A train step's achieved share of the dense bf16 peak: three times the
+    forward flops of ``flops_per_example`` (forward + backward), per step;
+    ``input_type`` gives a sequence's length where the configuration's
+    input type leaves it open."""
+    if input_type is not None:
+        conf = dataclasses.replace(conf, input_type=input_type)
+    fwd = sum(l.flops_per_example(it) for l, it in zip(conf.layers, conf.input_types()))
+    flops = 3.0 * fwd * batch
+    share = flops / (step_ms / 1e3) / PEAK_OPS_PER_S["bfloat16"]
+    print(f"{tag} {what} achieved share of the dense bf16 peak: {share:.3e} ({flops:.4e} "
+          f"flops per step, 3 x flops_per_example x {batch}, in the {step_ms:.3f} ms median "
+          f"step, against 989 TFLOP/s)", flush=True)
+
+
+def phase_lenet(tag):
+    """6a: LeNet (published widths) at bench.py's CUDA shape, batch 128 of
+    the port's synthetic MNIST (byte for byte the JAX package's)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.data import DataSet, MnistDataSetIterator
+    from deeplearning4j_tpu_torch.models import LeNet
+
+    train = MnistDataSetIterator(LENET_BATCH, train=True, num_examples=LENET_EXAMPLES)
+    test = MnistDataSetIterator(256, train=False, num_examples=LENET_EXAMPLES)
+    check(train.synthetic, "LeNet: expected the synthetic MNIST (no IDX files in the checkout)")
+    host_batches = list(train)
+    check_fit_on_cpu(tag, f"LeNet [{LENET_BATCH},1,28,28]",
+                     lambda dev: LeNet().init(device=dev), host_batches[0])
+
+    net = LeNet().init(device="cuda")
+    # the training batches staged on the card once, as bench.py does: the
+    # times below hold no host-to-device copy of the images
+    batches = [DataSet(*(torch.as_tensor(a, device=net.device) for a in (b.features, b.labels)))
+               for b in host_batches]
+    t0 = time.perf_counter()
+    train_s, accs, tta = 0.0, [], None
+    for epoch in range(LENET_MAX_EPOCHS):
+        te = time.perf_counter()
+        for ds in batches:
+            net.fit(ds)
+        torch.cuda.synchronize()
+        train_s += time.perf_counter() - te
+        accs.append(net.evaluate(test).accuracy())
+        if accs[-1] >= LENET_TARGET:
+            tta = time.perf_counter() - t0
+            break
+    check(math.isfinite(net.score_), "LeNet: non-finite score")
+    print(f"{tag} LeNet bf16 Adam 1e-3, {LENET_EXAMPLES} examples per epoch: held-out accuracy "
+          f"by epoch {', '.join(f'{a:.4f}' for a in accs)}; time to {LENET_TARGET:.0%}: "
+          + (f"{tta:.3f} s ({len(accs)} epochs, {train_s:.3f} s of it in fit)" if tta
+             else "not reached") + f"; score {net.score_:.5f}", flush=True)
+    check(tta is not None, f"LeNet: held-out accuracy {accs} never reached {LENET_TARGET}")
+
+    cycle = itertools.cycle(batches)
+    times = wall_ms(lambda: net.fit(next(cycle)), n=40, warmup=5)
+    step_ms = statistics.median(times)
+    print(f"{tag} LeNet fit step [{LENET_BATCH},1,28,28] bf16: {spread(times)}, "
+          f"{LENET_BATCH / step_ms * 1e3:.0f} images/s at the median", flush=True)
+    x = batches[0].features
+    out_times = wall_ms(lambda: net.output(x), n=40, warmup=3)
+    print(f"{tag} LeNet output() [{LENET_BATCH},1,28,28] float32: {spread(out_times)}",
+          flush=True)
+    device_profile(tag, f"LeNet fit step [{LENET_BATCH},1,28,28] bf16",
+                   lambda: net.fit(batches[1]), reps=5, top=8)
+    print_mln_peak_share(tag, "LeNet fit step", net.conf, LENET_BATCH, step_ms)
+
+
+def _char_batch(B, V, T, seed):
+    rs = np.random.RandomState(seed)
+    idx = rs.randint(0, V, (B, T))
+    x = np.eye(V, dtype=np.float32)[idx].transpose(0, 2, 1)  # [B, V, T]
+    y = np.eye(V, dtype=np.float32)[np.roll(idx, -1, 1)].transpose(0, 2, 1)
+    return x, y
+
+
+def phase_char_rnn(tag):
+    """6b: the GravesLSTM char-RNN (vocab 77, hidden 256, 2 layers, tbptt
+    50, Adam, element-wise clipping at 1.0) at bench.py's CUDA shape B=64,
+    T=200: 4 segments per fit."""
+    import torch
+
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.models import TextGenerationLSTM
+    from deeplearning4j_tpu_torch.nn import InputType
+
+    model = TextGenerationLSTM()
+    x, y = _char_batch(LSTM_B, model.vocab_size, LSTM_T, 0)
+    check_fit_on_cpu(tag, f"char-RNN [{LSTM_B},{model.vocab_size},{LSTM_T}] tbptt 50",
+                     lambda dev: model.init(device=dev), DataSet(x, y))
+
+    net = model.init(device="cuda")
+    # the batch staged on the card once, as bench.py does
+    ds = DataSet(torch.as_tensor(x, device=net.device), torch.as_tensor(y, device=net.device))
+    scores, times = [], []
+    for _ in range(LSTM_FITS):
+        t0 = time.perf_counter()
+        net.fit(ds)
+        scores.append(net.score_)  # waits for the fit
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"{tag} char-RNN bf16 fits (4 segments each): score "
+          + " ".join(f"{s:.4f}" for s in scores), flush=True)
+    check(all(math.isfinite(s) for s in scores), f"char-RNN: non-finite score in {scores}")
+    check(scores[-1] < scores[0], f"char-RNN: score did not fall ({scores[0]} -> {scores[-1]})")
+    fit_ms = statistics.median(times[1:])
+    print(f"{tag} char-RNN fit [{LSTM_B},{LSTM_T}] bf16: {spread(times[1:])} (after the first), "
+          f"{LSTM_B * LSTM_T / fit_ms * 1e3:.0f} chars/s at the median", flush=True)
+    device_profile(tag, f"char-RNN fit [{LSTM_B},{LSTM_T}] bf16", lambda: net.fit(ds), reps=1,
+                   top=8)
+    print_mln_peak_share(tag, "char-RNN fit (4 segments)", net.conf, LSTM_B, fit_ms,
+                         InputType.recurrent(model.vocab_size, LSTM_T))
+
+    xs = ds.features[:, :, :20]
+    full = net.output(xs)
+    net.rnn_clear_previous_state()
+    steps = torch.cat([net.rnn_time_step(xs[:, :, t]) for t in range(20)], dim=2)
+    err = (steps - full).abs().max().item()
+    print(f"{tag} char-RNN rnn_time_step x20 vs output() over 20 steps, float32: max abs "
+          f"error {err:.2e}", flush=True)
+    check(err <= RNN_STEP_ATOL, f"char-RNN: rnn_time_step differs from output() by {err:.2e}")
+
+
+def _attention_conf(updater):
+    from deeplearning4j_tpu_torch.nn import conf as C
+    from deeplearning4j_tpu_torch.nn.attention_layers import SelfAttentionLayer
+
+    return (C.NeuralNetConfiguration.Builder().seed(21).updater(updater).list()
+            .layer(SelfAttentionLayer(n_out=ATTN_C, n_heads=ATTN_HEADS, head_size=64))
+            .layer(C.GlobalPoolingLayer(pooling_type="avg"))
+            .layer(C.OutputLayer(n_out=10, activation="softmax", loss="mcxent"))
+            .set_input_type(C.InputType.recurrent(ATTN_C, ATTN_T)).build())
+
+
+def _check_attention_counts(what, counts, steps):
+    want = {name: steps for name in _counters()}
+    check(counts == want, f"{what}: kernel launches {counts}, expected {want}")
+
+
+def check_attention_layer_kernels(tag, net, ds):
+    """The bf16 flash forward and backward kernels on the attention layer's
+    own inputs: q/k/v as its bf16 step projects them from this batch (the
+    strided per-head views), its key mask from the ragged features mask,
+    and an upstream gradient dO of the output's shape, against their plain
+    versions by phase 2's bf16 limits."""
+    import torch
+
+    from deeplearning4j_tpu_torch.kernels import attention as A
+    from deeplearning4j_tpu_torch.nn.attention_layers import _key_mask, _split_heads
+
+    w = {k: p.detach().to(torch.bfloat16) for k, p in net.params_["0"].items()}
+    x = torch.as_tensor(ds.features, device=net.device).to(torch.bfloat16)
+    h = x.transpose(1, 2)
+    q, k, v = (_split_heads(h @ w[n], ATTN_HEADS) for n in ("Wq", "Wk", "Wv"))
+    B, H, T, D = q.shape
+    qseg, kseg = A.attention_segments(_key_mask(ds.features_mask, x), None, B, T, T, q.device)
+    args = (qseg, kseg, False, 1.0 / math.sqrt(D), 0)
+    out, lse = A.flash_forward(q, k, v, *args)
+    rs = np.random.RandomState(9)
+    do = torch.from_numpy(rs.randn(B, T, H, D).astype(np.float32)).to(q.device, torch.bfloat16)
+    do = do.transpose(1, 2)
+    got = A.flash_backward(q, k, v, out, lse, do, *args)
+    _, delta = A.flash_backward_dq(q, k, v, out, do, lse, *args)
+    torch.cuda.synchronize()
+    ref, ref_lse = A.flash_forward_reference(q, k, v, *args)
+    ref_grads = A.flash_backward_reference(q, k, v, out, lse, do, *args)
+    diff = (out.float() - ref.float()).abs()
+    fwd_ratio = (diff / (BF16_ULP_REL * ref.float().abs() + BF16_ATOL)).max().item()
+    lse_ratio = ((lse - ref_lse).abs() / (LSE_TOL * ref_lse.abs().clamp(min=1.0))).max().item()
+    ratios = {"out": fwd_ratio, "lse": lse_ratio}
+    for gname, g, r in zip(("dq", "dk", "dv"), got, ref_grads):
+        check(torch.isfinite(g).all().item(), f"attention MLN kernels: non-finite {gname}")
+        ratios[gname] = _bwd_ratio(g, r, torch.bfloat16)
+    ratios["delta"] = _delta_ratio(delta, out, do)
+    print(f"{tag} attention MLN bf16 kernels on the layer's q/k/v [{B},{H},{T},{D}] and key "
+          f"mask, worst |kernel - plain| / bound: "
+          + " ".join(f"{n} {r:.3f}" for n, r in ratios.items()), flush=True)
+    for what, ratio in ratios.items():
+        check(ratio <= 1.0, f"attention MLN bf16 kernels: {what} disagrees with the plain "
+                            f"version ({ratio:.3f} of the bound)")
+
+
+def phase_attention_mln(tag, launches):
+    """6c: SelfAttentionLayer (nIn 256, 4 heads of 64) → GlobalPooling(avg)
+    → Output on [16, 256, 128] with a ragged features mask: a float32 Sgd
+    step through the flash kernels against the same network's step on the
+    CPU (the dense path; phase 5's limits), then bf16 Adam steps, each
+    launching the flash forward, dkv and dq once, and the bf16 kernels held
+    to their plain versions on the layer's own inputs."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.updaters import Adam, Sgd
+
+    rs = np.random.RandomState(8)
+    lengths = np.concatenate([[ATTN_T], rs.randint(16, ATTN_T + 1, ATTN_B - 1)])
+    fm = (np.arange(ATTN_T)[None] < lengths[:, None]).astype(np.float32)
+    ds = DataSet(rs.randn(ATTN_B, ATTN_C, ATTN_T).astype(np.float32),
+                 np.eye(10, dtype=np.float32)[rs.randint(0, 10, ATTN_B)], features_mask=fm)
+
+    counts = check_fit_on_cpu(
+        tag, f"attention MLN [{ATTN_B},{ATTN_C},{ATTN_T}] Sgd (update = lr x gradient)",
+        lambda dev: MultiLayerNetwork(_attention_conf(Sgd(0.1)), device=dev).init(), ds,
+        loss_rel=TRAIN_LOSS_REL, update_rel=TRAIN_GRAD_REL)
+    print(f"{tag} attention MLN float32 step on the card: launches {counts}", flush=True)
+    _check_attention_counts("attention MLN float32 step", counts, 1)
+    for name, n in counts.items():
+        launches[f"{name}_f32"].append(n)
+
+    net = MultiLayerNetwork(_attention_conf(Adam(1e-3)), device="cuda").init()
+    scores, times = [], []
+    _zero_counts()
+    for _ in range(ATTN_STEPS):
+        t0 = time.perf_counter()
+        net.fit(ds)
+        scores.append(net.score_)
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = _read_counts()
+    _check_attention_counts("attention MLN bf16 steps", counts, ATTN_STEPS)
+    for name, n in counts.items():
+        launches[name].append(n)
+    check(all(math.isfinite(s) for s in scores), f"attention MLN: non-finite score {scores}")
+    check(scores[-1] < scores[0], f"attention MLN: score did not fall {scores[0]} -> "
+                                  f"{scores[-1]}")
+    print(f"{tag} attention MLN [{ATTN_B},{ATTN_C},{ATTN_T}] bf16 Adam, {ATTN_STEPS} steps: "
+          f"score {scores[0]:.4f} -> {scores[-1]:.4f}; step {spread(times[2:])}; launches "
+          f"{counts} ({ATTN_STEPS} steps)", flush=True)
+    check_attention_layer_kernels(tag, net, ds)
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -1810,6 +2130,15 @@ def main() -> int:
         phase_remat(tag, launches)
         print(f"phase 5c remat: ok ({time.perf_counter() - t5:.1f} s)", flush=True)
         print_peak_share(tag, step_ms)
+        t6 = time.perf_counter()
+        phase_lenet(tag)
+        print(f"phase 6a LeNet: ok ({time.perf_counter() - t6:.1f} s)", flush=True)
+        t6 = time.perf_counter()
+        phase_char_rnn(tag)
+        print(f"phase 6b char-RNN: ok ({time.perf_counter() - t6:.1f} s)", flush=True)
+        t6 = time.perf_counter()
+        phase_attention_mln(tag, launches)
+        print(f"phase 6c attention MLN: ok ({time.perf_counter() - t6:.1f} s)", flush=True)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1

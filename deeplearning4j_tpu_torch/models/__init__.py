@@ -1,6 +1,8 @@
-"""Models of the port: the flagship BERT-base transformer (serving and training)."""
+"""Models of the port: the flagship BERT-base transformer (serving and
+training), LeNet and SimpleCNN, and the GravesLSTM char-RNN."""
 
 from .paged_decode import BlockAllocator, NoFreeBlocksError, PagedDecodeSlotPool
+from .text_lstm import TextGenerationLSTM
 from .transformer import (
     DecodeSlotPool,
     KvCacheLostError,
@@ -19,20 +21,25 @@ from .transformer import (
     token_ce_loss,
 )
 from .weights import (
+    mln_params_from_jax,
     params_from_jax,
     params_to_numpy,
     qa_params_from_jax,
     updater_state_from_jax,
     updater_state_to_numpy,
 )
+from .zoo import LeNet, SimpleCNN, ZooModel
 
 __all__ = [
     "BlockAllocator",
     "DecodeSlotPool",
     "KvCacheLostError",
+    "LeNet",
     "NoFreeBlocksError",
     "PagedDecodeSlotPool",
     "QaHead",
+    "SimpleCNN",
+    "TextGenerationLSTM",
     "Transformer",
     "TransformerConfig",
     "generate",
@@ -43,6 +50,7 @@ __all__ = [
     "loss_fn",
     "make_qa_train_step",
     "make_train_step",
+    "mln_params_from_jax",
     "params_from_jax",
     "params_to_numpy",
     "qa_loss_fn",
@@ -50,4 +58,5 @@ __all__ = [
     "token_ce_loss",
     "updater_state_from_jax",
     "updater_state_to_numpy",
+    "ZooModel",
 ]

@@ -7,6 +7,11 @@ The JAX transformer keeps its parameters as nested dicts and lists
 (``blocks.3.qkv_w``). Both store dense weights as [in, out] and compute
 ``x @ W``, so the bridge is a name table and no array is transposed.
 
+A MultiLayerNetwork keeps the JAX package's per-layer dicts
+(``params_["0"]["W"]``) as ``params_["0"]["W"]`` of its ``nn.ModuleDict``
+(:func:`mln_params_from_jax`); its OIHW convolution and [in, out] dense
+weights are the JAX package's layouts too.
+
 The tree is given as numpy arrays (``jax.tree.map(np.asarray, params)``), so
 this module needs nothing of JAX.
 """
@@ -67,6 +72,21 @@ def qa_params_from_jax(tree, cfg: TransformerConfig, *, device="cuda") -> QaHead
     head = QaHead(cfg, device=device)
     _load(head, tree)
     return head
+
+
+def mln_params_from_jax(net, params_, bn_state=None, updater_state=None):
+    """Load a JAX ``MultiLayerNetwork``'s ``params_`` (and, if given, its
+    ``bn_state`` and updater state) as numpy trees into ``net``, a port
+    network of the same configuration after ``init()``; returns ``net``."""
+    _load(net.params_, params_)
+    with torch.no_grad():
+        for si, st in (bn_state or {}).items():
+            for name in ("mean", "var"):
+                buf = getattr(net.bn_state[si], name)
+                buf.copy_(_to_tensor(st[name]).to(buf.dtype))
+    if updater_state is not None:
+        net.updater_state = updater_state_from_jax(updater_state, net.params_)
+    return net
 
 
 def params_to_numpy(module: nn.Module) -> Dict[str, Any]:

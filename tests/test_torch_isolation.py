@@ -57,7 +57,10 @@ def test_importing_the_port_loads_no_jax():
     assert "deeplearning4j_tpu_torch.kernels._build" in added
     assert "deeplearning4j_tpu_torch.nn.updaters" in added
     for module in ("common.environment", "common.dtypes", "common.precision",
-                   "kernels.autotune"):
+                   "kernels.autotune", "nn.activations", "nn.weights", "nn.losses",
+                   "nn.dropout", "nn.constraints", "nn.conf", "nn.attention_layers",
+                   "data.dataset", "data.iterators", "data.datasets", "eval.evaluation",
+                   "nn.multilayer", "models.zoo", "models.text_lstm", "models.weights"):
         assert f"deeplearning4j_tpu_torch.{module}" in added
     assert [m for m in added if _forbidden(m)] == []
 
@@ -149,6 +152,22 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("mps")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_networks_default_to_cuda_and_raise_without_a_card():
+    """MultiLayerNetwork and the zoo models place their parameters on
+    ``device``, "cuda" unless the caller asks for the CPU."""
+    _no_card()
+    from deeplearning4j_tpu_torch.models import LeNet, TextGenerationLSTM
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+
+    calls = {"MultiLayerNetwork": lambda: MultiLayerNetwork(LeNet().conf()),
+             "LeNet().init()": lambda: LeNet().init(),
+             "TextGenerationLSTM().init()": lambda: TextGenerationLSTM().init()}
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    assert next(LeNet().init(device="cpu").parameters()).device.type == "cpu"
 
 
 def test_cpu_training_never_touches_the_build(monkeypatch):
