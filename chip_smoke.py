@@ -89,7 +89,26 @@ Phases:
    CPU, the dense path (phase 5's limits), bf16 Adam steps each launching
    the flash forward, dkv and dq once, and then the bf16 kernels on the
    layer's own q/k/v and key mask against their plain versions (phase 2's
-   bf16 limits). Phase 6a and 6b time batches staged on the card.
+   bf16 limits). Phase 6a and 6b time batches staged on the card;
+7. the ComputationGraph path: (a) ResNet-50 (published widths, 25,557,032
+   parameters, Nesterovs(0.1, 0.9)) at bench.py's shape, 3x224x224, 1000
+   classes: a float32 fit at batch 4 against the same fit on the CPU (score,
+   every update and the BN running statistics), then bf16 training at batch
+   256 on a batch staged on the card: step time (median and p75 of 40 after
+   3 warm-up steps), images/s, peak memory, a profile (busy share, top
+   kernels), the share of the bf16 peak, ``output()`` latency at batch 256,
+   and the step with ``cudnn.benchmark`` off and on in turns; (b)
+   InceptionResNetV1 at its defaults (3x160x160, blocks (5, 10, 5), 1001
+   classes, two outputs): a float32 fit against the CPU's at batch 4 with
+   its DropoutLayer off, unit-norm embeddings, then bf16 Adam at batch 128:
+   step time, images/s, peak memory, a profile; (c) a graph of two
+   AttentionVertex nodes (cross-attention on q [16,256,96] and kv
+   [16,256,200], self-attention on q; 4 heads of 64) beside a
+   RecurrentAttentionLayer, MergeVertex → GlobalPooling → Output: a float32
+   Sgd step against the CPU's dense path (phase 5's limits), bf16 Adam steps
+   each launching the flash forward, dkv and dq twice, and the bf16 kernels
+   on each vertex's own q/k/v against their plain versions. Phase 2's
+   ``rect_q96_k200`` case holds the kernels at 7c's non-causal rectangle.
 
 A line before the last is a JSON object describing each kernel (launch
 counts on the main path, error against the plain version, times and the
@@ -221,11 +240,30 @@ def spread(times_ms) -> str:
     return text + f" (n={n})"
 
 
-def device_profile(tag, what, fn, reps=3, top=6):
+# device kernels by kind, for the graphs' breakdowns: (kind, name fragments)
+KERNEL_KINDS = (("layout transposes (cuDNN NCHW<->NHWC)", ("nchwToNhwc", "nhwcToNchw")),
+                ("convolutions and GEMMs", ("cudnn", "xmma", "sm90_", "gemm", "conv", "cutlass",
+                                            "dgrad", "wgrad")),
+                ("reductions", ("reduce_kernel",)),
+                ("casts and copies", ("copy_kernel", "direct_copy")),
+                ("pooling", ("pool",)),
+                ("other elementwise", ("elementwise",)))
+
+
+def kernel_kind(name) -> str:
+    for kind, fragments in KERNEL_KINDS:
+        if any(f in name for f in fragments):
+            return kind
+    return "other"
+
+
+def device_profile(tag, what, fn, reps=3, top=6, by_kind=False):
     """Where a request's time goes: torch.profiler over ``reps`` runs of
     ``fn``; prints the card's busy share of the host's wall time, the
-    kernels that take most device time and every flash kernel. The profiler's own host cost makes
-    the wall time (and so the idle share) an upper bound."""
+    kernels that take most device time and every flash kernel (and, with
+    ``by_kind``, the device time by kind of kernel, ``KERNEL_KINDS``). The
+    profiler's own host cost makes the wall time (and so the idle share) an
+    upper bound."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -254,6 +292,13 @@ def device_profile(tag, what, fn, reps=3, top=6):
         if rank < top or "flash_" in name:
             print(f"{tag}   {us / reps:9.1f} us/run {us / busy_us:6.1%}  #{rank + 1} "
                   f"{name[:100]}", flush=True)
+    if by_kind:
+        kinds = {}
+        for name, us in by_name.items():
+            kinds[kernel_kind(name)] = kinds.get(kernel_kind(name), 0.0) + us
+        print(f"{tag} {what} device time by kind: " + "; ".join(
+            f"{kind} {us / reps / 1e3:.3f} ms ({us / busy_us:.1%})"
+            for kind, us in sorted(kinds.items(), key=lambda kv: -kv[1])), flush=True)
 
 
 # ------------------------------------------------------------------ phase 1
@@ -399,6 +444,8 @@ def _kernel_cases():
         ("odd_200_d32_causal", 2, 3, 200, 200, 32, True, None),
         ("d128_256", 2, 4, 256, 256, 128, False, None),
         ("d16_96", 2, 2, 96, 96, 16, True, "pad"),
+        # non-causal cross-attention, Tq != Tk: phase 7c's AttentionVertex shape
+        ("rect_q96_k200", 2, 4, 96, 200, 64, False, "pad"),
     ]
 
 
@@ -1811,16 +1858,29 @@ def _update_errors(net, ref, before, ref_before):
     return errs
 
 
+def _whole_update_error(net, ref, before, ref_before):
+    """The update of all parameters as one vector on ``net`` against
+    ``ref``'s, as a share of the norm of ``ref``'s."""
+    num = den = 0.0
+    for (i, k, p), (_, _, r) in zip(net._param_entries(), ref._param_entries()):
+        got = p.detach().double().cpu() - before[f"{i}.{k}"]
+        want = r.detach().double().cpu() - ref_before[f"{i}.{k}"]
+        num += float(((got - want) ** 2).sum())
+        den += float((want ** 2).sum())
+    return (num / max(den, 1e-300)) ** 0.5
+
+
 def _snapshot(net):
     return {f"{i}.{k}": p.detach().double().cpu().clone() for i, k, p in net._param_entries()}
 
 
 def check_fit_on_cpu(tag, what, make_net, ds, loss_rel=MLN_LOSS_REL,
-                     update_rel=MLN_UPDATE_REL):
+                     update_rel=MLN_UPDATE_REL, all_rel=None, bn_rel=None):
     """One float32 fit of the same network on the card and on the CPU (the
     explicit reference), from the same weights and batch: the score and
-    every parameter's update. Returns the kernels' launches in the card's
-    fit."""
+    every parameter's update (and, where given, the update of all parameters
+    as one vector and each BN layer's running statistics, as a share of
+    their norms). Returns the kernels' launches in the card's fit."""
     with float32_policy():
         card, cpu = make_net("cuda"), make_net("cpu")
         cpu.set_params(card.params().cpu())
@@ -1836,13 +1896,32 @@ def check_fit_on_cpu(tag, what, make_net, ds, loss_rel=MLN_LOSS_REL,
         cpu_s = time.perf_counter() - t0
         rel = abs(card_score - cpu.score_) / abs(cpu.score_)
         errs = _update_errors(card, cpu, before, cpu_before)
+        whole = _whole_update_error(card, cpu, before, cpu_before)
+        bn_errs = {}
+        for k, st in card.bn_state.items():
+            for stat in ("mean", "var"):
+                want = getattr(cpu.bn_state[k], stat).double()
+                got = getattr(st, stat).double().cpu()
+                bn_errs[f"{k}.{stat}"] = ((got - want).norm() / want.norm()).item()
     worst = max(errs, key=errs.get)
+    median = statistics.median(errs.values())
     print(f"{tag} {what} float32 fit, card vs CPU: score {card_score:.7f} vs {cpu.score_:.7f} "
           f"(rel {rel:.2e}); largest update error {errs[worst]:.2e} of its norm ({worst}, "
-          f"{len(errs)} tensors); card {card_s:.3f} s, CPU {cpu_s:.3f} s", flush=True)
+          f"{len(errs)} tensors), median {median:.2e}, all parameters as one vector {whole:.2e}; "
+          f"card {card_s:.3f} s, CPU {cpu_s:.3f} s", flush=True)
     check(rel <= loss_rel, f"{what}: float32 score differs from the CPU's by {rel:.2e}")
     check(errs[worst] <= update_rel,
           f"{what}: update of {worst} differs from the CPU's by {errs[worst]:.2e}")
+    if all_rel is not None:
+        check(whole <= all_rel, f"{what}: the update of all parameters differs from the CPU's "
+                                f"by {whole:.2e} of its norm")
+    if bn_rel is not None:
+        bn_worst = max(bn_errs, key=bn_errs.get)
+        print(f"{tag} {what} float32 fit, BN running statistics card vs CPU: largest error "
+              f"{bn_errs[bn_worst]:.2e} of the norm ({bn_worst}, {len(bn_errs)} tensors)",
+              flush=True)
+        check(bn_errs[bn_worst] <= bn_rel, f"{what}: BN statistics {bn_worst} differ from the "
+                                           f"CPU's by {bn_errs[bn_worst]:.2e}")
     return counts
 
 
@@ -1984,6 +2063,44 @@ def _check_attention_counts(what, counts, steps):
     check(counts == want, f"{what}: kernel launches {counts}, expected {want}")
 
 
+def bf16_kernel_ratios(what, q, k, v, qseg, kseg, rs):
+    """The bf16 flash forward and both backward kernels (and the dq
+    kernel's delta) on the given q/k/v and key segments, with an upstream
+    gradient dO from ``rs``, against their plain versions: the worst
+    element of each as a share of phase 2's bf16 bound, {name: ratio}."""
+    import torch
+
+    from deeplearning4j_tpu_torch.kernels import attention as A
+
+    B, H, Tq, D = q.shape
+    args = (qseg, kseg, False, 1.0 / math.sqrt(D), k.shape[2] - Tq)
+    out, lse = A.flash_forward(q, k, v, *args)
+    do = torch.from_numpy(rs.randn(B, Tq, H, D).astype(np.float32)).to(q.device, torch.bfloat16)
+    do = do.transpose(1, 2)
+    got = A.flash_backward(q, k, v, out, lse, do, *args)
+    _, delta = A.flash_backward_dq(q, k, v, out, do, lse, *args)
+    torch.cuda.synchronize()
+    ref, ref_lse = A.flash_forward_reference(q, k, v, *args)
+    ref_grads = A.flash_backward_reference(q, k, v, out, lse, do, *args)
+    diff = (out.float() - ref.float()).abs()
+    fwd_ratio = (diff / (BF16_ULP_REL * ref.float().abs() + BF16_ATOL)).max().item()
+    lse_ratio = ((lse - ref_lse).abs() / (LSE_TOL * ref_lse.abs().clamp(min=1.0))).max().item()
+    ratios = {"out": fwd_ratio, "lse": lse_ratio}
+    for gname, g, r in zip(("dq", "dk", "dv"), got, ref_grads):
+        check(torch.isfinite(g).all().item(), f"{what}: non-finite {gname}")
+        ratios[gname] = _bwd_ratio(g, r, torch.bfloat16)
+    ratios["delta"] = _delta_ratio(delta, out, do)
+    return ratios
+
+
+def check_ratios(tag, what, ratios):
+    print(f"{tag} {what}, worst |kernel - plain| / bound: "
+          + " ".join(f"{n} {r:.3f}" for n, r in ratios.items()), flush=True)
+    for name, ratio in ratios.items():
+        check(ratio <= 1.0, f"{what}: {name} disagrees with the plain version ({ratio:.3f} of "
+                            f"the bound)")
+
+
 def check_attention_layer_kernels(tag, net, ds):
     """The bf16 flash forward and backward kernels on the attention layer's
     own inputs: q/k/v as its bf16 step projects them from this batch (the
@@ -2001,30 +2118,10 @@ def check_attention_layer_kernels(tag, net, ds):
     q, k, v = (_split_heads(h @ w[n], ATTN_HEADS) for n in ("Wq", "Wk", "Wv"))
     B, H, T, D = q.shape
     qseg, kseg = A.attention_segments(_key_mask(ds.features_mask, x), None, B, T, T, q.device)
-    args = (qseg, kseg, False, 1.0 / math.sqrt(D), 0)
-    out, lse = A.flash_forward(q, k, v, *args)
-    rs = np.random.RandomState(9)
-    do = torch.from_numpy(rs.randn(B, T, H, D).astype(np.float32)).to(q.device, torch.bfloat16)
-    do = do.transpose(1, 2)
-    got = A.flash_backward(q, k, v, out, lse, do, *args)
-    _, delta = A.flash_backward_dq(q, k, v, out, do, lse, *args)
-    torch.cuda.synchronize()
-    ref, ref_lse = A.flash_forward_reference(q, k, v, *args)
-    ref_grads = A.flash_backward_reference(q, k, v, out, lse, do, *args)
-    diff = (out.float() - ref.float()).abs()
-    fwd_ratio = (diff / (BF16_ULP_REL * ref.float().abs() + BF16_ATOL)).max().item()
-    lse_ratio = ((lse - ref_lse).abs() / (LSE_TOL * ref_lse.abs().clamp(min=1.0))).max().item()
-    ratios = {"out": fwd_ratio, "lse": lse_ratio}
-    for gname, g, r in zip(("dq", "dk", "dv"), got, ref_grads):
-        check(torch.isfinite(g).all().item(), f"attention MLN kernels: non-finite {gname}")
-        ratios[gname] = _bwd_ratio(g, r, torch.bfloat16)
-    ratios["delta"] = _delta_ratio(delta, out, do)
-    print(f"{tag} attention MLN bf16 kernels on the layer's q/k/v [{B},{H},{T},{D}] and key "
-          f"mask, worst |kernel - plain| / bound: "
-          + " ".join(f"{n} {r:.3f}" for n, r in ratios.items()), flush=True)
-    for what, ratio in ratios.items():
-        check(ratio <= 1.0, f"attention MLN bf16 kernels: {what} disagrees with the plain "
-                            f"version ({ratio:.3f} of the bound)")
+    ratios = bf16_kernel_ratios("attention MLN kernels", q, k, v, qseg, kseg,
+                                np.random.RandomState(9))
+    check_ratios(tag, f"attention MLN bf16 kernels on the layer's q/k/v [{B},{H},{T},{D}] and "
+                      f"key mask", ratios)
 
 
 def phase_attention_mln(tag, launches):
@@ -2072,6 +2169,294 @@ def phase_attention_mln(tag, launches):
           f"score {scores[0]:.4f} -> {scores[-1]:.4f}; step {spread(times[2:])}; launches "
           f"{counts} ({ATTN_STEPS} steps)", flush=True)
     check_attention_layer_kernels(tag, net, ds)
+
+
+# ------------------------------------------------------------------ phase 7
+
+# The ComputationGraph models at their published widths: ResNet-50 at
+# bench.py's shape (batch 256, 3x224x224, 1000 classes), InceptionResNetV1
+# at its defaults (3x160x160, blocks (5, 10, 5), embedding 128, 1001
+# classes) at batch 128, and phase 7c's attention graph
+RESNET_BATCH, RESNET_STEPS, RESNET_CHECK_BATCH = 256, 40, 4
+RESNET_PARAMS = 25_557_032
+FACENET_BATCH, FACENET_STEPS, FACENET_CHECK_BATCH = 128, 10, 4
+AG_B, AG_C, AG_TQ, AG_TK, AG_HEADS, AG_STEPS = 16, 256, 96, 200, 4, 10
+# The graphs' float32 fit on the card against the CPU's. A random ResNet-50
+# or InceptionResNetV1 at batch 4 amplifies float32 rounding in its updates
+# (BN over few values per channel). `python3 tests/torch_float64_step.py
+# --device cuda` on the H100 puts the card's float32 step, and the CPU's,
+# this far from a float64 step of the same network and batch (ResNet-50;
+# InceptionResNetV1): score 1.7e-6 and 3.7e-6 relative; 3.3e-7 and 8.2e-8;
+# the worst tensor's update 3.2% and 2.9% of its norm; 35.3% and 35.4%; all
+# parameters' update as one vector 2.6% and 2.6%; 8.2% and 6.0%; the worst
+# BN running statistic 8.7e-6 and 9.4e-6; 2.3e-6 and 1.6e-6. By the triangle
+# inequality the card is held within the sum of the two, rounded up.
+RESNET_LOSS_REL, RESNET_UPDATE_REL, RESNET_ALL_REL, RESNET_BN_REL = 1e-5, 0.07, 0.06, 2e-5
+FACENET_LOSS_REL, FACENET_UPDATE_REL, FACENET_ALL_REL, FACENET_BN_REL = 1e-6, 0.75, 0.15, 5e-6
+# L2-normalised embeddings: |row norm - 1| in float32
+EMBED_NORM_ATOL = 1e-5
+
+
+def _image_batch(batch, shape, classes, seed=0):
+    """``bench.py``'s ResNet-50 batch: uniform images and one-hot labels."""
+    rs = np.random.RandomState(seed)
+    x = rs.rand(batch, *shape).astype(np.float32)
+    return x, np.eye(classes, dtype=np.float32)[rs.randint(0, classes, batch)]
+
+
+def _staged(x, y):
+    """A DataSet whose arrays are staged on the card once."""
+    import torch
+
+    from deeplearning4j_tpu_torch.data import DataSet
+
+    return DataSet(torch.as_tensor(x, device="cuda"), torch.as_tensor(y, device="cuda"))
+
+
+def _free_card():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def graph_flops(net, batch) -> float:
+    """A train step's flops: three times the forward flops that the graph's
+    layers count (``flops_per_example``; vertices are not counted), per
+    step."""
+    fwd = sum(net.conf.nodes[n].layer.flops_per_example(net._in_types[n])
+              for n in net._topo if net.conf.nodes[n].layer is not None)
+    return 3.0 * fwd * batch
+
+
+def print_graph_peak_share(tag, what, net, batch, step_ms):
+    flops = graph_flops(net, batch)
+    share = flops / (step_ms / 1e3) / PEAK_OPS_PER_S["bfloat16"]
+    print(f"{tag} {what} achieved share of the dense bf16 peak: {share:.4f} ({flops:.4e} flops "
+          f"per step, 3 x flops_per_example x {batch}, in the {step_ms:.3f} ms median step, "
+          f"against 989 TFLOP/s)", flush=True)
+
+
+def _train_steps(net, ds, n, warmup=3):
+    """Host times (ms) of ``n`` fits after ``warmup``, each ending in a
+    synchronize; the scores of all fits."""
+    scores = []
+
+    def fit():
+        net.fit(ds)
+        scores.append(net.score_)
+
+    times = wall_ms(fit, n=n, warmup=warmup)
+    return times, scores
+
+
+def phase_resnet(tag):
+    """7a: ResNet-50 at bench.py's shape: a float32 fit on the card against
+    the CPU's at batch 4 (full width), then bf16 training at batch 256 with
+    the zoo's Nesterovs(0.1, 0.9): step time, images/s, peak memory, a
+    profile, the share of the bf16 peak, ``output()`` latency, and the step
+    with ``cudnn.benchmark`` off and on in turns."""
+    import torch
+
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.models import ResNet50
+
+    model = ResNet50()
+    shape, classes = model.input_shape, model.num_classes
+    x4, y4 = _image_batch(RESNET_CHECK_BATCH, shape, classes)
+    dims = ",".join(map(str, shape))
+    check_fit_on_cpu(tag, f"ResNet-50 [{RESNET_CHECK_BATCH},{dims}] Nesterovs",
+                     lambda dev: model.init(device=dev), DataSet(x4, y4),
+                     loss_rel=RESNET_LOSS_REL, update_rel=RESNET_UPDATE_REL,
+                     all_rel=RESNET_ALL_REL, bn_rel=RESNET_BN_REL)
+    _free_card()
+
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    net = model.init(device="cuda")
+    check(net.num_params() == RESNET_PARAMS,
+          f"ResNet-50 has {net.num_params()} parameters, expected {RESNET_PARAMS}")
+    ds = _staged(*_image_batch(RESNET_BATCH, shape, classes))
+    times, scores = _train_steps(net, ds, RESNET_STEPS)
+    check(all(math.isfinite(s) for s in scores), f"ResNet-50: non-finite score in {scores}")
+    step_ms = statistics.median(times)
+    peak = (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
+    print(f"{tag} ResNet-50 fit step [{RESNET_BATCH},{dims}] bf16 Nesterovs: {spread(times)}, "
+          f"{RESNET_BATCH / step_ms * 1e3:.1f} images/s at the median; peak memory {peak:.2f} "
+          f"GiB (max_memory_allocated); score {scores[0]:.4f} -> {scores[-1]:.4f} over "
+          f"{len(scores)} steps", flush=True)
+    device_profile(tag, f"ResNet-50 fit step [{RESNET_BATCH},{dims}] bf16",
+                   lambda: net.fit(ds), reps=2, top=12, by_kind=True)
+    print_graph_peak_share(tag, "ResNet-50 fit step", net, RESNET_BATCH, step_ms)
+    # cudnn.benchmark off (the library's default) and on, in turns
+    by_mode = {False: [], True: []}
+    try:
+        for mode in (True, False, True, True, False, False, True):
+            torch.backends.cudnn.benchmark = mode
+            t, _ = _train_steps(net, ds, 4, warmup=1)
+            by_mode[mode] += t
+    finally:
+        torch.backends.cudnn.benchmark = False
+    print(f"{tag} ResNet-50 fit step with cudnn.benchmark off: {spread(by_mode[False])}; on: "
+          f"{spread(by_mode[True])} (in turns, 4 timed steps per turn after one)", flush=True)
+    x = ds.features
+    out_times = wall_ms(lambda: net.output(x), n=10, warmup=2)
+    out = net.output(x)[0]
+    check(tuple(out.shape) == (RESNET_BATCH, classes) and bool(torch.isfinite(out).all()),
+          "ResNet-50: output() is not finite or has the wrong shape")
+    print(f"{tag} ResNet-50 output() [{RESNET_BATCH},{dims}] float32: {spread(out_times)}, "
+          f"{RESNET_BATCH / statistics.median(out_times) * 1e3:.1f} images/s", flush=True)
+    del net, ds
+    _free_card()
+
+
+def _facenet(dev, dropout=True):
+    from deeplearning4j_tpu_torch.models import InceptionResNetV1
+    from deeplearning4j_tpu_torch.nn import ComputationGraph
+
+    conf = InceptionResNetV1().conf()
+    if not dropout:
+        conf.nodes["drop"].layer.dropout = 0.0
+    return ComputationGraph(conf, device=dev).init()
+
+
+def phase_facenet(tag):
+    """7b: InceptionResNetV1 at its published defaults: a float32 fit on the
+    card against the CPU's at batch 4 with the DropoutLayer off in both,
+    unit-norm embeddings, then bf16 Adam at batch 128 (dropout on): step
+    time, images/s, peak memory and a profile."""
+    import torch
+
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.models import InceptionResNetV1
+
+    model = InceptionResNetV1()
+    shape, classes = model.input_shape, model.num_classes
+    x4, y4 = _image_batch(FACENET_CHECK_BATCH, shape, classes)
+    dims = ",".join(map(str, shape))
+    check_fit_on_cpu(tag, f"InceptionResNetV1 [{FACENET_CHECK_BATCH},{dims}] Adam, dropout off",
+                     lambda dev: _facenet(dev, dropout=False), DataSet(x4, y4),
+                     loss_rel=FACENET_LOSS_REL, update_rel=FACENET_UPDATE_REL,
+                     all_rel=FACENET_ALL_REL, bn_rel=FACENET_BN_REL)
+    with float32_policy():
+        probs, emb = _facenet("cuda").output(x4)
+    err = (emb.norm(dim=1) - 1.0).abs().max().item()
+    print(f"{tag} InceptionResNetV1 output() float32: output {tuple(probs.shape)}, embeddings "
+          f"{tuple(emb.shape)}, max |row norm - 1| {err:.2e}", flush=True)
+    check(tuple(emb.shape) == (FACENET_CHECK_BATCH, model.embedding_size) and
+          err <= EMBED_NORM_ATOL, f"InceptionResNetV1: embeddings not unit norm ({err:.2e})")
+    _free_card()
+
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    net = _facenet("cuda")
+    ds = _staged(*_image_batch(FACENET_BATCH, shape, classes))
+    times, scores = _train_steps(net, ds, FACENET_STEPS)
+    check(all(math.isfinite(s) for s in scores),
+          f"InceptionResNetV1: non-finite score in {scores}")
+    step_ms = statistics.median(times)
+    peak = (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
+    print(f"{tag} InceptionResNetV1 fit step [{FACENET_BATCH},{dims}] bf16 Adam: "
+          f"{spread(times)}, {FACENET_BATCH / step_ms * 1e3:.1f} images/s at the median; peak "
+          f"memory {peak:.2f} GiB; score {scores[0]:.4f} -> {scores[-1]:.4f}", flush=True)
+    device_profile(tag, f"InceptionResNetV1 fit step [{FACENET_BATCH},{dims}] bf16",
+                   lambda: net.fit(ds), reps=2, top=8, by_kind=True)
+    print_graph_peak_share(tag, "InceptionResNetV1 fit step", net, FACENET_BATCH, step_ms)
+    del net, ds
+    _free_card()
+
+
+def _attention_graph_conf(updater):
+    from deeplearning4j_tpu_torch.nn import conf as C
+    from deeplearning4j_tpu_torch.nn import graph_conf as G
+    from deeplearning4j_tpu_torch.nn.attention_layers import (AttentionVertex,
+                                                              RecurrentAttentionLayer)
+
+    g = (C.NeuralNetConfiguration.Builder().seed(31).updater(updater).graph_builder()
+         .add_inputs("q", "kv")
+         .set_input_types(C.InputType.recurrent(AG_C, AG_TQ), C.InputType.recurrent(AG_C, AG_TK)))
+    attention = dict(n_in=AG_C, n_out=AG_C, n_heads=AG_HEADS, head_size=64)
+    g.add_vertex("cross", AttentionVertex(**attention), "q", "kv", "kv")
+    g.add_vertex("self", AttentionVertex(**attention), "q")
+    g.add_layer("rec", RecurrentAttentionLayer(n_out=64, n_heads=4, head_size=16), "q")
+    g.add_vertex("cat", G.MergeVertex(), "cross", "self", "rec")
+    g.add_layer("pool", C.GlobalPoolingLayer(pooling_type="avg"), "cat")
+    g.add_layer("out", C.OutputLayer(n_out=10, activation="softmax", loss="mcxent"), "pool")
+    return g.set_outputs("out").build()
+
+
+def check_attention_vertex_kernels(tag, net, ds):
+    """The bf16 flash forward and backward kernels on each AttentionVertex's
+    own inputs: q/k/v as its bf16 step projects them from this batch
+    (cross-attention: q from "q", k and v from "kv"; self-attention: all
+    from "q"), and an upstream gradient dO, against their plain versions by
+    phase 2's bf16 limits."""
+    import torch
+
+    from deeplearning4j_tpu_torch.kernels import attention as A
+    from deeplearning4j_tpu_torch.nn.attention_layers import _split_heads
+
+    xq, xkv = (torch.as_tensor(f, device=net.device).to(torch.bfloat16).transpose(1, 2)
+               for f in ds.features)
+    rs = np.random.RandomState(10)
+    for name, (hq, hk) in (("cross", (xq, xkv)), ("self", (xq, xq))):
+        w = {k: p.detach().to(torch.bfloat16) for k, p in net.params_[name].items()}
+        q = _split_heads(hq @ w["Wq"], AG_HEADS)
+        k, v = (_split_heads(hk @ w[n], AG_HEADS) for n in ("Wk", "Wv"))
+        B, H, Tq, D = q.shape
+        Tk = k.shape[2]
+        qseg, kseg = A.attention_segments(None, None, B, Tq, Tk, q.device)
+        ratios = bf16_kernel_ratios(f"attention graph {name}", q, k, v, qseg, kseg, rs)
+        check_ratios(tag, f"attention graph {name} vertex bf16 kernels on its q [{B},{H},{Tq},"
+                          f"{D}] and k/v [{B},{H},{Tk},{D}]", ratios)
+
+
+def phase_attention_graph(tag, launches):
+    """7c: a ComputationGraph whose two AttentionVertex nodes (cross on
+    (q, kv, kv), self on q) run the flash kernels, beside a
+    RecurrentAttentionLayer on q: a float32 Sgd step on the card against the
+    CPU's dense path (phase 5's limits), bf16 Adam steps each launching the
+    flash forward, dkv and dq twice, and the bf16 kernels on each vertex's
+    own q/k/v held to their plain versions."""
+    from deeplearning4j_tpu_torch.data import MultiDataSet
+    from deeplearning4j_tpu_torch.nn import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.updaters import Adam, Sgd
+
+    rs = np.random.RandomState(13)
+    ds = MultiDataSet([rs.randn(AG_B, AG_C, AG_TQ).astype(np.float32),
+                       rs.randn(AG_B, AG_C, AG_TK).astype(np.float32)],
+                      [np.eye(10, dtype=np.float32)[rs.randint(0, 10, AG_B)]])
+    shape = f"q [{AG_B},{AG_C},{AG_TQ}], kv [{AG_B},{AG_C},{AG_TK}]"
+    counts = check_fit_on_cpu(
+        tag, f"attention graph {shape} Sgd (update = lr x gradient)",
+        lambda dev: ComputationGraph(_attention_graph_conf(Sgd(0.1)), device=dev).init(), ds,
+        loss_rel=TRAIN_LOSS_REL, update_rel=TRAIN_GRAD_REL)
+    print(f"{tag} attention graph float32 step on the card: launches {counts}", flush=True)
+    _check_attention_counts("attention graph float32 step", counts, 2)
+    for name, n in counts.items():
+        launches[f"{name}_f32"].append(n)
+
+    net = ComputationGraph(_attention_graph_conf(Adam(1e-3)), device="cuda").init()
+    scores, times = [], []
+    _zero_counts()
+    for _ in range(AG_STEPS):
+        t0 = time.perf_counter()
+        net.fit(ds)
+        scores.append(net.score_)
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = _read_counts()
+    _check_attention_counts("attention graph bf16 steps", counts, 2 * AG_STEPS)
+    for name, n in counts.items():
+        launches[name].append(n)
+    check(all(math.isfinite(s) for s in scores), f"attention graph: non-finite score {scores}")
+    check(scores[-1] < scores[0], f"attention graph: score did not fall {scores[0]} -> "
+                                  f"{scores[-1]}")
+    print(f"{tag} attention graph {shape} bf16 Adam, {AG_STEPS} steps: score {scores[0]:.4f} -> "
+          f"{scores[-1]:.4f}; step {spread(times[2:])}; launches {counts} ({AG_STEPS} steps, "
+          f"two vertices)", flush=True)
+    check_attention_vertex_kernels(tag, net, ds)
 
 
 # --------------------------------------------------------------------- main
@@ -2139,6 +2524,15 @@ def main() -> int:
         t6 = time.perf_counter()
         phase_attention_mln(tag, launches)
         print(f"phase 6c attention MLN: ok ({time.perf_counter() - t6:.1f} s)", flush=True)
+        t7 = time.perf_counter()
+        phase_resnet(tag)
+        print(f"phase 7a ResNet-50: ok ({time.perf_counter() - t7:.1f} s)", flush=True)
+        t7 = time.perf_counter()
+        phase_facenet(tag)
+        print(f"phase 7b InceptionResNetV1: ok ({time.perf_counter() - t7:.1f} s)", flush=True)
+        t7 = time.perf_counter()
+        phase_attention_graph(tag, launches)
+        print(f"phase 7c attention graph: ok ({time.perf_counter() - t7:.1f} s)", flush=True)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1

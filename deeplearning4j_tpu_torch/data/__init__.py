@@ -2,9 +2,11 @@
 package's ``data/dataset.py``, ``data/iterators.py`` and the MNIST part of
 ``data/datasets.py``)."""
 
-from .dataset import DataSet
+from .dataset import DataSet, MultiDataSet
 from .datasets import MnistDataSetIterator
-from .iterators import ArrayDataSetIterator, DataSetIterator, ListDataSetIterator
+from .iterators import (ArrayDataSetIterator, DataSetIterator, ListDataSetIterator,
+                        ListMultiDataSetIterator, MultiDataSetIterator)
 
 __all__ = ["ArrayDataSetIterator", "DataSet", "DataSetIterator", "ListDataSetIterator",
-           "MnistDataSetIterator"]
+           "ListMultiDataSetIterator", "MnistDataSetIterator", "MultiDataSet",
+           "MultiDataSetIterator"]

@@ -1,8 +1,10 @@
-"""DataSet container.
+"""DataSet and MultiDataSet containers.
 
-Copy of ``DataSet`` from ``deeplearning4j_tpu/data/dataset.py`` (nd4j's
+Copies of ``DataSet`` and ``MultiDataSet`` from
+``deeplearning4j_tpu/data/dataset.py`` (nd4j's
 ``org.nd4j.linalg.dataset.DataSet``: features, labels, featuresMask,
-labelsMask). Arrays are host numpy until the network moves them to its
+labelsMask; ``MultiDataSet``: lists of each, for a ComputationGraph with
+several inputs or outputs). Arrays are host numpy until the network moves them to its
 device; a tensor already on a CUDA card passes through as it is (a batch
 staged on the device is not copied back to the host).
 """
@@ -80,3 +82,21 @@ class DataSet:
         f = None if self.features is None else tuple(self.features.shape)
         l = None if self.labels is None else tuple(self.labels.shape)
         return f"DataSet(features={f}, labels={l})"
+
+
+class MultiDataSet:
+    """org.nd4j.linalg.dataset.MultiDataSet: N features, M labels + masks."""
+
+    def __init__(self, features=None, labels=None, features_masks=None, labels_masks=None):
+        def as_list(x):
+            if x is None:
+                return None
+            return [_to_np(a) for a in (x if isinstance(x, (list, tuple)) else [x])]
+
+        self.features = as_list(features) or []
+        self.labels = as_list(labels) or []
+        self.features_masks = as_list(features_masks)
+        self.labels_masks = as_list(labels_masks)
+
+    def num_examples(self) -> int:
+        return 0 if not self.features else self.features[0].shape[0]

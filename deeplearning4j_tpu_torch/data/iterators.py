@@ -1,8 +1,9 @@
 """DataSet iterators.
 
-Copy of ``DataSetIterator``, ``ListDataSetIterator`` and
-``ArrayDataSetIterator`` from ``deeplearning4j_tpu/data/iterators.py``
-(nd4j's ``DataSetIterator`` SPI). The prefetching iterators
+Copy of ``DataSetIterator``, ``ListDataSetIterator``,
+``ArrayDataSetIterator``, ``MultiDataSetIterator`` and
+``ListMultiDataSetIterator`` from ``deeplearning4j_tpu/data/iterators.py``
+(nd4j's ``DataSetIterator`` and ``MultiDataSetIterator`` SPIs). The prefetching iterators
 (``AsyncDataSetIterator``, ``DevicePrefetchIterator``) are not ported yet
 (ROADMAP.md queue 1 item 8).
 """
@@ -13,7 +14,7 @@ from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
-from .dataset import DataSet
+from .dataset import DataSet, MultiDataSet
 
 
 class DataSetIterator:
@@ -123,3 +124,38 @@ class ArrayDataSetIterator(DataSetIterator):
         if self.shuffle:
             for k in range(1, self._epoch + 1):
                 np.random.default_rng(self._seed + k).shuffle(self._order)
+
+
+class MultiDataSetIterator:
+    """api.iterator.MultiDataSetIterator SPI."""
+
+    def has_next(self) -> bool:
+        raise NotImplementedError
+
+    def next(self) -> MultiDataSet:
+        raise NotImplementedError
+
+    def reset(self) -> None:
+        raise NotImplementedError
+
+    def __iter__(self) -> Iterator[MultiDataSet]:
+        self.reset()
+        while self.has_next():
+            yield self.next()
+
+
+class ListMultiDataSetIterator(MultiDataSetIterator):
+    def __init__(self, items: Sequence[MultiDataSet]):
+        self._items = list(items)
+        self._pos = 0
+
+    def has_next(self) -> bool:
+        return self._pos < len(self._items)
+
+    def next(self) -> MultiDataSet:
+        d = self._items[self._pos]
+        self._pos += 1
+        return d
+
+    def reset(self) -> None:
+        self._pos = 0

@@ -1,7 +1,10 @@
 """Models of the port: the flagship BERT-base transformer (serving and
-training), LeNet and SimpleCNN, and the GravesLSTM char-RNN."""
+training), LeNet and SimpleCNN, the GravesLSTM char-RNN, and the
+ComputationGraph models ResNet-50 and InceptionResNetV1."""
 
+from .facenet import InceptionResNetV1
 from .paged_decode import BlockAllocator, NoFreeBlocksError, PagedDecodeSlotPool
+from .resnet import ResNet50
 from .text_lstm import TextGenerationLSTM
 from .transformer import (
     DecodeSlotPool,
@@ -21,6 +24,7 @@ from .transformer import (
     token_ce_loss,
 )
 from .weights import (
+    cg_params_from_jax,
     mln_params_from_jax,
     params_from_jax,
     params_to_numpy,
@@ -32,12 +36,15 @@ from .zoo import LeNet, SimpleCNN, ZooModel
 
 __all__ = [
     "BlockAllocator",
+    "cg_params_from_jax",
     "DecodeSlotPool",
+    "InceptionResNetV1",
     "KvCacheLostError",
     "LeNet",
     "NoFreeBlocksError",
     "PagedDecodeSlotPool",
     "QaHead",
+    "ResNet50",
     "SimpleCNN",
     "TextGenerationLSTM",
     "Transformer",

@@ -10,7 +10,8 @@ The JAX transformer keeps its parameters as nested dicts and lists
 A MultiLayerNetwork keeps the JAX package's per-layer dicts
 (``params_["0"]["W"]``) as ``params_["0"]["W"]`` of its ``nn.ModuleDict``
 (:func:`mln_params_from_jax`); its OIHW convolution and [in, out] dense
-weights are the JAX package's layouts too.
+weights are the JAX package's layouts too. A ComputationGraph's per-node
+dicts load the same way (:func:`cg_params_from_jax`).
 
 The tree is given as numpy arrays (``jax.tree.map(np.asarray, params)``), so
 this module needs nothing of JAX.
@@ -86,6 +87,29 @@ def mln_params_from_jax(net, params_, bn_state=None, updater_state=None):
                 buf.copy_(_to_tensor(st[name]).to(buf.dtype))
     if updater_state is not None:
         net.updater_state = updater_state_from_jax(updater_state, net.params_)
+    return net
+
+
+def cg_params_from_jax(net, params_, bn_state=None, updater_state=None):
+    """Load a JAX ``ComputationGraph``'s ``params_`` (and, if given, its
+    ``bn_state`` and updater state) as numpy trees into ``net``, a port
+    graph of the same configuration after ``init()``; returns ``net``.
+    The trees are keyed by node name, layers' and vertices' alike; the
+    port's module keys escape them (``nn.graph.module_key``)."""
+    from ..nn.graph import module_key
+
+    def rekey(tree):
+        return {module_key(name): sub for name, sub in tree.items()}
+
+    _load(net.params_, rekey(params_))
+    with torch.no_grad():
+        for name, st in (bn_state or {}).items():
+            for stat in ("mean", "var"):
+                buf = getattr(net.bn_state[module_key(name)], stat)
+                buf.copy_(_to_tensor(st[stat]).to(buf.dtype))
+    if updater_state is not None:
+        net.updater_state = updater_state_from_jax(
+            {slot: rekey(tree) for slot, tree in updater_state.items()}, net.params_)
     return net
 
 

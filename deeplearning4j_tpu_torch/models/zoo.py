@@ -2,9 +2,10 @@
 
 Counterpart of ``deeplearning4j_tpu/models/zoo.py`` (DL4J's
 ``org.deeplearning4j.zoo.ZooModel`` SPI and ``zoo.model.{LeNet,
-SimpleCNN}``), with the same configurations. ``init`` builds a
-``MultiLayerNetwork`` on ``device`` (``"cuda"`` unless the caller asks for
-the CPU). Pretrained weights wait for the checkpoint port.
+SimpleCNN}``), with the same configurations. ``init`` builds the model's
+network (a ``MultiLayerNetwork``, or the ``ComputationGraph`` that a graph
+model's ``_net_class`` names) on ``device`` (``"cuda"`` unless the caller
+asks for the CPU). Pretrained weights wait for the checkpoint port.
 """
 
 from __future__ import annotations
@@ -31,8 +32,13 @@ class ZooModel:
     def conf(self):
         raise NotImplementedError
 
-    def init(self, *, device="cuda") -> MultiLayerNetwork:
-        return MultiLayerNetwork(self.conf(), device=device).init()
+    def init(self, *, device="cuda"):
+        """The network of ``conf()`` (a ``MultiLayerNetwork``, or what
+        ``_net_class`` names) on ``device``, initialised."""
+        return self._net_class()(self.conf(), device=device).init()
+
+    def _net_class(self):
+        return MultiLayerNetwork
 
     def init_pretrained(self, path: Optional[str] = None, dataset: str = "imagenet",
                         checksum: Optional[str] = None):

@@ -1,8 +1,10 @@
-"""Neural-network building blocks of the port: the MultiLayerNetwork
-runtime, its configuration builders and core layers, activations, losses,
-weight init, dropout, constraints, updaters and schedules."""
+"""Neural-network building blocks of the port: the MultiLayerNetwork and
+ComputationGraph runtimes, their configuration builders, core layers and
+graph vertices, activations, losses, weight init, dropout, constraints,
+updaters and schedules."""
 
-from .attention_layers import LearnedSelfAttentionLayer, SelfAttentionLayer
+from .attention_layers import (AttentionVertex, LearnedSelfAttentionLayer,
+                               RecurrentAttentionLayer, SelfAttentionLayer)
 from .conf import (
     ActivationLayer,
     BatchNormalization,
@@ -21,6 +23,23 @@ from .conf import (
     OutputLayer,
     RnnOutputLayer,
     SubsamplingLayer,
+)
+from .graph import ComputationGraph
+from .graph_conf import (
+    ComputationGraphConfiguration,
+    ElementWiseVertex,
+    FlattenVertex,
+    GraphBuilder,
+    GraphVertex,
+    L2NormalizeVertex,
+    MergeVertex,
+    PreprocessorVertex,
+    ReshapeVertex,
+    ScaleVertex,
+    ShiftVertex,
+    StackVertex,
+    SubsetVertex,
+    UnstackVertex,
 )
 from .multilayer import MultiLayerNetwork
 from .updaters import (
@@ -45,11 +64,15 @@ from .updaters import (
     WarmupLinearDecay,
 )
 
-__all__ = ["ActivationLayer", "BatchNormalization", "ConvolutionLayer", "DenseLayer",
-           "DropoutLayer", "GlobalPoolingLayer", "GravesLSTM", "InputType", "LastTimeStep",
-           "Layer", "LearnedSelfAttentionLayer", "LossLayer", "LSTM", "MultiLayerConfiguration",
-           "MultiLayerNetwork", "NeuralNetConfiguration", "OutputLayer", "RnnOutputLayer",
-           "SelfAttentionLayer", "SubsamplingLayer",
+__all__ = ["ActivationLayer", "AttentionVertex", "BatchNormalization", "ComputationGraph",
+           "ComputationGraphConfiguration", "ConvolutionLayer", "DenseLayer", "DropoutLayer",
+           "ElementWiseVertex", "FlattenVertex", "GlobalPoolingLayer", "GraphBuilder",
+           "GraphVertex", "GravesLSTM", "InputType", "L2NormalizeVertex", "LastTimeStep",
+           "Layer", "LearnedSelfAttentionLayer", "LossLayer", "LSTM", "MergeVertex",
+           "MultiLayerConfiguration", "MultiLayerNetwork", "NeuralNetConfiguration",
+           "OutputLayer", "PreprocessorVertex", "RecurrentAttentionLayer", "ReshapeVertex",
+           "RnnOutputLayer", "ScaleVertex", "SelfAttentionLayer", "ShiftVertex",
+           "StackVertex", "SubsamplingLayer", "SubsetVertex", "UnstackVertex",
            "AdaDelta", "AdaGrad", "AdaMax", "Adam", "AMSGrad", "ExponentialSchedule",
            "FixedSchedule", "InverseSchedule", "IUpdater", "Nadam", "Nesterovs", "NoOp",
            "PolySchedule", "RmsProp", "Schedule", "Sgd", "SigmoidSchedule", "StepSchedule",

@@ -1,14 +1,16 @@
-"""Self-attention layers of a MultiLayerNetwork.
+"""Attention layers of a MultiLayerNetwork and the attention vertex of a
+ComputationGraph.
 
-Counterpart of ``SelfAttentionLayer`` and ``LearnedSelfAttentionLayer`` in
-``deeplearning4j_tpu/nn/attention_layers.py`` (DL4J's
-``conf.layers.SelfAttentionLayer``/``LearnedSelfAttentionLayer``). Both
-take and give the DL4J recurrent layout [B, C, T] and go through the port's
-``kernels.attention.dot_product_attention``: on a CUDA tensor whose head
-size the kernels take (16, 32, 64 or 128, float32 or bf16), its ``auto``
-route runs the hand-written flash kernels forward and backward, and on a
-CPU tensor the dense path. The features mask becomes a key mask
-[B, 1, 1, T].
+Counterpart of ``deeplearning4j_tpu/nn/attention_layers.py`` (DL4J's
+``conf.layers.SelfAttentionLayer``/``LearnedSelfAttentionLayer``/
+``RecurrentAttentionLayer`` and ``conf.graph.AttentionVertex``). All take
+and give the DL4J recurrent layout [B, C, T]. The self-attention layers and
+the vertex go through the port's ``kernels.attention.dot_product_attention``:
+on a CUDA tensor whose head size the kernels take (16, 32, 64 or 128,
+float32 or bf16), its ``auto`` route runs the hand-written flash kernels
+forward and backward, and on a CPU tensor the dense path. The features mask
+becomes a key mask [B, 1, 1, T]. ``RecurrentAttentionLayer`` attends with
+one query per step, in an eager loop over time, and uses no kernel.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 from ..kernels.attention import dot_product_attention
 from . import activations as act
 from .conf import LAYER_REGISTRY, InputType, Layer, _mm
+from .graph_conf import VERTEX_REGISTRY, GraphVertex
 from .weights import init_weights
 
 
@@ -136,5 +139,107 @@ class LearnedSelfAttentionLayer(SelfAttentionLayer):
         return act.get(self.activation)(o).transpose(1, 2)
 
 
-for _cls in (SelfAttentionLayer, LearnedSelfAttentionLayer):
+@dataclass
+class RecurrentAttentionLayer(Layer):
+    """conf.layers.RecurrentAttentionLayer: recurrent cell whose step-t input
+    is augmented with attention over the WHOLE sequence, queried by the
+    previous hidden state:
+
+        attn_t = MHA(query=a_{t-1} Wq, keys=x Wk, values=x Wv)
+        a_t    = activation(x_t W + attn_t Wr + b)
+
+    The JAX package's ``lax.scan`` over time is an eager loop here, as
+    ``conf._lstm_scan``: the key, value and input projections of all steps
+    are one product each before the loop."""
+
+    n_in: int = 0
+    n_out: int = 0
+    n_heads: int = 1
+    head_size: int = 0
+    activation: str = "tanh"
+    has_bias: bool = True
+
+    def output_type(self, it: InputType) -> InputType:
+        return InputType.recurrent(self.n_out, it.timeseries_length)
+
+    def init_params(self, generator, it: InputType, dtype=torch.float32):
+        n_in = self.n_in or it.size
+        head = self.head_size or max(self.n_out // self.n_heads, 1)
+        proj = self.n_heads * head
+        w = lambda shape, fi, fo: init_weights(generator, shape, fi, fo, self.weight_init, dtype)
+        p = {"W": w((n_in, self.n_out), n_in, self.n_out),
+             "Wr": w((proj, self.n_out), proj, self.n_out),
+             "Wq": w((self.n_out, proj), self.n_out, proj),
+             "Wk": w((n_in, proj), n_in, proj), "Wv": w((n_in, proj), n_in, proj)}
+        if self.has_bias:
+            p["b"] = torch.zeros((self.n_out,), dtype=dtype, device=generator.device)
+        return p
+
+    def forward(self, params, x, it, *, training, rng=None, mask=None):
+        x = self._apply_dropout(x, training, rng)
+        h = x.transpose(1, 2)                               # [B, T, C]
+        B, T, _ = h.shape
+        keys, vals = _mm(h, params["Wk"]), _mm(h, params["Wv"])   # [B, T, P]
+        xw = _mm(h, params["W"])                            # [B, T, nOut]
+        if self.has_bias:
+            xw = xw + params["b"]
+        n_heads = self.n_heads
+        hd = keys.shape[-1] // n_heads
+        kt = _split_heads(keys, n_heads).transpose(2, 3)    # [B, H, hd, T]
+        vh = _split_heads(vals, n_heads)                    # [B, H, T, hd]
+        scale = 1.0 / torch.sqrt(torch.tensor(float(hd), dtype=h.dtype, device=h.device))
+        live = None if mask is None else (_key_mask(mask, x)[:, :, 0] > 0)   # [B, 1, T]
+        fn = act.get(self.activation)
+        a = torch.zeros((B, self.n_out), dtype=xw.dtype, device=h.device)
+        outs = []
+        for t in range(T):
+            q = _mm(a, params["Wq"]).reshape(B, n_heads, 1, hd)
+            logits = (q @ kt)[:, :, 0] * scale              # [B, H, T]
+            if live is not None:
+                logits = torch.where(live, logits, torch.full_like(logits, -1e30))
+            w = torch.softmax(logits, dim=-1)
+            attn = (w[:, :, None] @ vh).reshape(B, n_heads * hd)
+            a = fn(xw[:, t] + _mm(attn, params["Wr"]))
+            outs.append(a)
+        return torch.stack(outs, dim=2)                     # [B, nOut, T]
+
+
+@dataclass
+class AttentionVertex(GraphVertex):
+    """conf.graph.AttentionVertex: multi-head dot-product attention as a
+    graph vertex. Inputs: (queries, keys, values), or one input used for
+    all three (self-attention); activations [B, C, T], C = ``n_in`` for
+    each. The graph draws its Wq/Wk/Wv/Wo (as ``SelfAttentionLayer``'s)
+    with ``init_params``; a cross-attention call (Tq != Tk) is non-causal."""
+
+    n_in: int = 0
+    n_out: int = 0
+    n_heads: int = 1
+    head_size: int = 0
+    weight_init: str = "xavier"
+
+    def init_params(self, generator, dtype=torch.float32):
+        head = self.head_size or max(self.n_out // self.n_heads, 1)
+        proj = self.n_heads * head
+        n_in = self.n_in
+        w = lambda shape, fi, fo: init_weights(generator, shape, fi, fo, self.weight_init, dtype)
+        return {"Wq": w((n_in, proj), n_in, proj), "Wk": w((n_in, proj), n_in, proj),
+                "Wv": w((n_in, proj), n_in, proj), "Wo": w((proj, self.n_out), proj, self.n_out)}
+
+    def apply(self, inputs, params=None):
+        if params is None:
+            raise ValueError("AttentionVertex needs params (graph must init them)")
+        qs = inputs[0].transpose(1, 2)
+        ks = inputs[1 if len(inputs) > 1 else 0].transpose(1, 2)
+        vs = inputs[2 if len(inputs) > 2 else 0].transpose(1, 2)
+        o = _mha(_mm(qs, params["Wq"]), _mm(ks, params["Wk"]), _mm(vs, params["Wv"]),
+                 self.n_heads)
+        return _mm(o, params["Wo"]).transpose(1, 2)
+
+    def output_type(self, its):
+        return InputType.recurrent(self.n_out, its[0].timeseries_length)
+
+
+for _cls in (SelfAttentionLayer, LearnedSelfAttentionLayer, RecurrentAttentionLayer):
     LAYER_REGISTRY[_cls.__name__] = _cls
+VERTEX_REGISTRY[AttentionVertex.__name__] = AttentionVertex

@@ -12,9 +12,11 @@ weights, so the JAX weights load as they are.
 Ported layers: Dense, Output, Loss, Activation, Dropout, Convolution,
 Subsampling, BatchNormalization, LSTM, GravesLSTM, LastTimeStep,
 RnnOutputLayer, GlobalPooling, and (``nn.attention_layers``) the two
-self-attention layers. A layer of the JAX package that is not ported yet,
-found in a configuration's JSON, raises ``NotImplementedError`` naming it
-and its ROADMAP.md item; it is never dropped.
+self-attention layers and RecurrentAttentionLayer. A layer of the JAX
+package that is not ported yet, found in a configuration's JSON, raises
+``NotImplementedError`` naming it and its ROADMAP.md item; it is never
+dropped. ``NeuralNetConfiguration.Builder.graph_builder`` gives the
+``nn.graph_conf.GraphBuilder`` of a ComputationGraph.
 
 Dtypes follow the JAX package's promotion: a product of a bf16 and a float32
 operand runs in float32 (:func:`_mm`), as ``jnp`` promotes it.
@@ -1015,9 +1017,9 @@ class NeuralNetConfiguration:
             return ListBuilder(self)
 
         def graph_builder(self):
-            raise NotImplementedError(
-                "graph_builder: ComputationGraph is not ported yet (ROADMAP.md queue 1 "
-                "item 4)")
+            from .graph_conf import GraphBuilder
+
+            return GraphBuilder(self)
 
         graphBuilder = graph_builder
 
@@ -1044,13 +1046,12 @@ LAYER_REGISTRY = {
 def layer_class(name: str):
     """The layer class JSON names: a ported one, or ``NotImplementedError``
     naming the ROADMAP.md item that ports it (``nn.attention_layers``
-    registers its two layers when the package is imported)."""
+    registers its three layers when the package is imported)."""
     if name in LAYER_REGISTRY:
         return LAYER_REGISTRY[name]
-    item = ("queue 1 item 4 (with ComputationGraph)" if name == "RecurrentAttentionLayer"
-            else "queue 1 item 8 (the remaining layers)")
     raise NotImplementedError(
-        f"layer {name!r} is not ported to deeplearning4j_tpu_torch yet (ROADMAP.md {item})")
+        f"layer {name!r} is not ported to deeplearning4j_tpu_torch yet (ROADMAP.md queue 1 "
+        "item 8, the remaining layers)")
 
 
 PREPROCESSOR_REGISTRY = {

@@ -40,13 +40,15 @@ from ..common.precision import amp_enabled, cast_floating, cast_input, compute_d
 from ..data.dataset import DataSet
 from ..data.iterators import ArrayDataSetIterator, DataSetIterator, ListDataSetIterator
 from ..eval.evaluation import Evaluation, RegressionEvaluation
-from .attention_layers import LearnedSelfAttentionLayer, SelfAttentionLayer
+from .attention_layers import (LearnedSelfAttentionLayer, RecurrentAttentionLayer,
+                               SelfAttentionLayer)
 from .conf import (BatchNormalization, GlobalPoolingLayer, LastTimeStep, LSTM,
                    MultiLayerConfiguration)
 from .constraints import apply_constraints
 from .dropout import RngKey
 
-_MASKED_LAYERS = (LastTimeStep, GlobalPoolingLayer, SelfAttentionLayer, LearnedSelfAttentionLayer)
+_MASKED_LAYERS = (LastTimeStep, GlobalPoolingLayer, SelfAttentionLayer, LearnedSelfAttentionLayer,
+                  RecurrentAttentionLayer)
 _WEIGHT_NOISE_SALT = 0x9015E
 
 
@@ -98,25 +100,12 @@ class _BnState(nn.Module):
         self.register_buffer("var", state["var"])
 
 
-class MultiLayerNetwork(nn.Module):
-    def __init__(self, conf: MultiLayerConfiguration, *, device="cuda"):
-        super().__init__()
-        self.device = resolve_device(device)
-        self.conf = conf
-        self.params_ = nn.ModuleDict()
-        self.bn_state = nn.ModuleDict()
-        self.updater_state: Dict[str, Any] = {}
-        self.iteration = 0
-        self.epoch = 0
-        self.listeners: List[Any] = []
-        self.score_ = float("nan")
-        self.last_batch_size = 0
-        self._rnn_state: Dict[str, Any] = {}  # streaming rnnTimeStep state
-        self._input_types = conf.input_types()
-        self._dtype = to_torch(conf.dtype)
+class _LazyScoreMixin:
+    """What MultiLayerNetwork and ComputationGraph share: ``score_`` keeps the
+    loss tensor of the last fit and reads it as a float on first use (so fit()
+    does not wait for the card every batch), inputs are put on the network's
+    device, and the iteration listeners are told of each step."""
 
-    # ``score_`` keeps the loss tensor of the last fit and reads it as a
-    # float on first use, so fit() does not wait for the card every batch
     @property
     def score_(self) -> float:
         v = self.__dict__["_score_v"]
@@ -140,6 +129,42 @@ class MultiLayerNetwork(nn.Module):
         elif t.dtype == torch.float64:
             t = t.float()
         return t.to(self.device)
+
+    def _notify(self):
+        for lst in self.listeners:
+            if hasattr(lst, "iteration_done"):
+                lst.iteration_done(self, self.iteration, self.epoch)
+
+    def add_listeners(self, *listeners):
+        self.listeners.extend(listeners)
+
+    setListeners = add_listeners
+
+    def set_bucketing(self, spec):
+        raise NotImplementedError("set_bucketing: shape bucketing of the fit paths is not "
+                                  "ported yet (ROADMAP.md queue 1 item 8)")
+
+    def set_device_ingest(self, fn):
+        raise NotImplementedError("set_device_ingest: on-device input ingest is not ported "
+                                  "yet (ROADMAP.md queue 1 item 8)")
+
+
+class MultiLayerNetwork(_LazyScoreMixin, nn.Module):
+    def __init__(self, conf: MultiLayerConfiguration, *, device="cuda"):
+        super().__init__()
+        self.device = resolve_device(device)
+        self.conf = conf
+        self.params_ = nn.ModuleDict()
+        self.bn_state = nn.ModuleDict()
+        self.updater_state: Dict[str, Any] = {}
+        self.iteration = 0
+        self.epoch = 0
+        self.listeners: List[Any] = []
+        self.score_ = float("nan")
+        self.last_batch_size = 0
+        self._rnn_state: Dict[str, Any] = {}  # streaming rnnTimeStep state
+        self._input_types = conf.input_types()
+        self._dtype = to_torch(conf.dtype)
 
     # ------------------------------------------------------------------ init
 
@@ -282,11 +307,6 @@ class MultiLayerNetwork(nn.Module):
 
     def _step_rng(self, iteration):
         return RngKey((self.conf.seed ^ 0x5EED, int(iteration)))
-
-    def _notify(self):
-        for lst in self.listeners:
-            if hasattr(lst, "iteration_done"):
-                lst.iteration_done(self, self.iteration, self.epoch)
 
     # ------------------------------------------------------------------- fit
 
@@ -509,11 +529,6 @@ class MultiLayerNetwork(nn.Module):
 
     setParams = set_params
 
-    def add_listeners(self, *listeners):
-        self.listeners.extend(listeners)
-
-    setListeners = add_listeners
-
     def clone(self) -> "MultiLayerNetwork":
         """A network of the same configuration and device with copies of the
         parameters, BN state and updater state."""
@@ -529,14 +544,6 @@ class MultiLayerNetwork(nn.Module):
         return m
 
     # ------------------------------------------------------- not ported yet
-
-    def set_bucketing(self, spec):
-        raise NotImplementedError("set_bucketing: shape bucketing of the fit paths is not "
-                                  "ported yet (ROADMAP.md queue 1 item 8)")
-
-    def set_device_ingest(self, fn):
-        raise NotImplementedError("set_device_ingest: on-device input ingest is not ported "
-                                  "yet (ROADMAP.md queue 1 item 8)")
 
     def export(self, path: str, example_input) -> None:
         raise NotImplementedError("export: compiled-artifact export is not ported yet "

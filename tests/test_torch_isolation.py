@@ -60,7 +60,8 @@ def test_importing_the_port_loads_no_jax():
                    "kernels.autotune", "nn.activations", "nn.weights", "nn.losses",
                    "nn.dropout", "nn.constraints", "nn.conf", "nn.attention_layers",
                    "data.dataset", "data.iterators", "data.datasets", "eval.evaluation",
-                   "nn.multilayer", "models.zoo", "models.text_lstm", "models.weights"):
+                   "nn.multilayer", "models.zoo", "models.text_lstm", "models.weights",
+                   "nn.graph_conf", "nn.graph", "models.resnet", "models.facenet"):
         assert f"deeplearning4j_tpu_torch.{module}" in added
     assert [m for m in added if _forbidden(m)] == []
 
@@ -155,15 +156,19 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
 
 
 def test_networks_default_to_cuda_and_raise_without_a_card():
-    """MultiLayerNetwork and the zoo models place their parameters on
-    ``device``, "cuda" unless the caller asks for the CPU."""
+    """MultiLayerNetwork, ComputationGraph and the zoo models place their
+    parameters on ``device``, "cuda" unless the caller asks for the CPU."""
     _no_card()
-    from deeplearning4j_tpu_torch.models import LeNet, TextGenerationLSTM
-    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.models import (InceptionResNetV1, LeNet, ResNet50,
+                                                 TextGenerationLSTM)
+    from deeplearning4j_tpu_torch.nn import ComputationGraph, MultiLayerNetwork
 
     calls = {"MultiLayerNetwork": lambda: MultiLayerNetwork(LeNet().conf()),
              "LeNet().init()": lambda: LeNet().init(),
-             "TextGenerationLSTM().init()": lambda: TextGenerationLSTM().init()}
+             "TextGenerationLSTM().init()": lambda: TextGenerationLSTM().init(),
+             "ComputationGraph": lambda: ComputationGraph(ResNet50().conf()),
+             "ResNet50().init()": lambda: ResNet50().init(),
+             "InceptionResNetV1().init()": lambda: InceptionResNetV1().init()}
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="cuda"):
             call()

@@ -250,8 +250,10 @@ def test_unported_layer_in_json_raises():
              .layer(JC.OutputLayer(n_out=2)).build())
     with pytest.raises(NotImplementedError, match="EmbeddingLayer.*ROADMAP.md"):
         TC.MultiLayerConfiguration.from_json(jconf.to_json())
-    with pytest.raises(NotImplementedError, match="ComputationGraph"):
-        TC.NeuralNetConfiguration.Builder().graph_builder()
+    # a graph configuration is ported (nn.graph_conf): the builder gives one
+    from deeplearning4j_tpu_torch.nn.graph_conf import GraphBuilder
+
+    assert isinstance(TC.NeuralNetConfiguration.Builder().graph_builder(), GraphBuilder)
 
 
 def test_params_order_and_set_params_match_jax():

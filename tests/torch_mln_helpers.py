@@ -1,5 +1,6 @@
-"""Helpers the MultiLayerNetwork parity tests share (``tests/test_torch_nn_*``,
-``test_torch_multilayer.py``, ``test_torch_text_lstm.py``).
+"""Helpers the MultiLayerNetwork and ComputationGraph parity tests share
+(``tests/test_torch_nn_*``, ``test_torch_multilayer.py``,
+``test_torch_text_lstm.py``, ``test_torch_graph*.py`` and the graph models').
 
 Inputs and weights are numpy arrays from a seed and go into both packages;
 JAX runs on the CPU, as the JAX package's own tests run it. A layer is held
@@ -95,20 +96,37 @@ def port_net(jnet, tconf=None):
                                to_np(jnet.updater_state))
 
 
+def port_graph(jnet, tconf=None):
+    """A CPU port ComputationGraph of ``tconf`` (default: the JAX graph's
+    configuration, through its JSON) with the JAX graph's parameters, BN
+    state and updater state."""
+    from deeplearning4j_tpu_torch.models.weights import cg_params_from_jax
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.graph_conf import ComputationGraphConfiguration
+
+    if tconf is None:
+        tconf = ComputationGraphConfiguration.from_json(jnet.conf.to_json())
+    net = ComputationGraph(tconf, device="cpu").init()
+    to_np = lambda tree: jax.tree.map(np.asarray, tree)  # noqa: E731
+    return cg_params_from_jax(net, to_np(jnet.params_), to_np(jnet.bn_state),
+                              to_np(jnet.updater_state))
+
+
 def params_close(tnet, jnet, before=None, rel=GRAD_REL):
-    """Every parameter of the two networks equal, as an update: within
-    ``rel`` of the norm of (JAX parameter - ``before``), or of the
-    parameter's norm when ``before`` is None."""
+    """Every parameter of the two networks (MultiLayerNetworks or
+    ComputationGraphs) equal, as an update: within ``rel`` of the norm of
+    (JAX parameter - ``before``), or of the parameter's norm when ``before``
+    is None."""
     jp = jax.tree.map(np.asarray, jnet.params_)
-    for si, pd in tnet.params_.items():
-        for k, p in pd.items():
-            want = jp[si][k].astype(np.float64)
-            got = p.detach().numpy().astype(np.float64)
-            if before is not None:
-                want, got = want - before[si][k], got - before[si][k]
-            n = np.linalg.norm(want)
-            e = np.linalg.norm(got - want) / (n if n > 0 else 1.0)
-            assert e <= rel, f"parameter {si}.{k}: error {e:.2e} of the norm"
+    assert sum(len(v) for v in jp.values()) == len(list(tnet._param_entries()))
+    for si, k, p in tnet._param_entries():
+        want = jp[si][k].astype(np.float64)
+        got = p.detach().numpy().astype(np.float64)
+        if before is not None:
+            want, got = want - before[si][k], got - before[si][k]
+        n = np.linalg.norm(want)
+        e = np.linalg.norm(got - want) / (n if n > 0 else 1.0)
+        assert e <= rel, f"parameter {si}.{k}: error {e:.2e} of the norm"
 
 
 def snapshot(jnet):
