@@ -108,7 +108,30 @@ Phases:
    Sgd step against the CPU's dense path (phase 5's limits), bf16 Adam steps
    each launching the flash forward, dkv and dq twice, and the bf16 kernels
    on each vertex's own q/k/v against their plain versions. Phase 2's
-   ``rect_q96_k200`` case holds the kernels at 7c's non-causal rectangle.
+   ``rect_q96_k200`` case holds the kernels at 7c's non-causal rectangle;
+8. serving through ``JsonModelServer`` (every request must answer 200):
+   (a) bench.py's serving configuration, a float32 Dense(64->128, relu) ->
+   Output(8) MLN behind ``batch_limit(16).queue_size(256)``, 16 clients x
+   20 one-row requests: req/s, p50/p99, mean coalesced rows, each answer
+   equal to its row's ``output`` alone; (b) phase 6c's attention MLN in
+   bf16 behind ``batch_limit(8)`` (8 clients x 8 sequences): one flash
+   forward per executed batch, each answer within one bf16 ulp of its
+   sequence's ``output`` alone at the served batch shape; then ResNet-50's
+   float32 ``output()`` (a ComputationGraph) behind ``batch_limit(32)``, 64
+   one-image requests from 8 clients, one [1, 1000] answer per image; (c)
+   phase 4's generator behind a generative server over a
+   ``PagedDecodeSlotPool(slots=4)``: the six prompts from six concurrent
+   clients, in turns with direct ``generate`` on a warm pool (the cost of
+   the queue and HTTP), tokens held to phase 4's, 12 float32 forward
+   launches per admission; then bench.py's serving_pool trace shape (max_new
+   mix 4/8/16/48, diurnal 0.4, a 10x burst over 15% of 6 s) replayed into
+   ``GenerativeInferenceExecutor(slots=8)``, continuous and static: p99,
+   tokens/s, slot occupancy; (d) a ``ServingPool`` of two replica processes
+   of 8c's model (``chip_smoke.py:serving_replica``, one CUDA context each,
+   one kernel build shared through the pool's compile cache): the six
+   prompts through the router (tokens held to phase 4's), ``scale_to(3)``
+   and the third replica's time to ready beside the first two's, and a
+   draining stop after which every replica exited 0.
 
 A line before the last is a JSON object describing each kernel (launch
 counts on the main path, error against the plain version, times and the
@@ -126,10 +149,14 @@ import dataclasses
 import itertools
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -1150,6 +1177,25 @@ def check_near_ties(tag, what, params, cfg, prompts, got, ref) -> int:
     return sum(a == b for a, b in zip(got, ref))
 
 
+GEN_LENGTHS, GEN_MAX_NEW = (20, 100, 130, 200, 300, 64), 16
+
+
+def generator_model(device="cuda"):
+    """Phase 4's generator: a causal model of BERT-base width in float32,
+    random weights from seed 1, and its six ragged prompts (the same in
+    every process that calls this: phases 4, 4b, 8c and 8d's replicas)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.TransformerConfig.bert_base(causal=True, dropout=0.0,
+                                          compute_dtype=torch.float32)
+    params = tfm.init_params(1, cfg, device=device)
+    rs = np.random.RandomState(2)
+    prompts = [rs.randint(0, cfg.vocab_size, n).tolist() for n in GEN_LENGTHS]
+    return params, cfg, prompts
+
+
 def phase_generate(tag, launches):
     """Generation through the dense ``DecodeSlotPool`` (see the module
     docstring). Returns what phase 4b reuses: the model, its config, the
@@ -1159,13 +1205,8 @@ def phase_generate(tag, launches):
     from deeplearning4j_tpu_torch.kernels.attention import flash_forward
     from deeplearning4j_tpu_torch.models import transformer as tfm
 
-    cfg = tfm.TransformerConfig.bert_base(causal=True, dropout=0.0,
-                                          compute_dtype=torch.float32)
-    params = tfm.init_params(1, cfg, device="cuda")
-    rs = np.random.RandomState(2)
-    lengths = (20, 100, 130, 200, 300, 64)
-    prompts = [rs.randint(0, cfg.vocab_size, n).tolist() for n in lengths]
-    max_new = 16
+    params, cfg, prompts = generator_model()
+    lengths, max_new = GEN_LENGTHS, GEN_MAX_NEW
 
     pool = tfm.DecodeSlotPool(params, cfg, slots=4)
     prefill_ms, step_ms, live_per_step = [], [], []
@@ -2462,6 +2503,446 @@ def phase_attention_graph(tag, launches):
 # --------------------------------------------------------------------- main
 
 
+# ------------------------------------------------------------------ phase 8
+
+# Serving through the port's front door: JsonModelServer over the batching
+# and generative executors, the trace replay, and a ServingPool of replica
+# processes. 8a is bench.py's "serving" configuration (bench.py:160): a
+# Dense(64->128, relu) -> Output(8, softmax) MLN, batch_limit 16, queue 256,
+# 16 clients x 20 one-row requests. 8c's replay has bench.py's serving_pool
+# trace shape (bench.py:172-179): max_new mix (4, 8, 16, 48), diurnal
+# amplitude 0.4, a 10x burst over 15% of the run, 48 clients, slots 8.
+SERVE_MLN_FEATURES, SERVE_MLN_CLASSES, SERVE_MLN_HIDDEN = 64, 8, 128
+SERVE_MLN_CLIENTS, SERVE_MLN_REQUESTS = 16, 20          # per client
+SERVE_ATTN_CLIENTS, SERVE_ATTN_REQUESTS = 8, 8          # one sequence each
+SERVE_RESNET_CLIENTS, SERVE_RESNET_REQUESTS, SERVE_RESNET_LIMIT = 8, 8, 32
+SERVE_REPLAY_S, SERVE_REPLAY_SLOTS, SERVE_REPLAY_CLIENTS = 6.0, 8, 48
+SERVE_REPLAY_MIX = (4, 8, 16, 48)
+SERVE_REPLAY_PROMPTS = (3, 5, 9, 14)
+# requests per second at the trough-to-peak mean; the 10x burst lands at
+# the diurnal peak (1.4x), 168 req/s, past what slots=8 decode sustains
+SERVE_REPLAY_BASE_RATE = 12.0
+SERVE_DIRECT_TURNS = 3
+# a float32 network's batched answer against the same rows alone: float32
+# sums in another order (a GEMV for one row, a GEMM for a batch)
+SERVE_F32_ATOL = 1e-5
+
+
+def _pct(values, q):
+    """The q-quantile of ``values`` as the load generator reports it."""
+    vals = sorted(values)
+    return vals[min(len(vals) - 1, int(q * len(vals)))]
+
+
+def _drive_clients(what, port, payloads, clients, headers_fn=None):
+    """Send ``payloads`` from ``clients`` threads, each with its own
+    ``JsonModelClient`` and no retries: every request must answer 200 the
+    first time. Returns (outputs in payload order, per-request ms, wall s)."""
+    from deeplearning4j_tpu_torch.serving import JsonModelClient
+
+    outs, lat, errors = [None] * len(payloads), [0.0] * len(payloads), []
+
+    def worker(first):
+        client = JsonModelClient(port=port, retries=0, timeout=300.0,
+                                 breaker_threshold=10 ** 9)
+        for i in range(first, len(payloads), clients):
+            t0 = time.perf_counter()
+            try:
+                outs[i] = client.predict(payloads[i], request_id=f"smoke-{i}")
+            except RuntimeError as e:
+                errors.append(f"request {i}: {e}")
+            lat[i] = (time.perf_counter() - t0) * 1e3
+
+    threads = [threading.Thread(target=worker, args=(c,)) for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    check(not errors, f"{what}: {len(errors)} of {len(payloads)} requests did not answer 200; "
+                      f"first: {errors[:1]}")
+    return outs, lat, wall
+
+
+def _batches(reg):
+    """(executed batches, rows) from the server's tdl_inference_batch_size."""
+    series = reg.get("tdl_inference_batch_size").snapshot()["series"]
+    return (series[0]["count"], series[0]["sum"]) if series else (0, 0.0)
+
+
+def _latency_line(lat):
+    return (f"p50 {_pct(lat, 0.5):.3f} ms, p99 {_pct(lat, 0.99):.3f} ms, "
+            f"max {max(lat):.3f} ms")
+
+
+def _serve(model, what, warmup, registry, **builder):
+    """A started JsonModelServer over ``model`` (builder calls by name),
+    warm and ready."""
+    from deeplearning4j_tpu_torch.serving import JsonModelServer
+
+    b = JsonModelServer.Builder(model).port(0).registry(registry).warmup_input(warmup)
+    for name, arg in builder.items():
+        b = getattr(b, name)(arg)
+    server = b.build().start()
+    if not server.wait_ready(300.0):
+        server.stop()
+        raise SmokeFailure(f"{what}: the server never became ready")
+    return server
+
+
+def phase_serve_mln(tag):
+    """8a: micro-batching a float32 MLN (bench.py's serving config)."""
+    from deeplearning4j_tpu_torch.monitoring import MetricsRegistry
+    from deeplearning4j_tpu_torch.nn import (DenseLayer, MultiLayerNetwork,
+                                             NeuralNetConfiguration, OutputLayer)
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+
+    F, C = SERVE_MLN_FEATURES, SERVE_MLN_CLASSES
+    conf = (NeuralNetConfiguration.Builder().seed(0).updater(Adam(1e-3)).list()
+            .layer(DenseLayer(n_in=F, n_out=SERVE_MLN_HIDDEN, activation="relu"))
+            .layer(OutputLayer(n_out=C, activation="softmax", loss="mcxent")).build())
+    net = MultiLayerNetwork(conf, device="cuda").init()
+    reg = MetricsRegistry()
+    n = SERVE_MLN_CLIENTS * SERVE_MLN_REQUESTS
+    rows = list(np.random.RandomState(0).randn(n, 1, F).astype(np.float32))
+    server = _serve(net, "8a MLN", np.zeros((1, F), np.float32), reg,
+                    batch_limit=16, queue_size=256)
+    try:
+        outs, lat, wall = _drive_clients("8a MLN", server.port, rows, SERVE_MLN_CLIENTS)
+    finally:
+        server.stop()
+    batches, coalesced = _batches(reg)
+    got = np.asarray(outs, np.float32)
+    ref = np.stack([net.output(r).float().cpu().numpy() for r in rows])
+    check(got.shape == (n, 1, C), f"8a MLN: responses of shape {got.shape}")
+    err = float(np.abs(got - ref).max())
+    print(f"{tag} 8a MLN Dense({F}->{SERVE_MLN_HIDDEN}, relu) -> Output({C}, softmax) float32, "
+          f"batch_limit 16: {n} one-row requests from {SERVE_MLN_CLIENTS} clients, all 200 in "
+          f"{wall:.3f} s = {n / wall:.1f} req/s; latency {_latency_line(lat)}; {batches} "
+          f"batches, mean coalesced rows {coalesced / max(batches, 1):.2f}; max |response - "
+          f"output(row alone)| {err:.2e} (limit {SERVE_F32_ATOL})", flush=True)
+    check(err <= SERVE_F32_ATOL, f"8a MLN: a response differs from its row's output() by {err}")
+
+
+def phase_serve_attention(tag, launches):
+    """8b: micro-batching phase 6c's attention MLN in bf16 (one flash
+    forward per executed batch), then ResNet-50's float32 output() through
+    the ComputationGraph path."""
+    from deeplearning4j_tpu_torch.kernels.attention import flash_forward
+    from deeplearning4j_tpu_torch.models import ResNet50
+    from deeplearning4j_tpu_torch.monitoring import MetricsRegistry
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+
+    conf = _attention_conf(Adam(1e-3))
+    conf.dtype = "bfloat16"
+    net = MultiLayerNetwork(conf, device="cuda").init()
+    reg = MetricsRegistry()
+    n = SERVE_ATTN_CLIENTS * SERVE_ATTN_REQUESTS
+    seqs = list(np.random.RandomState(4).randn(n, 1, ATTN_C, ATTN_T).astype(np.float32))
+    server = _serve(net, "8b attention MLN", np.zeros((1, ATTN_C, ATTN_T), np.float32), reg,
+                    batch_limit=8)
+    try:
+        base, _ = _batches(reg)
+        flash_forward.launches = 0
+        outs, lat, wall = _drive_clients("8b attention MLN", server.port, seqs,
+                                         SERVE_ATTN_CLIENTS)
+        launched = flash_forward.launches
+    finally:
+        server.stop()
+    batches, coalesced = _batches(reg)
+    batches -= base
+    launches.append(launched)
+    check(launched == batches, f"8b attention MLN: {launched} flash forward launches for "
+                               f"{batches} executed batches")
+    pi = server.parallel_inference
+    got = np.asarray(outs, np.float32)
+    ref = np.stack([pi.output(x) for x in seqs])
+    ratio = float((np.abs(got - ref) / (BF16_ULP_REL * np.abs(ref) + BF16_ATOL)).max())
+    alone = np.stack([net.output(x).float().cpu().numpy() for x in seqs])
+    print(f"{tag} 8b attention MLN [1,{ATTN_C},{ATTN_T}] bf16, batch_limit 8: {n} requests from "
+          f"{SERVE_ATTN_CLIENTS} clients, all 200 in {wall:.3f} s = {n / wall:.1f} req/s; "
+          f"latency {_latency_line(lat)}; {batches} batches (mean {coalesced / max(batches, 1):.2f} "
+          f"sequences), {launched} flash forward launches; worst |response - output(sequence "
+          f"alone, at the served batch shape)| {ratio:.3f} of one bf16 ulp; against output() "
+          f"of the sequence unpadded: max {float(np.abs(got - alone).max()):.2e}", flush=True)
+    check(got.shape == (n, 1, 10), f"8b attention MLN: responses of shape {got.shape}")
+    check(ratio <= 1.0, f"8b attention MLN: a response differs from its sequence alone by "
+                        f"{ratio:.3f} of one bf16 ulp")
+    del net, server, pi
+    _free_card()
+
+    model = ResNet50()
+    shape, classes = model.input_shape, model.num_classes
+    net = model.init(device="cuda")
+    reg = MetricsRegistry()
+    n = SERVE_RESNET_CLIENTS * SERVE_RESNET_REQUESTS
+    images = list(_image_batch(n, shape, classes, seed=3)[0][:, None])
+    server = _serve(net, "8b ResNet-50", np.zeros((1, *shape), np.float32), reg,
+                    batch_limit=SERVE_RESNET_LIMIT)
+    try:
+        outs, lat, wall = _drive_clients("8b ResNet-50", server.port, images,
+                                         SERVE_RESNET_CLIENTS)
+    finally:
+        server.stop()
+    batches, coalesced = _batches(reg)
+    pi = server.parallel_inference
+    got = np.asarray(outs, np.float32)
+    check(got.shape == (n, 1, classes), f"8b ResNet-50: responses of shape {got.shape} "
+                                        f"(one [1, {classes}] answer per image expected)")
+    ref = np.stack([pi.output(x) for x in images])
+    err = float(np.abs(got - ref).max())
+    alone = np.stack([net.output(x)[0].float().cpu().numpy() for x in images])
+    print(f"{tag} 8b ResNet-50 [1,{','.join(map(str, shape))}] float32 output(), batch_limit "
+          f"{SERVE_RESNET_LIMIT}: {n} one-image requests from {SERVE_RESNET_CLIENTS} clients, "
+          f"all 200 in {wall:.3f} s = {n / wall:.1f} images/s; latency {_latency_line(lat)}; "
+          f"{batches} batches (mean {coalesced / max(batches, 1):.2f} images); max |response - "
+          f"output(image alone, at the served batch shape)| {err:.2e} (limit {SERVE_F32_ATOL}); "
+          f"against output() of the image unpadded: max {float(np.abs(got - alone).max()):.2e}",
+          flush=True)
+    check(err <= SERVE_F32_ATOL, f"8b ResNet-50: a response differs from its image alone by "
+                                 f"{err}")
+    del net, server, pi
+    _free_card()
+
+
+def _replay_executor(ex, spec, prompt_fn, max_new_fn, clients):
+    """Open-loop replay of ``spec``'s arrivals straight into a generative
+    executor (bench.py's ``_replay_generative_executor``): per-request
+    client latency in ms; every request must complete."""
+    arrivals = spec.arrivals()
+    lat, errors, nxt, lock = [None] * len(arrivals), [], [0], threading.Lock()
+    t0 = time.perf_counter()
+
+    def worker():
+        while True:
+            with lock:
+                i = nxt[0]
+                if i >= len(arrivals):
+                    return
+                nxt[0] = i + 1
+            delay = arrivals[i][0] - (time.perf_counter() - t0)
+            if delay > 0:
+                time.sleep(delay)
+            sent = time.perf_counter()
+            fut = ex.submit(prompt_fn(i), max_new_tokens=max_new_fn(i))
+            if not fut.wait(300.0) or fut.error is not None:
+                errors.append(f"request {i}: {fut.error}")
+            lat[i] = (time.perf_counter() - sent) * 1e3
+
+    threads = [threading.Thread(target=worker) for _ in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    check(not errors, f"replay: {len(errors)} of {len(arrivals)} requests failed: {errors[:1]}")
+    return lat, time.perf_counter() - t0
+
+
+def phase_serve_generate(tag, launches, gen_tokens):
+    """8c: continuous batching at BERT-base width: phase 4's generator and
+    prompts behind JsonModelServer over a PagedDecodeSlotPool(slots=4),
+    six concurrent clients, in turns with direct ``generate`` on a warm
+    pool of the same shape; then the serving_pool trace replayed into the
+    generative executor (slots 8), continuous and static. Returns the model
+    and prompts for 8d."""
+    import torch
+
+    from deeplearning4j_tpu_torch.kernels.attention import flash_forward
+    from deeplearning4j_tpu_torch.models import paged_decode as pd
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+    from deeplearning4j_tpu_torch.monitoring import MetricsRegistry
+    from deeplearning4j_tpu_torch.serving import (GenerativeInferenceExecutor, JsonModelServer,
+                                                  TraceSpec)
+
+    params, cfg, prompts = generator_model()
+    L, max_new = cfg.n_layers, GEN_MAX_NEW
+    # the paged pool captures its decode step as a CUDA graph on its first
+    # step, on the executor's thread (the warm-up): this thread makes no
+    # CUDA call until the server is ready
+    session = pd.PagedDecodeSlotPool(params, cfg, slots=4)
+    server = JsonModelServer(None, generative_session=session, default_max_new_tokens=max_new,
+                             warmup_input=[1, 2, 3], registry=MetricsRegistry()).start()
+    try:
+        check(server.wait_ready(300.0), "8c: the generative server never became ready")
+        direct_pool = pd.PagedDecodeSlotPool(params, cfg, slots=4)
+        tfm.generate(params, prompts, max_new, cfg, pool=direct_pool)  # capture
+        direct_ms, served_ms, lat, served = [], [], [], None
+        for _ in range(SERVE_DIRECT_TURNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            direct = tfm.generate(params, prompts, max_new, cfg, pool=direct_pool)
+            torch.cuda.synchronize()
+            direct_ms.append((time.perf_counter() - t0) * 1e3)
+            check_near_ties(tag, "8c direct generate", params, cfg, prompts, direct, gen_tokens)
+            admitted = server._executor.stats()["admitted"]
+            flash_forward.launches = 0
+            served, turn_lat, wall = _drive_clients("8c generative server", server.port,
+                                                    prompts, len(prompts))
+            n = flash_forward.launches
+            admitted = server._executor.stats()["admitted"] - admitted
+            launches.append(n)
+            check(admitted == len(prompts) and n == L * admitted,
+                  f"8c: {n} float32 flash launches for {admitted} admissions, expected {L} each")
+            served_ms.append(wall * 1e3)
+            lat += turn_lat
+        same = check_near_ties(tag, "8c served", params, cfg, prompts, served, gen_tokens)
+        stats = server._executor.stats()
+    finally:
+        server.stop()
+    tokens = len(prompts) * max_new
+    d_med, s_med = statistics.median(direct_ms), statistics.median(served_ms)
+    print(f"{tag} 8c generative server, BERT-base width fp32, PagedDecodeSlotPool(slots=4), "
+          f"{len(prompts)} concurrent clients x {SERVE_DIRECT_TURNS} turns: all 200, "
+          f"{same}/{len(prompts)} sequences token-identical to phase 4's; per request "
+          f"{_latency_line(lat)}; all {len(prompts)} prompts served in median {s_med:.3f} ms = "
+          f"{tokens / s_med * 1e3:.1f} generated tokens/s; direct generate on a warm pool "
+          f"median {d_med:.3f} ms ({tokens / d_med * 1e3:.1f} tokens/s): queue + HTTP + JSON "
+          f"cost {s_med - d_med:.3f} ms per batch of {len(prompts)} ({(s_med - d_med) / d_med:.1%});"
+          f" mean slot occupancy {stats['mean_slot_occupancy']}", flush=True)
+
+    rs = np.random.RandomState(7)
+    replay_prompts = [rs.randint(1, cfg.vocab_size, n).tolist() for n in SERVE_REPLAY_PROMPTS]
+    dur = SERVE_REPLAY_S
+    spec = TraceSpec(duration_s=dur, base_rate=SERVE_REPLAY_BASE_RATE, seed=0,
+                     diurnal_amplitude=0.4, bursts=((0.5 * dur, 0.15 * dur, 10.0),))
+    offered = len(spec.arrivals())
+    for mode, continuous in (("continuous", True), ("static", False)):
+        pool = pd.PagedDecodeSlotPool(params, cfg, slots=SERVE_REPLAY_SLOTS)
+        ex = GenerativeInferenceExecutor(pool, continuous=continuous, max_queue=1024,
+                                         default_max_new_tokens=max(SERVE_REPLAY_MIX),
+                                         warmup_prompt=np.asarray([1, 2, 3], np.int32),
+                                         registry=MetricsRegistry()).start()
+        try:
+            check(ex.wait_warm(300.0), f"8c replay {mode}: the executor never warmed")
+            flash_forward.launches = 0
+            lat, elapsed = _replay_executor(
+                ex, spec, lambda i: replay_prompts[i % len(replay_prompts)],
+                lambda i: SERVE_REPLAY_MIX[i % len(SERVE_REPLAY_MIX)], SERVE_REPLAY_CLIENTS)
+        finally:
+            ex.stop(drain=True)
+        n, stats = flash_forward.launches, ex.stats()
+        launches.append(n)
+        check(stats["admitted"] == offered and n == L * offered,
+              f"8c replay {mode}: {stats['admitted']} admissions of {offered}, {n} launches")
+        print(f"{tag} 8c replay {mode}, slots {SERVE_REPLAY_SLOTS}: {offered} requests over "
+              f"{dur:.0f} s (base rate {SERVE_REPLAY_BASE_RATE} req/s, diurnal 0.4, 10x burst "
+              f"at {0.5 * dur:.1f}-{0.65 * dur:.1f} s offering up to {spec.peak_rate:.0f} req/s),"
+              f" max_new mix {SERVE_REPLAY_MIX}: all completed in {elapsed:.3f} s ("
+              f"{offered / elapsed:.1f} req/s served); latency {_latency_line(lat)}; "
+              f"{stats['tokens'] / elapsed:.1f} generated tokens/s; mean slot occupancy "
+              f"{stats['mean_slot_occupancy']}; {stats['steps']} decode steps", flush=True)
+        del pool, ex
+    _free_card()
+    return {"params": params, "cfg": cfg, "prompts": prompts}
+
+
+def serving_replica():
+    """``ServingPool`` replica target of phase 8d (``chip_smoke.py:serving_replica``):
+    phase 4's generator built from its seed on the card, behind a generative
+    JsonModelServer over a PagedDecodeSlotPool(slots=4) whose ``/stats``
+    also report this process's flash forward launches and the kernels its
+    build compiled."""
+    from deeplearning4j_tpu_torch import set_fp32_numerics
+    from deeplearning4j_tpu_torch.kernels import _build
+    from deeplearning4j_tpu_torch.kernels.attention import flash_forward
+    from deeplearning4j_tpu_torch.models import paged_decode as pd
+    from deeplearning4j_tpu_torch.serving import JsonModelServer
+
+    class ReportingPool(pd.PagedDecodeSlotPool):
+        def block_stats(self):
+            return {**super().block_stats(), "flash_fwd_launches": flash_forward.launches,
+                    "kernels_built": len(_build.build_info.get("built", ()))}
+
+    set_fp32_numerics()
+    params, cfg, _ = generator_model()
+    return JsonModelServer(None, generative_session=ReportingPool(params, cfg, slots=4),
+                           default_max_new_tokens=GEN_MAX_NEW, warmup_input=[1, 2, 3])
+
+
+def _await_ready(pool, ids, timeout, ready_at):
+    """Poll until every replica in ``ids`` is ready; records the monotonic
+    time each was first seen ready."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        for rid, state in pool.replica_states().items():
+            if state == "ready":
+                ready_at.setdefault(rid, time.monotonic())
+        if all(i in ready_at for i in ids):
+            return True
+        time.sleep(0.05)
+    return False
+
+
+def _replica_logs(pool):
+    for name in sorted(os.listdir(pool._logs_dir)):
+        with open(os.path.join(pool._logs_dir, name)) as f:
+            tail = f.read().splitlines()[-30:]
+        print(f"--- {name}\n" + "\n".join(tail), flush=True)
+
+
+def phase_serving_pool(tag, launches, gen, gen_tokens, target=None):
+    """8d: a ServingPool of two replica processes of 8c's model (each its
+    own CUDA context, sharing one kernel build through the pool's compile
+    cache): the six prompts through the router, then a third replica, then
+    a draining stop."""
+    from deeplearning4j_tpu_torch.monitoring import MetricsRegistry
+    from deeplearning4j_tpu_torch.serving import ServingPool
+
+    target = target or f"{os.path.abspath(__file__)}:serving_replica"
+    workdir = tempfile.mkdtemp(prefix="tdl_smoke_pool_")
+    pool = ServingPool(target, replicas=2, min_replicas=1, max_replicas=3, workdir=workdir,
+                       registry=MetricsRegistry())
+    ready_at, handles = {}, []
+    try:
+        pool.start()
+        if not _await_ready(pool, (0, 1), 300.0, ready_at):
+            _replica_logs(pool)
+            raise SmokeFailure(f"8d: replicas not ready: {pool.replica_states()}")
+        prompts = gen["prompts"]
+        served, lat, wall = _drive_clients("8d pool", pool.port, prompts, len(prompts))
+        same = check_near_ties(tag, "8d pool", gen["params"], gen["cfg"], prompts, served,
+                               gen_tokens)
+        pool.scale_to(3)
+        if not _await_ready(pool, (0, 1, 2), 300.0, ready_at):
+            _replica_logs(pool)
+            raise SmokeFailure(f"8d: the third replica never became ready: "
+                               f"{pool.replica_states()}")
+        stats = pool.replica_stats()
+        with pool._lock:
+            handles = list(pool._replicas.values())
+        spawned = {h.id: h.spawned_at for h in handles}
+    finally:
+        pool.stop(drain=True, timeout=60.0)
+    codes = {h.id: h.proc.returncode for h in handles}
+    check(codes == {0: 0, 1: 0, 2: 0}, f"8d: replica exit codes {codes}, expected 0 each")
+    L = gen["cfg"].n_layers
+    replica_launches = 0
+    for rid in (0, 1, 2):
+        s = stats.get(rid)
+        check(s is not None, f"8d: replica {rid} reported no stats")
+        n, admitted = s["blocks"]["flash_fwd_launches"], s["admitted"]
+        # the warm-up prompt is one admission that stats() does not count
+        check(n == L * (admitted + 1), f"8d: replica {rid}: {n} flash launches for "
+                                       f"{admitted} admissions and the warm-up")
+        replica_launches += n
+    check(stats[2]["blocks"]["kernels_built"] == 0,
+          "8d: the third replica ran nvcc instead of loading the shared build")
+    launches.append(replica_launches)
+    ready_s = {rid: ready_at[rid] - spawned[rid] for rid in (0, 1, 2)}
+    print(f"{tag} 8d ServingPool, 2 replica processes of 8c's model: {len(prompts)} prompts "
+          f"through the router, all 200, {same}/{len(prompts)} token-identical to phase 4's; "
+          f"per request {_latency_line(lat)}; admissions per replica "
+          f"{ {rid: stats[rid]['admitted'] for rid in (0, 1)} }; time to ready: replicas 0 and 1 "
+          f"(cold kernel build, nvcc run {stats[0]['blocks']['kernels_built']} and "
+          f"{stats[1]['blocks']['kernels_built']} sources) {ready_s[0]:.3f} s and "
+          f"{ready_s[1]:.3f} s, replica 2 after scale_to(3) (the shared build, no nvcc) "
+          f"{ready_s[2]:.3f} s; {replica_launches} flash forward launches in the replicas; "
+          f"every replica exited 0 at stop(drain=True)", flush=True)
+    shutil.rmtree(workdir, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -2504,6 +2985,7 @@ def main() -> int:
         print("phase 4 generation: ok", flush=True)
         t4b = time.perf_counter()
         phase_paged_generate(tag, launches["flash_fwd_f32"], gen)
+        gen_tokens = gen["tokens"]
         del gen
         print(f"phase 4b paged generation: ok ({time.perf_counter() - t4b:.1f} s)", flush=True)
         step_ms = phase_train(tag, launches)
@@ -2533,6 +3015,22 @@ def main() -> int:
         t7 = time.perf_counter()
         phase_attention_graph(tag, launches)
         print(f"phase 7c attention graph: ok ({time.perf_counter() - t7:.1f} s)", flush=True)
+        _free_card()
+        t8 = time.perf_counter()
+        phase_serve_mln(tag)
+        print(f"phase 8a MLN micro-batching: ok ({time.perf_counter() - t8:.1f} s)", flush=True)
+        t = time.perf_counter()
+        phase_serve_attention(tag, launches["flash_fwd"])
+        print(f"phase 8b attention MLN and ResNet-50 serving: ok ({time.perf_counter() - t:.1f} s)",
+              flush=True)
+        t = time.perf_counter()
+        served = phase_serve_generate(tag, launches["flash_fwd_f32"], gen_tokens)
+        print(f"phase 8c continuous batching: ok ({time.perf_counter() - t:.1f} s)", flush=True)
+        t = time.perf_counter()
+        phase_serving_pool(tag, launches["flash_fwd_f32"], served, gen_tokens)
+        del served
+        print(f"phase 8d serving pool: ok ({time.perf_counter() - t:.1f} s); phase 8 "
+              f"{time.perf_counter() - t8:.1f} s", flush=True)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1

@@ -27,12 +27,34 @@ the runtime plumbing the next slices need):
 - ``common.environment``, ``common.dtypes``, ``common.precision`` — the
   ``TDL_*`` flags, nd4j's dtypes and promotion, the precision policy;
 - ``models.weights`` — the bridge from the JAX parameter and updater-state
-  pytrees.
+  pytrees;
+- ``nn``, ``data``, ``eval`` and ``models.zoo``/``resnet``/``facenet``/
+  ``text_lstm`` — MultiLayerNetwork and ComputationGraph with their layers,
+  vertices, iterators and zoo models;
+- ``serving`` — ``JsonModelServer`` and ``JsonModelClient`` over the
+  micro-batching and the continuous-batching (generative) executors, the
+  trace-replay ``LoadGenerator``, and ``ServingPool`` with its
+  ``PoolAutoscaler``; ``parallel.inference`` — one-device
+  ``ParallelInference``;
+- ``monitoring`` — the metrics registry (the port's own), spools and their
+  merge, the flight recorder, history ring, fleet timeline, heartbeats and
+  alert rules; ``common.faults`` (``TDL_FAULT_SPEC``) and
+  ``common.compile_cache`` (``TDL_COMPILE_CACHE_DIR``: the shared kernel
+  build).
 
 Entry points that place tensors take ``device`` and default to ``"cuda"``;
 the CPU is used only when asked for (``device="cpu"``).
 """
 
-from .common.device import resolve_device, set_fp32_numerics
-
 __all__ = ["resolve_device", "set_fp32_numerics"]
+
+
+def __getattr__(name):
+    # lazy (PEP 562): a process that imports only the host-side modules (a
+    # serving pool's router, a replica serving a numpy model) does not pay
+    # for importing torch
+    if name in __all__:
+        from .common import device
+
+        return getattr(device, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -7,9 +7,12 @@ a build takes seconds rather than minutes). All sources compile at once, one
 the sources and flags, so an edited source is rebuilt and an unchanged one
 is loaded from the build directory.
 
-The build directory is ``build/kernels/`` beside the package (listed in
-``.gitignore``), or ``$TDL_TORCH_BUILD_DIR``. Nothing is built when a
-module is imported: the first launch builds. A failed build raises.
+The build directory is ``<dir>/kernels`` while the compile cache is enabled
+(``common.compile_cache``, ``TDL_COMPILE_CACHE_DIR``: the replicas of a
+serving pool share one build), else ``$TDL_TORCH_BUILD_DIR``, else
+``build/kernels/`` beside the package (listed in ``.gitignore``). Nothing
+is built when a module is imported: the first launch builds. A failed build
+raises.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ import time
 from pathlib import Path
 from typing import Dict, List
 
+from ..common import compile_cache
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 # -Xptxas -v: ptxas reports each kernel's registers, shared memory and spills
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -36,6 +41,9 @@ build_info: Dict[str, object] = {}
 
 
 def build_dir() -> Path:
+    cached = compile_cache.kernel_build_dir()
+    if cached is not None:
+        return cached
     env = os.environ.get("TDL_TORCH_BUILD_DIR")
     return Path(env) if env else CSRC.parents[1] / "build" / "kernels"
 

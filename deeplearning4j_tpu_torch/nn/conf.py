@@ -32,6 +32,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..common.device import DEFAULT_DEVICE, resolve_device
 from . import activations as act
 from . import losses as loss_fns
 from .dropout import RngKey, apply_dropout
@@ -465,7 +466,8 @@ class BatchNormalization(Layer):
         return {"gamma": torch.ones((n,), dtype=dtype, device=generator.device),
                 "beta": torch.zeros((n,), dtype=dtype, device=generator.device)}
 
-    def init_state(self, it: InputType, dtype=torch.float32, device="cpu"):
+    def init_state(self, it: InputType, dtype=torch.float32, device=DEFAULT_DEVICE):
+        device = resolve_device(device)
         n = self._n(it)
         return {"mean": torch.zeros((n,), dtype=dtype, device=device),
                 "var": torch.ones((n,), dtype=dtype, device=device)}

@@ -61,7 +61,12 @@ def test_importing_the_port_loads_no_jax():
                    "nn.dropout", "nn.constraints", "nn.conf", "nn.attention_layers",
                    "data.dataset", "data.iterators", "data.datasets", "eval.evaluation",
                    "nn.multilayer", "models.zoo", "models.text_lstm", "models.weights",
-                   "nn.graph_conf", "nn.graph", "models.resnet", "models.facenet"):
+                   "nn.graph_conf", "nn.graph", "models.resnet", "models.facenet",
+                   "common.faults", "common.compile_cache", "parallel.inference",
+                   "monitoring.registry", "monitoring.flight", "monitoring.history",
+                   "monitoring.aggregate", "monitoring.timeline", "monitoring.serving",
+                   "monitoring.heartbeat", "monitoring.alerts", "serving.executor",
+                   "serving.json_server", "serving.loadgen", "serving.pool"):
         assert f"deeplearning4j_tpu_torch.{module}" in added
     assert [m for m in added if _forbidden(m)] == []
 
@@ -157,22 +162,28 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
 
 def test_networks_default_to_cuda_and_raise_without_a_card():
     """MultiLayerNetwork, ComputationGraph and the zoo models place their
-    parameters on ``device``, "cuda" unless the caller asks for the CPU."""
+    parameters on ``device``, "cuda" unless the caller asks for the CPU; so
+    does a BatchNormalization layer's running state."""
     _no_card()
     from deeplearning4j_tpu_torch.models import (InceptionResNetV1, LeNet, ResNet50,
                                                  TextGenerationLSTM)
-    from deeplearning4j_tpu_torch.nn import ComputationGraph, MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn import (BatchNormalization, ComputationGraph, InputType,
+                                             MultiLayerNetwork)
 
     calls = {"MultiLayerNetwork": lambda: MultiLayerNetwork(LeNet().conf()),
              "LeNet().init()": lambda: LeNet().init(),
              "TextGenerationLSTM().init()": lambda: TextGenerationLSTM().init(),
              "ComputationGraph": lambda: ComputationGraph(ResNet50().conf()),
              "ResNet50().init()": lambda: ResNet50().init(),
-             "InceptionResNetV1().init()": lambda: InceptionResNetV1().init()}
+             "InceptionResNetV1().init()": lambda: InceptionResNetV1().init(),
+             "BatchNormalization().init_state": lambda: BatchNormalization().init_state(
+                 InputType.feed_forward(4))}
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="cuda"):
             call()
     assert next(LeNet().init(device="cpu").parameters()).device.type == "cpu"
+    state = BatchNormalization().init_state(InputType.feed_forward(4), device="cpu")
+    assert {t.device.type for t in state.values()} == {"cpu"}
 
 
 def test_cpu_training_never_touches_the_build(monkeypatch):
