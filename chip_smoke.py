@@ -131,7 +131,28 @@ Phases:
    one kernel build shared through the pool's compile cache): the six
    prompts through the router (tokens held to phase 4's), ``scale_to(3)``
    and the third replica's time to ready beside the first two's, and a
-   draining stop after which every replica exited 0.
+   draining stop after which every replica exited 0;
+9. checkpoints (``serde.checkpoint``): (a) phase 7a's ResNet-50 state
+   through ``TrainingCheckpointer(async_write=True, durable=True)``: the time
+   ``save()`` blocks (the device->host snapshot, cold and warm) against the
+   pinned ``copy_`` rate of a 256 MiB buffer, the background write, the
+   generation's bytes, deep verify and a restore into a fresh network (state
+   and float32 ``output()`` at batch 8 bit for bit), 10 steps with a save
+   after every fifth against 10 without, in turns; (b) phase 6c's attention
+   MLN with dropout 0.9, 12 batches with the ragged mask: 12 steps
+   uninterrupted here against a worker process (``checkpoint_worker``) that a
+   SIGTERM preempts after step 5 (``PreemptionHandler``) and a second that
+   restores the ``preempt`` generation with the iterator position and fits
+   steps 6-12, float32 (scores, parameters and Adam state bit for bit) and
+   bfloat16 (within one bf16 ulp; whether bitwise is printed), one launch of
+   each flash kernel per step of every worker; (c) a worker killed by
+   ``torn_ckpt@stage=`` at each commit boundary, after which restore comes
+   back with the previous generation (past the COMMIT marker, the new one),
+   and a ``corrupt_ckpt`` bit flip that deep verify names; (d) a
+   ``ServingPool`` of one ``checkpoint_replica``: ``swap_model`` onto (c)'s
+   corrupted lineage refused at preflight, onto (b)'s resumed lineage
+   rolled, answers equal to the resumed network's float32 output at the
+   served batch shape bit for bit, one flash forward per executed batch.
 
 A line before the last is a JSON object describing each kernel (launch
 counts on the main path, error against the plain version, times and the
@@ -2088,11 +2109,16 @@ def phase_char_rnn(tag):
     check(err <= RNN_STEP_ATOL, f"char-RNN: rnn_time_step differs from output() by {err:.2e}")
 
 
-def _attention_conf(updater):
+def _attention_conf(updater, dropout=0.0):
+    """Phase 6c's attention MLN; ``dropout`` (a retain probability) on every
+    layer's input where given (phase 9b)."""
     from deeplearning4j_tpu_torch.nn import conf as C
     from deeplearning4j_tpu_torch.nn.attention_layers import SelfAttentionLayer
 
-    return (C.NeuralNetConfiguration.Builder().seed(21).updater(updater).list()
+    b = C.NeuralNetConfiguration.Builder().seed(21).updater(updater)
+    if dropout:
+        b = b.dropout(dropout)
+    return (b.list()
             .layer(SelfAttentionLayer(n_out=ATTN_C, n_heads=ATTN_HEADS, head_size=64))
             .layer(C.GlobalPoolingLayer(pooling_type="avg"))
             .layer(C.OutputLayer(n_out=10, activation="softmax", loss="mcxent"))
@@ -2298,7 +2324,8 @@ def phase_resnet(tag):
     the CPU's at batch 4 (full width), then bf16 training at batch 256 with
     the zoo's Nesterovs(0.1, 0.9): step time, images/s, peak memory, a
     profile, the share of the bf16 peak, ``output()`` latency, and the step
-    with ``cudnn.benchmark`` off and on in turns."""
+    with ``cudnn.benchmark`` off and on in turns. Returns the trained
+    network and its staged batch (phase 9a)."""
     import torch
 
     from deeplearning4j_tpu_torch.data import DataSet
@@ -2349,8 +2376,7 @@ def phase_resnet(tag):
           "ResNet-50: output() is not finite or has the wrong shape")
     print(f"{tag} ResNet-50 output() [{RESNET_BATCH},{dims}] float32: {spread(out_times)}, "
           f"{RESNET_BATCH / statistics.median(out_times) * 1e3:.1f} images/s", flush=True)
-    del net, ds
-    _free_card()
+    return net, ds  # phase 9a checkpoints this state
 
 
 def _facenet(dev, dropout=True):
@@ -2943,6 +2969,539 @@ def phase_serving_pool(tag, launches, gen, gen_tokens, target=None):
     shutil.rmtree(workdir, ignore_errors=True)
 
 
+# ------------------------------------------------------------------ phase 9
+
+# Checkpoints on the card. 9a: phase 7a's ResNet-50 state; the host link's
+# bound is the pinned device->host copy_ of a buffer this large, beside PCIe
+# Gen5 x16's nominal rate. 9b: phase 6c's attention MLN with dropout on every
+# layer (its key is (seed, iteration): restoring the iteration replays the
+# masks), 12 batches with the ragged mask, preempted after step 5.
+CKPT_LINK_BYTES = 256 << 20
+PCIE5_X16_GBS = 64.0
+CKPT_STEPS, CKPT_PREEMPT_AT, CKPT_DROPOUT = 12, 5, 0.9
+CKPT_TIMED_STEPS, CKPT_SAVE_EVERY = 10, 5
+CKPT_OUTPUT_BATCH = 8
+CKPT_SERVE_CLIENTS, CKPT_SERVE_REQUESTS = 4, 4     # requests per client
+CKPT_WORKER_TIMEOUT = 300.0
+
+
+def _link_gbs():
+    """The pinned device->host ``copy_`` rate of a CKPT_LINK_BYTES buffer
+    (GB/s, median of 5, CUDA events)."""
+    import torch
+
+    src = torch.empty(CKPT_LINK_BYTES, dtype=torch.uint8, device="cuda")
+    dst = torch.empty(CKPT_LINK_BYTES, dtype=torch.uint8, pin_memory=True)
+    ms = time_ms(lambda: dst.copy_(src, non_blocking=True), n=5, warmup=2)
+    return CKPT_LINK_BYTES / (ms / 1e3) / 1e9
+
+
+def _state(net):
+    from deeplearning4j_tpu_torch.serde.net_state import snapshot
+
+    return snapshot(net)
+
+
+def _states_equal(a, b) -> bool:
+    return sorted(a) == sorted(b) and all(
+        a[p].dtype == b[p].dtype and np.array_equal(a[p].view(np.uint8), b[p].view(np.uint8))
+        for p in a)
+
+
+def _generation_bytes(gendir):
+    """(bytes the manifests count, bytes of the shard files)."""
+    names = os.listdir(gendir)
+    counted = sum(json.load(open(os.path.join(gendir, n)))["nbytes"]
+                  for n in names if n.startswith("manifest_"))
+    on_disk = sum(os.path.getsize(os.path.join(gendir, n))
+                  for n in names if n.startswith("shard_"))
+    return counted, on_disk
+
+
+def phase_checkpoint_resnet(tag, net, ds, workdir):
+    """9a: ``TrainingCheckpointer(async_write=True, durable=True).save()`` of
+    phase 7a's ResNet-50 (bf16 compute, Nesterovs, after its timed steps):
+    the time ``save()`` blocks (the device->host snapshot) against the host
+    link, the background write, the generation's bytes; deep verify and a
+    restore into a fresh network, each timed, state and float32 ``output()``
+    at batch 8 bit for bit; 10 steps with a save after every fifth against
+    10 without, in turns."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import ResNet50
+    from deeplearning4j_tpu_torch.serde import TrainingCheckpointer, verify_checkpoint
+
+    card = card_line()
+    link = _link_gbs()
+    root = os.path.join(workdir, "resnet")
+    ck = TrainingCheckpointer(root, async_write=True, durable=True)
+    times = []
+    for _ in range(2):  # the first save also allocates the pinned buffers
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gendir = ck.save(net)
+        t1 = time.perf_counter()
+        ck.wait()
+        times.append((t1 - t0, time.perf_counter() - t1, gendir))
+    state = _state(net)
+    snap_bytes = sum(a.nbytes for a in state.values())
+    counted, on_disk = _generation_bytes(times[-1][2])
+    for i, (block, write, gendir) in enumerate(times):
+        print(f"{tag} 9a ResNet-50 save {i + 1} ({'cold' if i == 0 else 'warm'} pinned buffers), "
+              f"async, durable: save() blocked {block * 1e3:.3f} ms (device->host snapshot of "
+              f"{snap_bytes / 1e6:.3f} MB = {snap_bytes / block / 1e9:.3f} GB/s against the "
+              f"measured pinned copy_ {link:.3f} GB/s and PCIe Gen5 x16's nominal "
+              f"{PCIE5_X16_GBS} GB/s: {snap_bytes / block / 1e9 / link:.3f} of the link); "
+              f"background write until wait() {write * 1e3:.3f} ms; "
+              f"{os.path.basename(gendir)} [{card}]", flush=True)
+    print(f"{tag} 9a ResNet-50 generation: {counted} bytes in the manifest's nbytes "
+          f"({counted / 1e6:.3f} MB), shard file {on_disk} bytes, {len(state)} arrays "
+          f"[{card}]", flush=True)
+    t0 = time.perf_counter()
+    verdict = verify_checkpoint(root, deep=True)
+    verify_s = time.perf_counter() - t0
+    check(verdict["ok"], f"9a: the ResNet-50 checkpoint does not verify: {verdict}")
+    fresh = ResNet50().init(device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    check(TrainingCheckpointer(root).restore(fresh), "9a: restore found no checkpoint")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(_states_equal(_state(fresh), state),
+          "9a: the restored ResNet-50's parameters, Nesterovs state or BN statistics differ")
+    x8 = ds.features[:CKPT_OUTPUT_BATCH]
+    with float32_policy():
+        same = torch.equal(net.output(x8)[0], fresh.output(x8)[0])
+    check(same, "9a: the restored ResNet-50's float32 output() differs from the original's")
+    print(f"{tag} 9a ResNet-50 deep verify {verify_s * 1e3:.3f} ms ({verdict['bytes']} bytes, "
+          f"{verdict['bytes'] / verify_s / 1e9:.3f} GB/s), restore into a fresh network "
+          f"{restore_s * 1e3:.3f} ms; parameters, Nesterovs state and BN statistics equal bit "
+          f"for bit; float32 output() {list(x8.shape)} equal bit for bit [{card}]", flush=True)
+    del fresh
+    _free_card()
+
+    def steps(save):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in range(1, CKPT_TIMED_STEPS + 1):
+            net.fit(ds)
+            if save and k % CKPT_SAVE_EVERY == 0:
+                ck.save(net)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        ck.wait()
+        return dt
+
+    runs = {False: [], True: []}
+    for save in (False, True, True, False, False, True):
+        runs[save].append(steps(save))
+    plain, saving = statistics.median(runs[False]), statistics.median(runs[True])
+    print(f"{tag} 9a ResNet-50 {CKPT_TIMED_STEPS} bf16 steps [{RESNET_BATCH},3,224,224]: "
+          f"{plain:.3f} ms without saves {runs[False]}, {saving:.3f} ms with a save after "
+          f"every {CKPT_SAVE_EVERY}th {runs[True]} (in turns); saving costs "
+          f"{(saving - plain) / plain:.4f} of the step time [{card}]", flush=True)
+
+
+def _preempt_data():
+    """Phase 6c's batch shape and ragged mask, CKPT_STEPS batches from one seed."""
+    from deeplearning4j_tpu_torch.data import DataSet
+
+    rs = np.random.RandomState(8)
+    out = []
+    for _ in range(CKPT_STEPS):
+        lengths = np.concatenate([[ATTN_T], rs.randint(16, ATTN_T + 1, ATTN_B - 1)])
+        fm = (np.arange(ATTN_T)[None] < lengths[:, None]).astype(np.float32)
+        out.append(DataSet(rs.randn(ATTN_B, ATTN_C, ATTN_T).astype(np.float32),
+                           np.eye(10, dtype=np.float32)[rs.randint(0, 10, ATTN_B)],
+                           features_mask=fm))
+    return out
+
+
+def _preempt_net(dtype):
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+
+    conf = _attention_conf(Adam(1e-3), dropout=CKPT_DROPOUT)
+    conf.dtype = dtype
+    return MultiLayerNetwork(conf, device="cuda").init()
+
+
+def _policy(dtype):
+    """float32: the float32 precision policy (no bf16 compute), so the run
+    is held bit for bit in float32; bfloat16: the default policy."""
+    return float32_policy() if dtype == "float32" else contextlib.nullcontext()
+
+
+def checkpoint_worker(spec_json):
+    """Phase 9's worker process (``chip_smoke.py:checkpoint_worker``, run by
+    ``python3 -c``): ``preempt`` fits phase 9b's network under a
+    ``PreemptionHandler`` and waits after step 5 for SIGTERM; ``resume``
+    restores the ``preempt`` generation and fits steps 6-12, then saves the
+    result under ``latest``; ``torn`` restores a lineage, fits one step and
+    saves under a ``torn_ckpt`` fault. Results go to ``spec["out"]``."""
+    from deeplearning4j_tpu_torch import set_fp32_numerics
+    from deeplearning4j_tpu_torch.data import ListDataSetIterator
+    from deeplearning4j_tpu_torch.serde import PreemptionHandler, TrainingCheckpointer
+
+    spec = json.loads(spec_json)
+    set_fp32_numerics()
+    data = _preempt_data()
+    it = ListDataSetIterator(data)
+    net = _preempt_net(spec["dtype"])
+    result = {"scores": []}
+
+    def dump():
+        with open(spec["out"] + ".tmp", "w") as f:
+            json.dump(result, f)
+        os.replace(spec["out"] + ".tmp", spec["out"])
+
+    with _policy(spec["dtype"]):
+        ck = TrainingCheckpointer(spec["root"], async_write=False)
+        if spec["role"] == "preempt":
+            class Park:
+                def iteration_done(self, model, iteration, epoch):
+                    result["scores"].append(model.score_)
+                    if iteration == CKPT_PREEMPT_AT:
+                        result.update(iteration=iteration, epoch=epoch, iterator=it.state(),
+                                      launches=_read_counts())
+                        dump()
+                        while True:  # SIGTERM lands here: the handler saves, then dies
+                            time.sleep(0.05)
+
+            PreemptionHandler(ck, net, it).install()
+            net.add_listeners(Park())
+            _zero_counts()
+            net.fit(it)
+            raise SmokeFailure("the preempted worker finished its epoch")
+        check(ck.restore(net, it, tag=spec["tag"]), f"worker: no {spec['tag']} checkpoint")
+        result.update(iteration=net.iteration, epoch=net.epoch, iterator=it.state())
+        _zero_counts()
+        if spec["role"] == "resume":
+            while it.has_next():
+                net._fit_batch(it.next())
+                result["scores"].append(net.score_)
+            net.epoch += 1
+            result["launches"] = _read_counts()
+            ck.save(net)
+        else:  # torn: one step, then a save killed at spec["stage"]
+            net._fit_batch(it.next())
+            result["launches"] = _read_counts()
+            np.savez(spec["out"] + ".npz", **_state(net))
+            dump()
+            os.environ["TDL_FAULT_SPEC"] = f"torn_ckpt@stage={spec['stage']}"
+            ck.save(net)
+            raise SmokeFailure(f"the save torn at stage {spec['stage']} returned")
+    dump()
+
+
+def _start_worker(workdir, name, **spec):
+    spec["out"] = os.path.join(workdir, f"{name}.json")
+    code = (f"import sys; sys.path.insert(0, {os.path.dirname(os.path.abspath(__file__))!r}); "
+            f"import chip_smoke; chip_smoke.checkpoint_worker({json.dumps(spec)!r})")
+    log = open(os.path.join(workdir, f"{name}.log"), "w")
+    proc = subprocess.Popen([sys.executable, "-c", code], stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    return proc, spec["out"]
+
+
+def _finish_worker(proc, name, workdir, want_rc):
+    try:
+        rc = proc.wait(CKPT_WORKER_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "timeout"
+    if rc != want_rc:
+        with open(os.path.join(workdir, f"{name}.log")) as f:
+            print(f"--- {name}.log\n" + "\n".join(f.read().splitlines()[-30:]), flush=True)
+        raise SmokeFailure(f"9: worker {name} ended with {rc}, expected {want_rc}")
+
+
+def _await_file(path, proc, timeout=CKPT_WORKER_TIMEOUT):
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if proc.poll() is not None or time.monotonic() > deadline:
+            return False
+        time.sleep(0.05)
+    return True
+
+
+def _sum_launches(launches, counts, dtype):
+    suffix = "_f32" if dtype == "float32" else ""
+    for name, n in counts.items():
+        launches[f"{name}{suffix}"].append(n)
+
+
+def phase_preempt_resume(tag, launches, workdir):
+    """9b: phase 6c's attention MLN with dropout, 12 steps uninterrupted in
+    this process against a worker preempted by SIGTERM after step 5 and a
+    second worker that restores the ``preempt`` generation (with the
+    iterator position) and fits steps 6-12; float32 (bit for bit) and
+    bfloat16. Returns {dtype: checkpointer root}."""
+    import signal
+
+    import torch
+
+    from deeplearning4j_tpu_torch.data import ListDataSetIterator
+    from deeplearning4j_tpu_torch.serde import TrainingCheckpointer, lineage_state
+
+    card = card_line()
+    roots, refs, procs = {}, {}, {}
+    for dtype in ("float32", "bfloat16"):
+        roots[dtype] = os.path.join(workdir, f"preempt_{dtype}")
+        procs[dtype] = _start_worker(workdir, f"preempt_{dtype}", role="preempt", dtype=dtype,
+                                     root=roots[dtype])
+    for dtype in ("float32", "bfloat16"):  # the uninterrupted runs, while the workers start
+        with _policy(dtype):
+            net, it, seen = _preempt_net(dtype), ListDataSetIterator(_preempt_data()), {}
+            scores = []
+
+            class Record:
+                def iteration_done(self, model, iteration, epoch):
+                    scores.append(model.score_)
+                    if iteration == CKPT_PREEMPT_AT:
+                        seen.update(iteration=iteration, epoch=epoch, iterator=it.state())
+
+            net.add_listeners(Record())
+            _zero_counts()
+            net.fit(it)
+            counts = _read_counts()
+            _check_attention_counts(f"9b {dtype} uninterrupted", counts, CKPT_STEPS)
+            _sum_launches(launches, counts, dtype)
+            refs[dtype] = (scores, seen, _state(net))
+            del net
+    for dtype, (proc, out) in procs.items():
+        check(_await_file(out, proc), f"9b {dtype}: the worker never reached step "
+                                      f"{CKPT_PREEMPT_AT}")
+        proc.send_signal(signal.SIGTERM)
+        _finish_worker(proc, f"preempt_{dtype}", workdir, -signal.SIGTERM)
+        state = lineage_state(roots[dtype], tag="preempt")
+        check(state["newest_committed"] == f"gen-{CKPT_PREEMPT_AT:08d}",
+              f"9b {dtype}: no committed preempt generation after SIGTERM: {state}")
+        with open(out) as f:
+            first = json.load(f)
+        _check_attention_counts(f"9b {dtype} preempted steps", first["launches"],
+                                CKPT_PREEMPT_AT)
+        _sum_launches(launches, first["launches"], dtype)
+        refs[dtype] += (first,)
+    resumed = {dtype: _start_worker(workdir, f"resume_{dtype}", role="resume", dtype=dtype,
+                                    root=roots[dtype], tag="preempt")
+               for dtype in ("float32", "bfloat16")}
+    for dtype, (proc, out) in resumed.items():
+        _finish_worker(proc, f"resume_{dtype}", workdir, 0)
+        with open(out) as f:
+            second = json.load(f)
+        scores, seen, ref_state, first = refs[dtype]
+        got = first["scores"] + second["scores"]
+        _check_attention_counts(f"9b {dtype} resumed steps", second["launches"],
+                                CKPT_STEPS - CKPT_PREEMPT_AT)
+        _sum_launches(launches, second["launches"], dtype)
+        check({k: first[k] for k in seen} == seen,
+              f"9b {dtype}: at the preemption {first} against the uninterrupted {seen}")
+        check({k: second[k] for k in seen} == {**seen, "iteration": CKPT_PREEMPT_AT},
+              f"9b {dtype}: restored {second} against the uninterrupted run's {seen}")
+        with _policy(dtype):
+            final = _preempt_net(dtype)
+            check(TrainingCheckpointer(roots[dtype]).restore(final),
+                  f"9b {dtype}: the resumed worker left no checkpoint")
+        bitwise = got == scores and _states_equal(_state(final), ref_state)
+        worst = max(abs(a - b) / (BF16_ULP_REL * abs(b) + BF16_ATOL) for a, b in zip(got, scores))
+        print(f"{tag} 9b attention MLN [{ATTN_B},{ATTN_C},{ATTN_T}] {dtype}, dropout "
+              f"{CKPT_DROPOUT}, Adam: preempted by SIGTERM after step {CKPT_PREEMPT_AT} "
+              f"(preempt generation committed, worker died by the signal), resumed in a new "
+              f"process from iteration {second['iteration']}, epoch {second['epoch']}, "
+              f"iterator {second['iterator']}; scores and final parameters + Adam state "
+              f"{'equal bit for bit' if bitwise else 'NOT bitwise'} to the uninterrupted run "
+              f"(worst score {worst:.3f} of one bf16 ulp); launches per resumed step "
+              f"{ {k: v // (CKPT_STEPS - CKPT_PREEMPT_AT) for k, v in second['launches'].items()} } "
+              f"[{card}]", flush=True)
+        if dtype == "float32":
+            check(bitwise, "9b float32: the resumed run is not bitwise equal to the "
+                           "uninterrupted one")
+        else:
+            check(worst <= 1.0, f"9b bfloat16: a resumed score is {worst:.3f} bf16 ulps from "
+                                f"the uninterrupted run's")
+    del refs
+    _free_card()
+    return roots
+
+
+def phase_torn_and_corrupt(tag, launches, workdir, root):
+    """9c: for each commit boundary a worker restores the float32 ``preempt``
+    generation (cloned into a lineage of its own), fits one step and dies at
+    that boundary (``torn_ckpt``); restore then comes back to the previous
+    generation (past the COMMIT marker, to the new one). ``corrupt_ckpt``
+    bit-flips a committed shard, which deep verify names. Returns the
+    corrupted lineage's root."""
+    from deeplearning4j_tpu_torch.common.faults import CKPT_STAGES, CRASH_EXIT_CODE
+    from deeplearning4j_tpu_torch.serde import (TrainingCheckpointer, lineage_state,
+                                                verify_checkpoint)
+    from deeplearning4j_tpu_torch.serde.checkpoint import clone_generation
+
+    card = card_line()
+    src = os.path.join(root, "preempt", f"gen-{CKPT_PREEMPT_AT:08d}")
+    procs = {}
+    for stage in CKPT_STAGES:
+        lineage = os.path.join(workdir, f"torn_{stage}")
+        clone_generation(src, lineage)
+        procs[stage] = (lineage,) + _start_worker(workdir, f"torn_{stage}", role="torn",
+                                                  dtype="float32", root=lineage, tag="latest",
+                                                  stage=stage)
+    with float32_policy():
+        before = _preempt_net("float32")
+        TrainingCheckpointer(root).restore(before, tag="preempt")
+        before = _state(before)
+        lines = []
+        for stage, (lineage, proc, out) in procs.items():
+            _finish_worker(proc, f"torn_{stage}", workdir, CRASH_EXIT_CODE)
+            with open(out) as f:
+                counts = json.load(f)["launches"]
+            _check_attention_counts(f"9c {stage} step", counts, 1)
+            _sum_launches(launches, counts, "float32")
+            after = dict(np.load(out + ".npz"))
+            net = _preempt_net("float32")
+            check(TrainingCheckpointer(lineage).restore(net), f"9c {stage}: nothing restored")
+            want_it, want = ((CKPT_PREEMPT_AT + 1, after) if stage == "pointer"
+                             else (CKPT_PREEMPT_AT, before))
+            state = lineage_state(lineage)
+            check(net.iteration == want_it and _states_equal(_state(net), want),
+                  f"9c {stage}: restored iteration {net.iteration} (want {want_it}) or its "
+                  f"state differs; lineage {state}")
+            lines.append(f"{stage}: iteration {net.iteration}, quarantined "
+                         f"{state['quarantined']}, pointer {state['pointer']}")
+        print(f"{tag} 9c torn saves (each worker exited {CRASH_EXIT_CODE} at its commit "
+              f"boundary), restore on the card with equal state: " + "; ".join(lines)
+              + f" [{card}]", flush=True)
+        corrupt = os.path.join(workdir, "corrupt")
+        net = _preempt_net("float32")
+        TrainingCheckpointer(root).restore(net)
+        os.environ["TDL_FAULT_SPEC"] = "corrupt_ckpt"
+        try:
+            gendir = TrainingCheckpointer(corrupt, async_write=False).save(net)
+        finally:
+            del os.environ["TDL_FAULT_SPEC"]
+        verdict = verify_checkpoint(corrupt, deep=True)
+        check(not verdict["ok"] and verdict["reason"] == "shard_crc"
+              and verdict["generation"] == os.path.basename(gendir),
+              f"9c: deep verify of the bit-flipped generation: {verdict}")
+        print(f"{tag} 9c corrupt_ckpt: deep verify names {verdict['generation']} "
+              f"({verdict['reason']}) in {verdict['seconds'] * 1e3:.3f} ms [{card}]", flush=True)
+    _free_card()
+    return corrupt
+
+
+def checkpoint_replica():
+    """``ServingPool`` replica target of phase 9d
+    (``chip_smoke.py:checkpoint_replica``): phase 9b's float32 network,
+    restored from ``TDL_MODEL_CKPT`` when it is set, behind
+    ``batch_limit(8)``; ``/stats`` reports the process's flash forward
+    launches, the executed batches and the restored iteration."""
+    from deeplearning4j_tpu_torch import set_fp32_numerics
+    from deeplearning4j_tpu_torch.kernels.attention import flash_forward
+    from deeplearning4j_tpu_torch.monitoring import get_registry
+    from deeplearning4j_tpu_torch.serde import TrainingCheckpointer
+    from deeplearning4j_tpu_torch.serving import JsonModelServer
+
+    set_fp32_numerics()
+    net = _preempt_net("float32")
+    ckpt = os.environ.get("TDL_MODEL_CKPT")
+    if ckpt:
+        check(TrainingCheckpointer(ckpt).restore(net), f"no checkpoint in {ckpt}")
+
+    class ReportingServer(JsonModelServer):
+        def start(self):
+            super().start()
+            self._executor.stats = lambda: {"flash_fwd_launches": flash_forward.launches,
+                                            "batches": _batches(self.registry)[0],
+                                            "iteration": net.iteration}
+            return self
+
+    return ReportingServer(net, port=0, batch_limit=8, registry=get_registry(),
+                           warmup_input=np.zeros((1, ATTN_C, ATTN_T), np.float32))
+
+
+def phase_checkpoint_swap(tag, launches, workdir, healthy, corrupt, target=None):
+    """9d: a ServingPool of one ``checkpoint_replica``: ``swap_model`` onto
+    9c's corrupted lineage is refused at preflight with the verifier's
+    reason while the old replica keeps serving; onto 9b's healthy float32
+    lineage it rolls, and every answer equals the resumed network's float32
+    output at the served batch shape bit for bit, with one flash forward per
+    executed batch."""
+    from deeplearning4j_tpu_torch.kernels import _build
+    from deeplearning4j_tpu_torch.monitoring import MetricsRegistry
+    from deeplearning4j_tpu_torch.parallel.inference import ParallelInference
+    from deeplearning4j_tpu_torch.serde import TrainingCheckpointer
+    from deeplearning4j_tpu_torch.serving import ServingPool
+
+    card = card_line()
+    target = target or f"{os.path.abspath(__file__)}:checkpoint_replica"
+    reg = MetricsRegistry()
+    # the replicas load phase 1's kernel build (TDL_COMPILE_CACHE_DIR/kernels)
+    # instead of running nvcc into the pool's own cache
+    pool = ServingPool(target, replicas=1, min_replicas=1, max_replicas=2,
+                       workdir=os.path.join(workdir, "pool"), registry=reg,
+                       extra_env={"TDL_COMPILE_CACHE_DIR": str(_build.build_dir().parent)})
+    n = CKPT_SERVE_CLIENTS * CKPT_SERVE_REQUESTS
+    seqs = list(np.random.RandomState(12).randn(n, 1, ATTN_C, ATTN_T).astype(np.float32))
+    handles = []
+    try:
+        pool.start()
+        if not _await_ready(pool, (0,), 300.0, {}):
+            _replica_logs(pool)
+            raise SmokeFailure(f"9d: the replica never became ready: {pool.replica_states()}")
+        _drive_clients("9d old model", pool.port, seqs[:2], 1)
+        try:
+            pool.swap_model(corrupt)
+            raise SmokeFailure("9d: swap_model accepted the corrupted lineage")
+        except ValueError as e:
+            refused = str(e)
+        check("reason=shard_crc" in refused, f"9d: refused for another reason: {refused}")
+        rejected = reg.get("tdl_pool_swap_rejected_total").value
+        check(rejected == 1 and pool.replica_states() == {0: "ready"},
+              f"9d: after the refusal: rejected {rejected}, replicas {pool.replica_states()}")
+        _drive_clients("9d old model after the refusal", pool.port, seqs[:2], 1)
+        t0 = time.perf_counter()
+        res = pool.swap_model(healthy)
+        swap_s = time.perf_counter() - t0
+        check(res["ok"] and res["swapped"] == 1, f"9d: the healthy swap did not roll: {res}")
+        before = pool.replica_stats()
+        check(len(before) == 1, f"9d: replica stats {before}")
+        (rid, before), = before.items()
+        outs, lat, wall = _drive_clients("9d restored model", pool.port, seqs,
+                                         CKPT_SERVE_CLIENTS)
+        after = pool.replica_stats()[rid]
+        with pool._lock:
+            handles = list(pool._replicas.values())
+    finally:
+        pool.stop(drain=True, timeout=60.0)
+    codes = [h.proc.returncode for h in handles]
+    check(codes == [0], f"9d: replica exit codes {codes}")
+    batches = after["batches"] - before["batches"]
+    launched = after["flash_fwd_launches"] - before["flash_fwd_launches"]
+    launches.append(launched)
+    check(after["iteration"] == CKPT_STEPS and launched == batches,
+          f"9d: the replica serves iteration {after['iteration']}, {launched} flash launches "
+          f"for {batches} batches")
+    net = _preempt_net("float32")
+    TrainingCheckpointer(healthy).restore(net)
+    pi = ParallelInference(net, batch_limit=8)
+    ref = np.stack([pi.output(x) for x in seqs])
+    got = np.asarray(outs, np.float32)
+    check(got.shape == ref.shape, f"9d: responses of shape {got.shape}, expected {ref.shape}")
+    worst = float(np.abs(got - ref).max())
+    print(f"{tag} 9d ServingPool of one checkpoint_replica: swap onto the corrupted lineage "
+          f"refused at preflight ({refused.split(': ', 1)[1][:60]}...), "
+          f"tdl_pool_swap_rejected_total 1, the old replica kept serving; the swap onto the "
+          f"healthy lineage rolled in {swap_s:.3f} s; {n} requests from {CKPT_SERVE_CLIENTS} "
+          f"clients all 200, latency {_latency_line(lat)}; {batches} batches, {launched} flash "
+          f"forward launches; worst |answer - float32 output of the resumed network at the "
+          f"served batch shape| {worst:.2e} (must be 0) [{card}]", flush=True)
+    check(np.array_equal(got, ref), f"9d: an answer differs from the resumed network's "
+                                    f"float32 output by up to {worst:.2e}")
+    del net, pi
+    _free_card()
+
+
 def main() -> int:
     import torch
 
@@ -3007,7 +3566,7 @@ def main() -> int:
         phase_attention_mln(tag, launches)
         print(f"phase 6c attention MLN: ok ({time.perf_counter() - t6:.1f} s)", flush=True)
         t7 = time.perf_counter()
-        phase_resnet(tag)
+        resnet = phase_resnet(tag)
         print(f"phase 7a ResNet-50: ok ({time.perf_counter() - t7:.1f} s)", flush=True)
         t7 = time.perf_counter()
         phase_facenet(tag)
@@ -3031,6 +3590,28 @@ def main() -> int:
         del served
         print(f"phase 8d serving pool: ok ({time.perf_counter() - t:.1f} s); phase 8 "
               f"{time.perf_counter() - t8:.1f} s", flush=True)
+        t9 = time.perf_counter()
+        workdir = tempfile.mkdtemp(prefix="tdl_smoke_ckpt_")
+        try:
+            phase_checkpoint_resnet(tag, *resnet, workdir)
+            del resnet
+            _free_card()
+            print(f"phase 9a ResNet-50 checkpoint: ok ({time.perf_counter() - t9:.1f} s)",
+                  flush=True)
+            t = time.perf_counter()
+            roots = phase_preempt_resume(tag, launches, workdir)
+            print(f"phase 9b preempt and resume: ok ({time.perf_counter() - t:.1f} s)",
+                  flush=True)
+            t = time.perf_counter()
+            corrupt = phase_torn_and_corrupt(tag, launches, workdir, roots["float32"])
+            print(f"phase 9c torn and corrupt generations: ok ({time.perf_counter() - t:.1f} s)",
+                  flush=True)
+            t = time.perf_counter()
+            phase_checkpoint_swap(tag, launches["flash_fwd"], workdir, roots["float32"], corrupt)
+            print(f"phase 9d verified swap: ok ({time.perf_counter() - t:.1f} s); phase 9 "
+                  f"{time.perf_counter() - t9:.1f} s", flush=True)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1

@@ -40,7 +40,11 @@ the runtime plumbing the next slices need):
   merge, the flight recorder, history ring, fleet timeline, heartbeats and
   alert rules; ``common.faults`` (``TDL_FAULT_SPEC``) and
   ``common.compile_cache`` (``TDL_COMPILE_CACHE_DIR``: the shared kernel
-  build).
+  build);
+- ``serde`` — checkpoints in the JAX package's on-disk formats: the
+  ``TrainingCheckpointer`` lineage with ``verify_checkpoint`` and
+  ``PreemptionHandler``, and ``ModelSerializer``'s zip; ``listeners`` and
+  ``nn.earlystopping`` on top of them.
 
 Entry points that place tensors take ``device`` and default to ``"cuda"``;
 the CPU is used only when asked for (``device="cpu"``).

@@ -11,27 +11,53 @@ the machinery a production failure would. The grammar is the JAX package's,
                                  sleep ``value`` seconds inside every
                                  inference batch, but only in processes whose
                                  ``TDL_MODEL_CKPT`` contains ``model``
-    crash@iter=7,rank=1, hang@..., slow_ckpt_io=2.0, torn_ckpt@...,
-    corrupt_ckpt@..., enospc@..., loss_spike@..., corrupt_clone@...
-                                 the training and checkpoint faults
+    slow_ckpt_io=2.0             sleep 2.0 s inside every checkpoint write
+    enospc@iter=4                raise OSError(ENOSPC) at the checkpoint write
+    torn_ckpt@iter=4,stage=shard hard ``os._exit`` inside the checkpoint save at
+                                 one two-phase-commit boundary: stage= shard
+                                 (shard tmp bytes written, pre-rename) |
+                                 manifest (post-shard, pre-manifest) | commit
+                                 (pre-COMMIT marker, the default) | pointer
+                                 (pre-pointer swap)
+    corrupt_ckpt@iter=4          bit-flip one shard of the just-COMMITTED
+                                 generation: latent disk corruption that the
+                                 restore-side CRC check must catch
+    crash@iter=7,rank=1, hang@..., loss_spike@..., corrupt_clone@...
+                                 the training and trial-fleet faults
 
 Every clause parses as in the JAX package, so one spec can be handed to a
-fleet that runs both packages. The port fires only the serving site,
-``infer``, inside ``serving.executor``'s model calls (a failing model call
-is an HTTP 500, a slow one drives the deadline and shedding paths). The
-training and checkpoint sites belong to modules the port does not have yet.
+fleet that runs both packages. The port fires two groups of sites:
+
+- ``infer``, inside ``serving.executor``'s model calls (a failing model
+  call is an HTTP 500, a slow one drives the deadline and shedding paths);
+- the checkpoint sites of ``serde.checkpoint.TrainingCheckpointer.save``:
+  ``ckpt_write`` (``slow_ckpt_io``, ``enospc``), the commit boundaries
+  ``ckpt_shard``, ``ckpt_manifest``, ``ckpt_commit`` and ``ckpt_pointer``
+  (``torn_ckpt``), and ``ckpt_committed`` (``corrupt_ckpt``, given the
+  generation's path).
+
+The training sites (``crash``, ``hang``, ``loss_spike``) and the trial
+fleet's ``corrupt_clone`` wait for the port's distributed trainer (ROADMAP
+item 6).
 
 A clause without ``rank=`` fires on every rank; the rank comes from
 ``TDL_PROCESS_ID`` and the incarnation from ``TDL_GANG_RESTART_COUNT``.
-A serving clause fires in every incarnation unless ``restart=N`` pins it.
+``torn_ckpt``, ``corrupt_ckpt`` and ``enospc`` model one-shot disk events
+and fire only in the first incarnation unless ``every=1`` or
+``restart=N`` says otherwise; a serving clause and ``slow_ckpt_io`` fire in
+every incarnation unless ``restart=N`` pins them.
 """
 
 from __future__ import annotations
 
+import errno
+import logging
 import os
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
+
+log = logging.getLogger(__name__)
 
 ENV_SPEC = "TDL_FAULT_SPEC"
 ENV_INCARNATION = "TDL_GANG_RESTART_COUNT"
@@ -111,8 +137,8 @@ def parse_fault_spec(spec: str) -> List[Fault]:
 
 
 class FaultInjector:
-    """Evaluates fault clauses at the ``infer`` site: ``slow_infer``,
-    ``fail_infer`` and ``latency_inject`` (see the module docstring)."""
+    """Evaluates fault clauses at the port's sites (see the module
+    docstring): ``infer`` and the checkpoint sites ``ckpt_*``."""
 
     def __init__(self, faults: List[Fault], rank: Optional[int] = None,
                  incarnation: Optional[int] = None):
@@ -126,9 +152,31 @@ class FaultInjector:
     def from_env(cls) -> "FaultInjector":
         return cls(parse_fault_spec(os.environ.get(ENV_SPEC, "")))
 
-    def fire(self, site: str) -> None:
-        if site != "infer":
-            return
+    def _matches(self, f: Fault, iteration: Optional[int]) -> bool:
+        if f.rank is not None and f.rank != self.rank:
+            return False
+        if f.iteration is not None and f.iteration != iteration:
+            return False
+        return f.fires_in_incarnation(self.incarnation)
+
+    def _flight_note(self, f: Fault, iteration: Optional[int]) -> None:
+        """Record the injected fault and flush the flight ring: a torn save
+        is ``os._exit``, so this is the victim's last chance to get its
+        final events onto disk for the postmortem."""
+        from ..monitoring import flight
+
+        flight.record("fault_injected", fault=f.kind, iteration=iteration,
+                      rank=self.rank, incarnation=self.incarnation)
+        flight.flush()
+
+    def fire(self, site: str, iteration: Optional[int] = None,
+             path: Optional[str] = None) -> None:
+        if site == "infer":
+            self._fire_infer()
+        elif site.startswith("ckpt_"):
+            self._fire_ckpt(site, iteration, path)
+
+    def _fire_infer(self) -> None:
         self._infer_calls += 1
         for f in self.faults:
             if f.kind not in ("slow_infer", "fail_infer", "latency_inject"):
@@ -155,12 +203,69 @@ class FaultInjector:
                         f"fault injection: fail_infer "
                         f"(inference call {self._infer_calls})")
 
+    def _fire_ckpt(self, site: str, iteration: Optional[int],
+                   path: Optional[str]) -> None:
+        for f in self.faults:
+            if f.kind == "torn_ckpt":
+                # exit at ONE named two-phase-commit boundary: a restorable
+                # checkpoint must survive a death at any of them
+                if site != f"ckpt_{f.params.get('stage', 'commit')}" or \
+                        not self._matches(f, iteration):
+                    continue
+                self._flight_note(f, iteration)
+                log.warning("fault injection: torn_ckpt at %s, iteration %s rank %s "
+                            "(incarnation %s)", site, iteration, self.rank,
+                            self.incarnation)
+                os._exit(CRASH_EXIT_CODE)
+            elif f.kind == "enospc" and site == "ckpt_write":
+                if not self._matches(f, iteration):
+                    continue
+                self._flight_note(f, iteration)
+                raise OSError(errno.ENOSPC, "No space left on device (injected enospc)")
+            elif f.kind == "corrupt_ckpt" and site == "ckpt_committed":
+                if not path or not self._matches(f, iteration):
+                    continue
+                self._flight_note(f, iteration)
+                flipped = _flip_bit_in_shard(path)
+                log.warning("fault injection: corrupt_ckpt bit-flipped %s (iteration %s, "
+                            "incarnation %s)", flipped, iteration, self.incarnation)
+            elif f.kind == "slow_ckpt_io" and site == "ckpt_write":
+                # the straggler fault: rank-filtered, and unlike the one-shot
+                # disk events it fires in EVERY incarnation unless restart=N
+                if f.rank is not None and f.rank != self.rank:
+                    continue
+                if "restart" not in f.params or f.fires_in_incarnation(self.incarnation):
+                    time.sleep(f.value)
+
+
+def _flip_bit_in_shard(gendir: str) -> Optional[str]:
+    """Flip one byte in the middle of the first shard file of a committed
+    generation — latent disk corruption, injected AFTER the commit so the
+    checkpoint looked perfectly healthy when written."""
+    try:
+        shards = sorted(f for f in os.listdir(gendir)
+                        if f.startswith("shard_") and f.endswith(".npz"))
+        if not shards:
+            return None
+        target = os.path.join(gendir, shards[0])
+        size = os.path.getsize(target)
+        with open(target, "r+b") as f:
+            f.seek(size // 2)
+            b = f.read(1)
+            f.seek(size // 2)
+            f.write(bytes([b[0] ^ 0xFF]))
+        return target
+    except OSError:
+        log.exception("corrupt_ckpt injection could not flip a bit in %s", gendir)
+        return None
+
 
 _cached: Optional[FaultInjector] = None
 _cached_key: Optional[tuple] = None
 
 
-def fault_point(site: str) -> None:
+def fault_point(site: str, iteration: Optional[int] = None,
+                path: Optional[str] = None) -> None:
     """Library hook: no-op unless ``TDL_FAULT_SPEC`` is set (one dict lookup
     on the hot path). The injector is rebuilt whenever the env contract
     (spec, rank, incarnation) changes, so in-process tests can flip any of
@@ -174,4 +279,4 @@ def fault_point(site: str) -> None:
     if _cached is None or key != _cached_key:
         _cached = FaultInjector.from_env()
         _cached_key = key
-    _cached.fire(site)
+    _cached.fire(site, iteration, path=path)

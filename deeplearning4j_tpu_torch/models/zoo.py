@@ -5,7 +5,8 @@ Counterpart of ``deeplearning4j_tpu/models/zoo.py`` (DL4J's
 SimpleCNN}``), with the same configurations. ``init`` builds the model's
 network (a ``MultiLayerNetwork``, or the ``ComputationGraph`` that a graph
 model's ``_net_class`` names) on ``device`` (``"cuda"`` unless the caller
-asks for the CPU). Pretrained weights wait for the checkpoint port.
+asks for the CPU). ``init_pretrained`` loads a local ModelSerializer zip
+(either package's), checked against its sha256; nothing is downloaded.
 """
 
 from __future__ import annotations
@@ -40,10 +41,43 @@ class ZooModel:
     def _net_class(self):
         return MultiLayerNetwork
 
+    def pretrained_url(self, dataset: str = "imagenet") -> Optional[str]:
+        return None  # zero-egress build: no download URLs
+
+    def pretrained_checksum(self, dataset: str = "imagenet") -> Optional[str]:
+        """sha256 hex the checkpoint must match (``ZooModel.pretrainedChecksum``
+        analog; the reference uses adler32 over the download)."""
+        return None
+
     def init_pretrained(self, path: Optional[str] = None, dataset: str = "imagenet",
-                        checksum: Optional[str] = None):
-        raise NotImplementedError(
-            "init_pretrained: checkpoints are not ported yet (ROADMAP.md queue 1 item 7)")
+                        checksum: Optional[str] = None, *, device="cuda"):
+        """The network of a LOCAL ModelSerializer zip on ``device``, its
+        sha256 verified when a checksum is given (or published by the model
+        class). The reference's ``initPretrained()`` downloads from
+        ``pretrainedUrl``; this build fetches nothing, so the file must
+        already be on disk."""
+        if path is None:
+            url = self.pretrained_url(dataset)
+            raise ValueError(
+                "no pretrained weights can be downloaded in this environment"
+                + (f" (reference URL would be {url})" if url else "")
+                + "; pass a local checkpoint path (ModelSerializer zip)")
+        want = checksum or self.pretrained_checksum(dataset)
+        if want is not None:
+            import hashlib
+
+            h = hashlib.sha256()
+            with open(path, "rb") as f:
+                for chunk in iter(lambda: f.read(1 << 20), b""):
+                    h.update(chunk)
+            got = h.hexdigest()
+            if got != want.lower():
+                raise ValueError(
+                    f"pretrained checkpoint checksum mismatch for {path}: "
+                    f"sha256 {got} != expected {want} (corrupt or wrong file)")
+        from ..serde.model_serializer import ModelSerializer
+
+        return ModelSerializer.restore(path, device=device)
 
     initPretrained = init_pretrained
 

@@ -21,8 +21,9 @@ place of keys: a step's key is ``(seed ^ 0x5EED, iteration)``, a layer's
 that key folded with its index (:class:`~.dropout.RngKey`).
 
 Not ported yet: ``set_bucketing`` and ``set_device_ingest`` (ROADMAP.md
-queue 1 item 8), ``export`` (item 7), the monitoring trace and watchdog
-hooks (item 8).
+queue 1 item 8), ``export`` (item 9), the monitoring trace and watchdog
+hooks (item 8). Checkpoints of the network are ``serde.checkpoint`` and
+``serde.model_serializer``.
 """
 
 from __future__ import annotations
@@ -547,4 +548,5 @@ class MultiLayerNetwork(_LazyScoreMixin, nn.Module):
 
     def export(self, path: str, example_input) -> None:
         raise NotImplementedError("export: compiled-artifact export is not ported yet "
-                                  "(ROADMAP.md queue 1 item 7)")
+                                  "(ROADMAP.md queue 1 item 9: the kernels become "
+                                  "torch.library custom ops first)")

@@ -43,9 +43,8 @@ windowed p99, burn rate, shed rate — with their ``for_duration`` /
 ``clear_hysteresis`` anti-flap semantics) into ``scale_to`` ACTIONS, with a
 cooldown and an all-clear streak requirement so the pool cannot flap.
 
-Not ported yet: the canary surge (``start_canary``/``stop_canary``, the
-deployment controller's arm) and checkpoint verification before a swap,
-which wait for the port's checkpoints (ROADMAP item 7).
+Not ported yet: the canary surge (``start_canary``/``stop_canary``), the
+deployment controller's arm, which waits for ``deploy/controller.py``.
 """
 
 from __future__ import annotations
@@ -53,7 +52,6 @@ from __future__ import annotations
 import json
 import logging
 import os
-import re
 import signal
 import subprocess
 import sys
@@ -145,54 +143,6 @@ def _replica_main(argv: Sequence[str]) -> None:
     # the final spans must reach the spool the fleet timeline reads — the
     # throttled in-loop flushes may be up to one interval behind
     flight.flush()
-
-
-# ------------------------------------------------- checkpoint path shapes
-
-#: the JAX package's on-disk checkpoint names (``serde/checkpoint.py``)
-_CKPT_STATE_FILE = "train_state.json"
-_CKPT_COMMIT_FILE = "COMMIT"
-_CKPT_POINTER_FILE = "LATEST"
-_CKPT_CORRUPT_SUFFIX = ".corrupt"
-_CKPT_GEN_RE = re.compile(r"^gen-(\d{8,})([a-z]?)$")
-
-
-def _generations(lineage: str) -> List[str]:
-    try:
-        names = os.listdir(lineage)
-    except OSError:
-        return []
-    return [n for n in names if _CKPT_GEN_RE.match(n)
-            and os.path.isdir(os.path.join(lineage, n))]
-
-
-def _has_pointer(lineage: str) -> bool:
-    try:
-        with open(os.path.join(lineage, _CKPT_POINTER_FILE)) as f:
-            return bool(f.read().strip())
-    except OSError:
-        return False
-
-
-def is_checkpoint_path(path: str, tag: str = "latest") -> bool:
-    """Whether the JAX package's ``verify_checkpoint`` would judge ``path``
-    (a quarantined generation, a checkpointer root, a lineage dir, a
-    generation dir, or a legacy flat checkpoint) instead of answering
-    ``no_checkpoint``. The same path tests, without reading any shard."""
-    if _CKPT_CORRUPT_SUFFIX in os.path.basename(os.path.normpath(path)):
-        return True
-    lineage = os.path.join(path, tag)
-    if not os.path.isdir(lineage) and os.path.isdir(path):
-        if _CKPT_GEN_RE.match(os.path.basename(os.path.normpath(path))):
-            return True
-        if (_generations(path)
-                or _has_pointer(path)
-                or os.path.exists(os.path.join(path, _CKPT_STATE_FILE))):
-            lineage = path
-    if any(os.path.exists(os.path.join(lineage, g, _CKPT_COMMIT_FILE))
-           for g in _generations(lineage)):
-        return True
-    return os.path.exists(os.path.join(lineage, _CKPT_STATE_FILE))
 
 
 # ---------------------------------------------------------------- the pool
@@ -416,15 +366,15 @@ class ServingPool:
 
         ``ckpt`` lands in the replicas' env as ``TDL_MODEL_CKPT`` (targets
         read it at build time); ``env`` passes arbitrary extra version env.
-        With ``preflight_verify`` (the default), a ``ckpt`` that is a
-        checkpoint lineage, a generation or a legacy flat checkpoint (the
-        paths the JAX package's ``verify_checkpoint`` judges) raises
-        ``NotImplementedError``: verifying one needs the port's checkpoints
-        (ROADMAP item 7). Any other path (targets may interpret
-        ``TDL_MODEL_CKPT`` however they like — a config file, a zip) passes
-        through to the surge-replica readiness validation, which remains
-        the universal gate, as in the JAX package.
-        ``preflight_verify=False`` skips the check entirely.
+        With ``preflight_verify`` (the default), ``ckpt`` is deep-verified
+        first (``serde.checkpoint.verify_checkpoint``): a checkpoint that
+        fails is REJECTED before any surge replica is spawned
+        (``tdl_pool_swap_rejected_total``, a ``pool_swap_rejected`` flight
+        event with the full verdict, ``ValueError``). A path that is no
+        checkpoint at all (targets may interpret ``TDL_MODEL_CKPT`` however
+        they like — a config file, a zip) passes through to the
+        surge-replica readiness validation, which remains the universal
+        gate. ``preflight_verify=False`` skips the check entirely.
         Surge-style roll, one replica at a time:
 
         1. spawn ONE extra replica on the new version (it loads the shared
@@ -448,12 +398,30 @@ class ServingPool:
             overrides[ENV_MODEL_CKPT] = str(ckpt)
         if not overrides:
             raise ValueError("swap_model needs a checkpoint path or env")
-        if ckpt is not None and preflight_verify and is_checkpoint_path(
-                str(ckpt)):
-            raise NotImplementedError(
-                f"swap_model cannot verify checkpoint {ckpt} before the "
-                "swap: checkpoints are not ported yet (ROADMAP item 7); pass "
-                "preflight_verify=False to roll it unverified")
+        if ckpt is not None and preflight_verify:
+            from ..serde.checkpoint import verify_checkpoint
+
+            report = verify_checkpoint(str(ckpt))
+            # reason "no_checkpoint" = the path is not a recognizable
+            # TrainingCheckpointer lineage at all; such artifacts pass
+            # through to the surge-replica validation
+            if not report["ok"] and report["reason"] != "no_checkpoint":
+                self._m.swap_rejected.inc()
+                # the FULL verdict rides the event and the error: an audit
+                # trail must name why the candidate was refused
+                flight.record("pool_swap_rejected", model=str(ckpt),
+                              reason=report["reason"],
+                              generation=report.get("generation"),
+                              iteration=report.get("iteration"),
+                              format=report.get("format"),
+                              verify_seconds=report.get("seconds"))
+                raise ValueError(
+                    f"swap_model rejected checkpoint {ckpt}: verification "
+                    f"failed (reason={report['reason']}, generation="
+                    f"{report.get('generation')}, iteration="
+                    f"{report.get('iteration')}, format="
+                    f"{report.get('format')}) — no surge replica was "
+                    "spawned, the serving fleet is untouched")
         if not self._swap_lock.acquire(blocking=False):
             raise RuntimeError("a model swap is already in progress")
         t0 = time.perf_counter()

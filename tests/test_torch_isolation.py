@@ -66,7 +66,9 @@ def test_importing_the_port_loads_no_jax():
                    "monitoring.registry", "monitoring.flight", "monitoring.history",
                    "monitoring.aggregate", "monitoring.timeline", "monitoring.serving",
                    "monitoring.heartbeat", "monitoring.alerts", "serving.executor",
-                   "serving.json_server", "serving.loadgen", "serving.pool"):
+                   "serving.json_server", "serving.loadgen", "serving.pool",
+                   "common.durability", "serde.checkpoint", "serde.net_state",
+                   "serde.model_serializer", "listeners.listeners", "nn.earlystopping"):
         assert f"deeplearning4j_tpu_torch.{module}" in added
     assert [m for m in added if _forbidden(m)] == []
 

@@ -288,7 +288,7 @@ def test_latency_inject_targets_one_model_version(monkeypatch):
     t0 = time.perf_counter()
     faults.fault_point("infer")
     assert time.perf_counter() - t0 >= 0.2
-    faults.fault_point("ckpt_write")  # sites the port does not have: no-op
+    faults.fault_point("ckpt_write")  # a site this clause does not name: no-op
 
 
 # ----------------------------------------------------------------- alerts

@@ -279,9 +279,12 @@ def test_clone_is_independent_and_not_ported_calls_raise():
     copy.fit(DataSet(x, y))
     assert torch.equal(copy.params(), tnet.params())
     for call in (lambda: tnet.set_bucketing(True), lambda: tnet.set_device_ingest(None),
-                 lambda: tnet.export("m.zip", x), lambda: LeNet().init_pretrained()):
+                 lambda: tnet.export("m.zip", x)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             call()
+    # init_pretrained is ported: without a local zip it refuses, as in JAX
+    with pytest.raises(ValueError, match="no pretrained weights can be downloaded"):
+        LeNet().init_pretrained()
 
 
 def test_dropout_in_a_network_is_seeded_by_iteration():

@@ -8,9 +8,9 @@ failover + respawn after a SIGKILL, the client's pool-unready retry contract
 (503 treated like 429, distinct retry label, breaker untouched), the
 autoscaler's act-don't-flap state machine, the zero-downtime swap, the
 slow replica-kill + 10x-burst chaos acceptance; and what is the port's own:
-a replica imports neither jax nor the JAX package, a port MultiLayerNetwork
-serves through the router, and a swap onto a checkpoint lineage raises
-until the port has checkpoints (ROADMAP item 7).
+a replica imports neither jax nor the JAX package, and a port
+MultiLayerNetwork serves through the router. The swap's checkpoint
+preflight is in ``tests/test_torch_pool_swap.py``.
 """
 
 import json
@@ -534,73 +534,6 @@ def test_swap_validation_failure_rolls_back(tmp_path):
         assert _counter_values(reg, "tdl_pool_swap_events_total") == {}
     finally:
         pool.stop()
-
-
-def test_swap_onto_a_checkpoint_lineage_waits_for_item_7(tmp_path):
-    """The JAX pool verifies a checkpoint lineage before it spawns a surge
-    replica (serde.checkpoint.verify_checkpoint). The port has no
-    checkpoints yet: a path the JAX verifier would judge raises
-    NotImplementedError naming ROADMAP item 7, before any replica is
-    spawned; a path it answers "no_checkpoint" for (a model-version file,
-    an empty dir) passes through to the surge validation, as in JAX. The
-    port's path test agrees with JAX's verifier on every path shape."""
-    import numpy as np
-
-    from deeplearning4j_tpu.serde.checkpoint import (_array_crc, _gen_name,
-                                                     _self_checksummed,
-                                                     verify_checkpoint)
-    from deeplearning4j_tpu_torch.serving.pool import is_checkpoint_path
-
-    # a hand-rolled COMMITTED generation (the JAX test's fixture)
-    ckroot = tmp_path / "ck"
-    lineage = ckroot / "latest"
-    gen = _gen_name(3)
-    gendir = lineage / gen
-    gendir.mkdir(parents=True)
-    blob = {"__save_id__": np.asarray(3, np.int64),
-            "params/0/W|0": np.arange(64, dtype=np.float32),
-            "params/0/W|0|idx": np.asarray([[0, 64]], np.int64),
-            "params/0/W|0|shape": np.asarray([64], np.int64)}
-    with open(gendir / "shard_0.npz", "wb") as f:
-        np.savez(f, **blob)
-    (gendir / "manifest_0.json").write_text(json.dumps(_self_checksummed({
-        "save_id": 3, "proc": 0, "shard": "shard_0.npz",
-        "process_count": 1, "layout": None,
-        "entries": {k: _array_crc(v) for k, v in blob.items()},
-        "nbytes": 0})))
-    (gendir / "train_state.json").write_text(json.dumps(_self_checksummed(
-        {"iteration": 3, "epoch": 0, "score": None, "process_count": 1,
-         "generation": gen})))
-    (gendir / "COMMIT").write_text("{}")
-    (lineage / "LATEST").write_text(gen + "\n")
-    flat = tmp_path / "flat"
-    flat.mkdir()
-    (flat / "train_state.json").write_text(json.dumps({"iteration": 1}))
-    uncommitted = tmp_path / "uncommitted" / "latest" / _gen_name(5)
-    uncommitted.mkdir(parents=True)
-    empty = tmp_path / "empty"
-    empty.mkdir()
-    quarantined = tmp_path / "gen-00000009.corrupt"
-    quarantined.mkdir()
-    v2, _, _ = _versions(tmp_path)
-    shapes = {"root": ckroot, "lineage": lineage, "generation": gendir,
-              "legacy flat": flat, "quarantined": quarantined,
-              "uncommitted": tmp_path / "uncommitted", "empty": empty,
-              "json file": v2, "missing": tmp_path / "nope"}
-    for name, path in shapes.items():
-        judged = verify_checkpoint(str(path))["reason"] != "no_checkpoint"
-        assert is_checkpoint_path(str(path)) == judged, name
-    assert not is_checkpoint_path(v2) and is_checkpoint_path(str(ckroot))
-
-    reg = MetricsRegistry()
-    pool = _pool(tmp_path, target="swappable_server", replicas=2,
-                 min_replicas=2, registry=reg)  # deliberately NOT started
-    for path in (ckroot, gendir, quarantined):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-            pool.swap_model(str(path))
-    assert pool.replica_states() == {}  # no surge replica was spawned
-    assert _counter_values(reg, "tdl_pool_swap_rejected_total") == {}
-    assert _counter_values(reg, "tdl_pool_swap_rollbacks_total") == {}
 
 
 def test_scale_down_drains_before_signal(tmp_path):

@@ -154,10 +154,17 @@ def isolation_server():
 
 def mln_server():
     """A port MultiLayerNetwork on the CPU, built from its seed: Dense(4->8,
-    tanh) -> Output(3, softmax), seed 7, micro-batched (batch_limit 4)."""
+    tanh) -> Output(3, softmax), seed 7, micro-batched (batch_limit 4); when
+    ``TDL_MODEL_CKPT`` names a checkpointer root, its newest verifiable
+    generation is restored into it (the swap tests' model version)."""
+    from deeplearning4j_tpu_torch.serde import TrainingCheckpointer
     from deeplearning4j_tpu_torch.serving import JsonModelServer
 
-    return (JsonModelServer.Builder(mln_net()).port(0).batch_limit(4)
+    net = mln_net()
+    ckpt = os.environ.get("TDL_MODEL_CKPT")
+    if ckpt and not TrainingCheckpointer(ckpt).restore(net):
+        raise RuntimeError(f"no checkpoint to restore in {ckpt}")
+    return (JsonModelServer.Builder(net).port(0).batch_limit(4)
             .warmup_input(np.zeros((1, 4), np.float32)).build())
 
 
