@@ -152,12 +152,38 @@ Phases:
    ``ServingPool`` of one ``checkpoint_replica``: ``swap_model`` onto (c)'s
    corrupted lineage refused at preflight, onto (b)'s resumed lineage
    rolled, answers equal to the resumed network's float32 output at the
-   served batch shape bit for bit, one flash forward per executed batch.
+   served batch shape bit for bit, one flash forward per executed batch;
+10. export and data-parallel training, the kernels reached through their
+   operators (``tdl::flash_fwd``, ``tdl::flash_bwd_dq``,
+   ``tdl::flash_bwd_dkv``): (a) phase 6c's attention MLN exported at [16,
+   256, 128] in float32 and bf16 (``MultiLayerNetwork.export``, the graph
+   holding ``tdl.flash_fwd``, no launch while tracing), reloaded in a child
+   process that imports only torch, numpy and ``serde.compiled`` (neither
+   the port's ``nn`` nor ``models``): float32 answers equal to eager
+   ``output()`` bit for bit, bf16 within one bf16 ulp (bitwise printed),
+   one flash forward per call at eager's q-tile; the seconds of export,
+   save and load, and the reloaded call against ``output()`` in turns
+   (median of 20); (b) ``parallel.launcher.launch(n_processes=1,
+   backend="nccl")`` fits 6c's MLN with ``MultiProcessTrainer`` (float32
+   Sgd, 6 steps): scores and parameters equal to the same fit in this
+   process bit for bit, one launch of each kernel per step, and the
+   trainer's step against plain ``fit`` in turns (median of 20); (c) two
+   ranks sharing the card over gloo with CUDA tensors, each feeding half of
+   every global batch of 16: 6c's MLN at dropout 0.0 and 0.9 (each rank
+   its rows of the global mask) against the one-process fit on the global
+   batches (loss 1e-5 relative, each update 1e-3 of its norm), one launch
+   of each kernel per step per rank, then Conv -> BatchNormalization ->
+   Dense -> Output, whose running statistics equal the one-process fit's
+   within 1e-5; (d) ``ParameterAveragingTrainingMaster(workers=2,
+   averaging_frequency=2)`` on 6c's MLN, 8 batches, card against CPU
+   (1e-5, 1e-4).
 
 A line before the last is a JSON object describing each kernel (launch
 counts on the main path, error against the plain version, times and the
 card's bound; the forward also by q-tile instantiation, with the launches
-of the autotune search), then the card's name and power limit; the last line is
+of the autotune search; phase 10's launches are in the counts: the forward
+in 10a-d, the backward pair in 10b-d), then the card's name and power
+limit; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero and
 prints no result. The script imports only the port
 (``deeplearning4j_tpu_torch``), never JAX.
@@ -179,6 +205,7 @@ import sys
 import tempfile
 import threading
 import time
+from collections import Counter
 
 import numpy as np
 
@@ -3502,6 +3529,422 @@ def phase_checkpoint_swap(tag, launches, workdir, healthy, corrupt, target=None)
     _free_card()
 
 
+# ----------------------------------------------------------------- phase 10
+
+# Phase 10: phase 6c's attention MLN exported and reloaded, and trained
+# data-parallel: one NCCL rank, two gloo ranks sharing the card, the
+# in-process parameter-averaging master
+DP_STEPS, DP_TIMED, DP_DROPOUT, DP_MASTER_BATCHES = 6, 20, 0.9, 8
+DP_BN_B, DP_BN_SHAPE, DP_BN_STEPS = 16, (3, 16, 16), 4
+DP_BN_REL = 1e-5             # BN running statistics, relative to their norm
+DP_TIMEOUT = 300.0
+EXPORT_TIMED = 20
+
+
+def _dp_batches(kind, steps, seed=10):
+    """Global batches of phase 10's fits: phase 6c's shape and ragged
+    features mask ("attention"), or images for the BN network ("bn")."""
+    from deeplearning4j_tpu_torch.data import DataSet
+
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(steps):
+        if kind == "bn":
+            x = rs.randn(DP_BN_B, *DP_BN_SHAPE).astype(np.float32)
+            out.append(DataSet(x, np.eye(10, dtype=np.float32)[rs.randint(0, 10, DP_BN_B)]))
+            continue
+        lengths = np.concatenate([[ATTN_T], rs.randint(16, ATTN_T + 1, ATTN_B - 1)])
+        fm = (np.arange(ATTN_T)[None] < lengths[:, None]).astype(np.float32)
+        out.append(DataSet(rs.randn(ATTN_B, ATTN_C, ATTN_T).astype(np.float32),
+                           np.eye(10, dtype=np.float32)[rs.randint(0, 10, ATTN_B)],
+                           features_mask=fm))
+    return out
+
+
+def _dp_net(kind, device, dropout=0.0):
+    """Phase 10's networks, float32: 6c's attention MLN with Sgd(0.1) (and
+    dropout, a retain probability, on every layer's input where given), or
+    Conv(8, 3x3, no bias: BN's mean takes it out) -> BatchNormalization ->
+    Dense(32) -> Output(10)."""
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn import conf as C
+    from deeplearning4j_tpu_torch.nn.updaters import Sgd
+
+    if kind == "attention":
+        return MultiLayerNetwork(_attention_conf(Sgd(0.1), dropout=dropout),
+                                 device=device).init()
+    conf = (C.NeuralNetConfiguration.Builder().seed(31).updater(Sgd(0.1)).list()
+            .layer(C.ConvolutionLayer(n_out=8, kernel_size=(3, 3), has_bias=False))
+            .layer(C.BatchNormalization(activation="relu"))
+            .layer(C.DenseLayer(n_out=32, activation="relu"))
+            .layer(C.OutputLayer(n_out=10, activation="softmax", loss="mcxent"))
+            .set_input_type(C.InputType.convolutional(*DP_BN_SHAPE[1:], DP_BN_SHAPE[0]))
+            .build())
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def _rows(ds, rank, world):
+    from deeplearning4j_tpu_torch.data import DataSet
+
+    b = ds.num_examples() // world
+    cut = lambda a: None if a is None else a[rank * b:(rank + 1) * b]  # noqa: E731
+    return DataSet(cut(ds.features), cut(ds.labels), cut(ds.features_mask),
+                   cut(ds.labels_mask))
+
+
+def dp_worker():
+    """Phase 10's data-parallel rank (``chip_smoke.py:dp_worker``, started
+    by ``parallel.launcher.launch``, which has initialised the process
+    group): the fits of ``TDL_SMOKE_DP``'s spec through
+    ``MultiProcessTrainer``, each rank feeding its rows of every global
+    batch, float32; the kernels' launches of every step, and the state
+    (``serde.net_state.snapshot``) at the end. With ``timed``, the trainer's
+    step against a plain ``fit`` of the same batch, in turns."""
+    import torch
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch import set_fp32_numerics
+    from deeplearning4j_tpu_torch.parallel.launcher import local_device
+    from deeplearning4j_tpu_torch.parallel.trainer import MultiProcessTrainer
+
+    spec = json.loads(os.environ["TDL_SMOKE_DP"])
+    set_fp32_numerics()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    device = local_device()
+    result = {"backend": dist.get_backend(), "world": world, "device": str(device), "fits": {}}
+    with float32_policy():
+        for fit in spec["fits"]:
+            net = _dp_net(fit["kind"], device, fit["dropout"])
+            trainer = MultiProcessTrainer(net)
+            scores, launches = [], []
+            for ds in _dp_batches(fit["kind"], fit["steps"]):
+                _zero_counts()
+                trainer.fit([_rows(ds, rank, world)])
+                scores.append(net.score_)
+                launches.append(_read_counts())
+            np.savez(os.path.join(spec["dir"], f"{fit['name']}.rank{rank}.npz"), **_state(net))
+            result["fits"][fit["name"]] = {"scores": scores, "launches": launches}
+        if spec.get("timed"):
+            ds = _rows(_dp_batches("attention", 1)[0], rank, world)
+            trainer = MultiProcessTrainer(_dp_net("attention", device))
+            plain = _dp_net("attention", device)
+            times = {"trainer": [], "plain": []}
+            for i in range(spec["timed"] + 2):
+                for name, step in (("trainer", lambda: trainer.fit([ds])),
+                                   ("plain", lambda: plain.fit(ds))):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    step()
+                    torch.cuda.synchronize()
+                    if i >= 2:  # two warm-up rounds
+                        times[name].append((time.perf_counter() - t0) * 1e3)
+            result["times"] = times
+    with open(os.path.join(spec["dir"], f"result.rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def _launch_dp(tag, workdir, name, n, backend, fits, timed=0):
+    """Run ``dp_worker`` on ``n`` ranks of ``backend``; returns each rank's
+    result."""
+    from deeplearning4j_tpu_torch.parallel import launcher
+
+    d = os.path.join(workdir, name)
+    os.makedirs(d, exist_ok=True)
+    spec = {"dir": d, "fits": fits, "timed": timed}
+    t0 = time.perf_counter()
+    results = launcher.launch(f"{os.path.abspath(__file__)}:dp_worker", n_processes=n,
+                              platform="cuda", backend=backend, timeout=DP_TIMEOUT,
+                              extra_env={"TDL_SMOKE_DP": json.dumps(spec)})
+    for r in results:
+        if r.returncode != 0:
+            print(f"--- {name} rank {r.rank} stderr\n{r.stderr[-3000:]}", flush=True)
+    check(all(r.returncode == 0 for r in results),
+          f"10: {name} ranks ended with {[r.returncode for r in results]}")
+    print(f"{tag} 10 {name}: {n} rank(s) over {backend} ran in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    out = []
+    for rank in range(n):
+        with open(os.path.join(d, f"result.rank{rank}.json")) as f:
+            res = json.load(f)
+        res["states"] = {fit["name"]: dict(np.load(os.path.join(d, f"{fit['name']}.rank{rank}.npz")))
+                         for fit in fits}
+        out.append(res)
+    return out
+
+
+def _in_process_fit(kind, steps, dropout=0.0, device="cuda"):
+    """The one-process float32 fit on the global batches: (scores, state)."""
+    with float32_policy():
+        net = _dp_net(kind, device, dropout)
+        scores = []
+        for ds in _dp_batches(kind, steps):
+            net.fit(ds)
+            scores.append(net.score_)
+    return net, scores
+
+
+def _check_dp_counts(what, per_step):
+    want = {name: 1 for name in _counters()}
+    for i, counts in enumerate(per_step):
+        check(counts == want, f"{what}: step {i} launched {counts}, expected {want}")
+
+
+def phase_export(tag, launches, workdir):
+    """10a: phase 6c's attention MLN exported at [16, 256, 128] in float32
+    and bf16 (``MultiLayerNetwork.export``), the program's graph holding
+    ``tdl.flash_fwd``; a child process that imports only torch, numpy and
+    ``serde.compiled`` reloads each artifact and answers equal to eager
+    ``output()`` (float32 bit for bit, bf16 within one bf16 ulp) with one
+    flash forward per call at eager's q-tile; then the reloaded call timed
+    against eager ``output()`` in turns."""
+    import torch
+
+    from deeplearning4j_tpu_torch.kernels import attention as A
+    from deeplearning4j_tpu_torch.nn.updaters import Sgd
+    from deeplearning4j_tpu_torch.serde.compiled import load_compiled
+
+    x = _dp_batches("attention", 1, seed=12)[0].features
+    arts = {}
+    for dtype in ("float32", "bfloat16"):
+        conf = _attention_conf(Sgd(0.1))
+        conf.dtype = dtype
+        from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+
+        net = MultiLayerNetwork(conf, device="cuda").init()
+        before = Counter(A.flash_forward.launches_by_q_rows)
+        want = net.output(x)
+        torch.cuda.synchronize()
+        eager_tiles = A.flash_forward.launches_by_q_rows - before
+        path = os.path.join(workdir, f"attention_{dtype}.zip")
+        n0 = A.flash_forward.launches
+        secs = net.export(path, x)
+        check(A.flash_forward.launches == n0, f"10a {dtype}: tracing the export launched "
+                                              f"{A.flash_forward.launches - n0} kernels")
+        t0 = time.perf_counter()
+        model = load_compiled(path)
+        secs["load"] = time.perf_counter() - t0
+        calls = [n.target for n in model._program.graph.nodes if n.op == "call_function"]
+        n_flash = sum(str(c).startswith("tdl.flash_fwd") for c in calls)
+        check(n_flash == 1, f"10a {dtype}: the exported graph holds {n_flash} tdl.flash_fwd nodes")
+        np.save(os.path.join(workdir, f"want_{dtype}.npy"),
+                want.float().cpu().numpy() if dtype == "float32"
+                else want.view(torch.int16).cpu().numpy())
+        times = {"reloaded": [], "eager": []}
+        for i in range(EXPORT_TIMED + 2):
+            for name, fn in (("reloaded", lambda: model(x)), ("eager", lambda: net.output(x))):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                if i >= 2:
+                    times[name].append((time.perf_counter() - t0) * 1e3)
+        arts[dtype] = (path, eager_tiles, secs, times, model.metadata)
+        del model, net
+    np.save(os.path.join(workdir, "x.npy"), x)
+    code = (
+        "import json, sys\n"
+        "import numpy as np, torch\n"
+        "torch.backends.cuda.matmul.allow_tf32 = False\n"
+        "from deeplearning4j_tpu_torch.serde.compiled import load_compiled\n"
+        "from deeplearning4j_tpu_torch.kernels import attention as A\n"
+        f"workdir = {workdir!r}\n"
+        "x = np.load(workdir + '/x.npy')\n"
+        "out = {}\n"
+        "for dtype in ('float32', 'bfloat16'):\n"
+        "    m = load_compiled(f'{workdir}/attention_{dtype}.zip')\n"
+        "    n0 = A.flash_forward.launches\n"
+        "    tiles0 = dict(A.flash_forward.launches_by_q_rows)\n"
+        "    got = m(x)\n"
+        "    torch.cuda.synchronize()\n"
+        "    tiles = {f'{k[0]}:{k[1]}': v - tiles0.get(k, 0)\n"
+        "             for k, v in A.flash_forward.launches_by_q_rows.items() if v != tiles0.get(k, 0)}\n"
+        "    if dtype == 'float32':\n"
+        "        np.save(f'{workdir}/got_{dtype}.npy', got.cpu().numpy())\n"
+        "    else:\n"
+        "        np.save(f'{workdir}/got_{dtype}.npy', got.view(torch.int16).cpu().numpy())\n"
+        "    out[dtype] = {'launches': A.flash_forward.launches - n0, 'tiles': tiles,\n"
+        "                  'dtype': str(got.dtype)}\n"
+        "out['modules'] = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib',\n"
+        "    'deeplearning4j_tpu') or k.startswith(('deeplearning4j_tpu_torch.nn',\n"
+        "    'deeplearning4j_tpu_torch.models')))\n"
+        "json.dump(out, open(workdir + '/child.json', 'w'))\n")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-c", code], cwd=workdir, env=env, capture_output=True,
+                       text=True, timeout=DP_TIMEOUT)
+    if p.returncode != 0:
+        print(p.stderr[-3000:], flush=True)
+    check(p.returncode == 0, f"10a: the reloading child ended with {p.returncode}")
+    with open(os.path.join(workdir, "child.json")) as f:
+        child = json.load(f)
+    print(f"{tag} 10a child process (torch, numpy and serde.compiled only) reloaded both "
+          f"artifacts in {time.perf_counter() - t0:.1f} s; model modules loaded: "
+          f"{child['modules']}", flush=True)
+    check(child["modules"] == [], f"10a: the child loaded {child['modules']}")
+    for dtype, (path, eager_tiles, secs, times, meta) in arts.items():
+        c = child[dtype]
+        want_tiles = {f"{k[0]}:{k[1]}": v for k, v in eager_tiles.items()}
+        if dtype == "float32":
+            got = np.load(os.path.join(workdir, "got_float32.npy"))
+            want = np.load(os.path.join(workdir, "want_float32.npy"))
+            bitwise = np.array_equal(got.view(np.uint32), want.view(np.uint32))
+            err = float(np.abs(got - want).max())
+            check(bitwise, f"10a float32: reloaded answers differ from output() by {err:.2e}")
+            launches["flash_fwd_f32"].append(c["launches"] + 1)
+        else:
+            gi = np.load(os.path.join(workdir, "got_bfloat16.npy"))
+            wi = np.load(os.path.join(workdir, "want_bfloat16.npy"))
+            as_f = lambda a: (a.astype(np.int32) << 16).view(np.float32)  # noqa: E731
+            got, want = as_f(gi), as_f(wi)
+            bitwise = np.array_equal(gi, wi)
+            err = float(np.abs(got - want).max())
+            worst = float((np.abs(got - want) / (np.abs(want) * BF16_ULP_REL + 1e-30)).max())
+            check(worst <= 1.0, f"10a bf16: reloaded answers differ from output() by {worst:.2f} "
+                                f"bf16 ulp")
+            launches["flash_fwd"].append(c["launches"] + 1)
+        check(c["launches"] == 1, f"10a {dtype}: the reloaded call launched {c['launches']} "
+                                  f"flash forwards")
+        check(c["tiles"] == want_tiles, f"10a {dtype}: reloaded q-tiles {c['tiles']}, eager "
+                                        f"{want_tiles}")
+        print(f"{tag} 10a export {dtype} [{ATTN_B},{ATTN_C},{ATTN_T}]: export "
+              f"{secs['export']:.2f} s, save {secs['save']:.2f} s, load {secs['load']:.2f} s "
+              f"({os.path.getsize(path)} bytes); reloaded answers vs output(): max abs error "
+              f"{err:.2e}, bitwise {bitwise}; 1 flash forward per call at {c['tiles']} (eager "
+              f"{want_tiles}); q-tile chosen on {meta['device_name']}, compute dtype "
+              f"{meta['compute_dtype']}; median ms (n={EXPORT_TIMED}, in turns): reloaded "
+              f"{statistics.median(times['reloaded']):.3f}, eager output() "
+              f"{statistics.median(times['eager']):.3f}", flush=True)
+
+
+def phase_one_nccl_rank(tag, launches, workdir):
+    """10b: ``launcher.launch(n_processes=1, backend="nccl")`` runs a
+    ``MultiProcessTrainer`` fit of 6c's MLN (float32, Sgd, 6 steps); it
+    equals the same fit in this process bit for bit (scores, parameters)
+    with one launch of each flash kernel per step; then the trainer's step
+    against a plain ``fit``, in turns (the one-rank overhead)."""
+    fits = [{"name": "attention", "kind": "attention", "dropout": 0.0, "steps": DP_STEPS}]
+    (res,) = _launch_dp(tag, workdir, "nccl1", 1, "nccl", fits, timed=DP_TIMED)
+    check(res["backend"] == "nccl", f"10b: the rank ran over {res['backend']}")
+    ref, scores = _in_process_fit("attention", DP_STEPS)
+    got = res["fits"]["attention"]
+    _check_dp_counts("10b NCCL rank", got["launches"])
+    for name in _counters():
+        launches[f"{name}_f32"].append(sum(c[name] for c in got["launches"]))
+    same_scores = [float(a) for a in got["scores"]] == [float(b) for b in scores]
+    same_state = _states_equal(res["states"]["attention"], _state(ref))
+    check(same_scores, f"10b: scores {got['scores']} differ from this process's {scores}")
+    check(same_state, "10b: the NCCL rank's parameters differ from this process's")
+    t = res["times"]
+    tr, pl = statistics.median(t["trainer"]), statistics.median(t["plain"])
+    print(f"{tag} 10b one NCCL rank, MultiProcessTrainer on 6c's MLN [{ATTN_B},{ATTN_C},"
+          f"{ATTN_T}] float32 Sgd, {DP_STEPS} steps: scores and parameters equal to this "
+          f"process's fit bit for bit; 1 launch of each flash kernel per step; step median ms "
+          f"(n={DP_TIMED}, in turns): trainer {tr:.3f}, plain fit {pl:.3f}, one-rank overhead "
+          f"{tr - pl:.3f} ms ({spread(t['trainer'])} vs {spread(t['plain'])})", flush=True)
+
+
+def _dp_errors(state, ref, before):
+    """Each parameter's update in ``state`` against ``ref``'s (a network),
+    as a share of the norm of ``ref``'s update: {name: error}."""
+    errs = {}
+    for i, k, p in ref._param_entries():
+        want = p.detach().double().cpu().numpy() - before[f"{i}.{k}"].numpy()
+        got = state[f"params/{i}/{k}"].astype(np.float64) - before[f"{i}.{k}"].numpy()
+        errs[f"{i}.{k}"] = float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-300))
+    return errs
+
+
+def phase_two_gloo_ranks(tag, launches, workdir):
+    """10c: two ranks sharing the card over gloo with CUDA tensors, each
+    feeding half of every global batch of 16: 6c's MLN at dropout 0.0 and
+    0.9 (the rank's rows of the global mask) against the one-process fit on
+    the global batches (loss within 1e-5 relative, each update within 1e-3
+    of its norm), one launch of each flash kernel per step per rank; then
+    Conv -> BN -> Dense -> Output, whose running mean and variance equal the
+    one-process fit's within 1e-5 relative."""
+    fits = [{"name": "dropout0", "kind": "attention", "dropout": 0.0, "steps": DP_STEPS},
+            {"name": "dropout", "kind": "attention", "dropout": DP_DROPOUT, "steps": DP_STEPS},
+            {"name": "bn", "kind": "bn", "dropout": 0.0, "steps": DP_BN_STEPS}]
+    ranks = _launch_dp(tag, workdir, "gloo2", 2, "gloo", fits)
+    check(all(r["backend"] == "gloo" and r["device"].startswith("cuda") for r in ranks),
+          f"10c: ranks on {[(r['backend'], r['device']) for r in ranks]}")
+    for fit in fits:
+        name = fit["name"]
+        check(_states_equal(ranks[0]["states"][name], ranks[1]["states"][name]),
+              f"10c {name}: the two replicas differ")
+        with float32_policy():
+            before = _snapshot(_dp_net(fit["kind"], "cuda", fit["dropout"]))
+        ref, scores = _in_process_fit(fit["kind"], fit["steps"], fit["dropout"])
+        got = ranks[0]["fits"][name]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got["scores"], scores))
+        errs = _dp_errors(ranks[0]["states"][name], ref, before)
+        worst = max(errs, key=errs.get)
+        line = (f"{tag} 10c two gloo ranks on one card, {name} ({fit['kind']}, dropout "
+                f"{fit['dropout']}, {fit['steps']} steps, each rank half of every global "
+                f"batch) vs the one-process fit: worst loss error {rel:.2e}, largest update "
+                f"error {errs[worst]:.2e} ({worst})")
+        check(rel <= TRAIN_LOSS_REL, f"10c {name}: loss differs by {rel:.2e}")
+        check(errs[worst] <= TRAIN_GRAD_REL, f"10c {name}: update of {worst} differs by "
+                                             f"{errs[worst]:.2e}")
+        if fit["kind"] == "attention":
+            for r in ranks:
+                _check_dp_counts(f"10c {name} rank", r["fits"][name]["launches"])
+                for kname in _counters():
+                    launches[f"{kname}_f32"].append(
+                        sum(c[kname] for c in r["fits"][name]["launches"]))
+            line += "; 1 launch of each flash kernel per step per rank"
+        else:
+            bn_errs = {}
+            for k, st in ref.bn_state.items():
+                for stat in ("mean", "var"):
+                    want = getattr(st, stat).double().cpu().numpy()
+                    got_s = ranks[0]["states"][name][f"bn/{k}/{stat}"].astype(np.float64)
+                    bn_errs[f"{k}.{stat}"] = float(np.linalg.norm(got_s - want)
+                                                   / np.linalg.norm(want))
+            bn_worst = max(bn_errs, key=bn_errs.get)
+            check(bn_errs[bn_worst] <= DP_BN_REL, f"10c bn: running {bn_worst} differs by "
+                                                  f"{bn_errs[bn_worst]:.2e}")
+            line += (f"; BN running statistics vs the one-process fit: largest error "
+                     f"{bn_errs[bn_worst]:.2e} ({bn_worst})")
+        print(line, flush=True)
+
+
+def phase_master(tag, launches):
+    """10d: ``ParameterAveragingTrainingMaster(workers=2,
+    averaging_frequency=2)`` on 6c's MLN on the card, 8 batches, against the
+    same master on the CPU in this process (float32; the MLN limits)."""
+    from deeplearning4j_tpu_torch.data import ListDataSetIterator
+    from deeplearning4j_tpu_torch.parallel import ParameterAveragingTrainingMaster
+
+    data = _dp_batches("attention", DP_MASTER_BATCHES, seed=14)
+    with float32_policy():
+        card, cpu = _dp_net("attention", "cuda"), _dp_net("attention", "cpu")
+        before, cpu_before = _snapshot(card), _snapshot(cpu)
+        _zero_counts()
+        t0 = time.perf_counter()
+        ParameterAveragingTrainingMaster(workers=2, averaging_frequency=2).fit(
+            card, ListDataSetIterator(data))
+        card_s = time.perf_counter() - t0
+        counts = _read_counts()
+        ParameterAveragingTrainingMaster(workers=2, averaging_frequency=2).fit(
+            cpu, ListDataSetIterator(data))
+    rel = abs(card.score_ - cpu.score_) / abs(cpu.score_)
+    errs = _update_errors(card, cpu, before, cpu_before)
+    worst = max(errs, key=errs.get)
+    want = {name: DP_MASTER_BATCHES for name in _counters()}
+    check(counts == want, f"10d: launches {counts}, expected {want}")
+    for name, n in counts.items():
+        launches[f"{name}_f32"].append(n)
+    print(f"{tag} 10d ParameterAveragingTrainingMaster(workers=2, averaging_frequency=2), 6c's "
+          f"MLN float32 Sgd, {DP_MASTER_BATCHES} batches, card vs CPU: score {card.score_:.7f} "
+          f"vs {cpu.score_:.7f} (rel {rel:.2e}), largest update error {errs[worst]:.2e} "
+          f"({worst}); card {card_s:.2f} s; launches {counts}", flush=True)
+    check(rel <= MLN_LOSS_REL, f"10d: score differs from the CPU's by {rel:.2e}")
+    check(errs[worst] <= MLN_UPDATE_REL, f"10d: update of {worst} differs by {errs[worst]:.2e}")
+
+
+
 def main() -> int:
     import torch
 
@@ -3610,6 +4053,24 @@ def main() -> int:
             phase_checkpoint_swap(tag, launches["flash_fwd"], workdir, roots["float32"], corrupt)
             print(f"phase 9d verified swap: ok ({time.perf_counter() - t:.1f} s); phase 9 "
                   f"{time.perf_counter() - t9:.1f} s", flush=True)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        _free_card()
+        t10 = time.perf_counter()
+        workdir = tempfile.mkdtemp(prefix="tdl_smoke_dp_")
+        try:
+            phase_export(tag, launches, workdir)
+            print(f"phase 10a export: ok ({time.perf_counter() - t10:.1f} s)", flush=True)
+            t = time.perf_counter()
+            phase_one_nccl_rank(tag, launches, workdir)
+            print(f"phase 10b one NCCL rank: ok ({time.perf_counter() - t:.1f} s)", flush=True)
+            t = time.perf_counter()
+            phase_two_gloo_ranks(tag, launches, workdir)
+            print(f"phase 10c two gloo ranks: ok ({time.perf_counter() - t:.1f} s)", flush=True)
+            t = time.perf_counter()
+            phase_master(tag, launches)
+            print(f"phase 10d averaging master: ok ({time.perf_counter() - t:.1f} s); phase 10 "
+                  f"{time.perf_counter() - t10:.1f} s", flush=True)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
     except SmokeFailure as e:

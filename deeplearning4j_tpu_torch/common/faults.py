@@ -26,7 +26,7 @@ the machinery a production failure would. The grammar is the JAX package's,
                                  the training and trial-fleet faults
 
 Every clause parses as in the JAX package, so one spec can be handed to a
-fleet that runs both packages. The port fires two groups of sites:
+fleet that runs both packages. The port fires three groups of sites:
 
 - ``infer``, inside ``serving.executor``'s model calls (a failing model
   call is an HTTP 500, a slow one drives the deadline and shedding paths);
@@ -36,13 +36,21 @@ fleet that runs both packages. The port fires two groups of sites:
   (``torn_ckpt``), and ``ckpt_committed`` (``corrupt_ckpt``, given the
   generation's path).
 
-The training sites (``crash``, ``hang``, ``loss_spike``) and the trial
-fleet's ``corrupt_clone`` wait for the port's distributed trainer (ROADMAP
-item 6).
+- ``train_step`` (``iteration=``), fired by ``parallel.trainer``'s
+  ``ParallelTrainer`` before every step: ``crash`` (a hard ``os._exit``
+  with :data:`CRASH_EXIT_CODE`) and ``hang`` (the rank sleeps forever);
+  and ``loss_spike`` through :func:`poison_scale`, which returns the factor
+  the trainer multiplies every parameter by.
+
+The trial fleet's ``corrupt_clone`` waits for the port's trial fleet
+(ROADMAP item 6).
 
 A clause without ``rank=`` fires on every rank; the rank comes from
 ``TDL_PROCESS_ID`` and the incarnation from ``TDL_GANG_RESTART_COUNT``.
-``torn_ckpt``, ``corrupt_ckpt`` and ``enospc`` model one-shot disk events
+``crash``, ``hang`` and ``loss_spike`` fire only in the first incarnation
+unless ``every=1`` or ``restart=N`` says otherwise, so a restarted gang
+replays the faulted iteration cleanly; ``torn_ckpt``, ``corrupt_ckpt`` and
+``enospc`` model one-shot disk events
 and fire only in the first incarnation unless ``every=1`` or
 ``restart=N`` says otherwise; a serving clause and ``slow_ckpt_io`` fire in
 every incarnation unless ``restart=N`` pins them.
@@ -138,7 +146,8 @@ def parse_fault_spec(spec: str) -> List[Fault]:
 
 class FaultInjector:
     """Evaluates fault clauses at the port's sites (see the module
-    docstring): ``infer`` and the checkpoint sites ``ckpt_*``."""
+    docstring): ``infer``, the checkpoint sites ``ckpt_*`` and
+    ``train_step``."""
 
     def __init__(self, faults: List[Fault], rank: Optional[int] = None,
                  incarnation: Optional[int] = None):
@@ -175,6 +184,38 @@ class FaultInjector:
             self._fire_infer()
         elif site.startswith("ckpt_"):
             self._fire_ckpt(site, iteration, path)
+        elif site == "train_step":
+            self._fire_train(iteration)
+
+    def _fire_train(self, iteration: Optional[int]) -> None:
+        for f in self.faults:
+            if f.kind not in ("crash", "hang") or not self._matches(f, iteration):
+                continue
+            self._flight_note(f, iteration)
+            if f.kind == "crash":
+                log.warning("fault injection: crash at iteration %s rank %s (incarnation %s)",
+                            iteration, self.rank, self.incarnation)
+                os._exit(CRASH_EXIT_CODE)  # no cleanup: a segfault or a preemption
+            log.warning("fault injection: hang at iteration %s rank %s (incarnation %s)",
+                        iteration, self.rank, self.incarnation)
+            while True:  # alive but making no progress
+                time.sleep(1.0)
+
+    def poison(self, site: str, iteration: Optional[int] = None) -> Optional[float]:
+        """The ``loss_spike`` factor for this train step, or None. It never
+        raises or exits: the poisoned run keeps training and committing
+        valid checkpoints whose weights are ruined."""
+        if site != "train_step":
+            return None
+        for f in self.faults:
+            if f.kind != "loss_spike" or not self._matches(f, iteration):
+                continue
+            self._flight_note(f, iteration)
+            scale = float(f.params.get("scale", "40"))
+            log.warning("fault injection: loss_spike x%g at iteration %s rank %s "
+                        "(incarnation %s)", scale, iteration, self.rank, self.incarnation)
+            return scale
+        return None
 
     def _fire_infer(self) -> None:
         self._infer_calls += 1
@@ -270,13 +311,28 @@ def fault_point(site: str, iteration: Optional[int] = None,
     on the hot path). The injector is rebuilt whenever the env contract
     (spec, rank, incarnation) changes, so in-process tests can flip any of
     the three between cases."""
+    injector = _injector()
+    if injector is not None:
+        injector.fire(site, iteration, path=path)
+
+
+def poison_scale(site: str = "train_step",
+                 iteration: Optional[int] = None) -> Optional[float]:
+    """Library hook for ``loss_spike`` (the env contract and caching of
+    :func:`fault_point`): the factor to multiply the parameters by at this
+    step, or None."""
+    injector = _injector()
+    return None if injector is None else injector.poison(site, iteration)
+
+
+def _injector() -> Optional[FaultInjector]:
     global _cached, _cached_key
     spec = os.environ.get(ENV_SPEC)
     if not spec:
-        return
+        return None
     key = (spec, os.environ.get(ENV_RANK, "0"),
            os.environ.get(ENV_INCARNATION, "0"))
     if _cached is None or key != _cached_key:
         _cached = FaultInjector.from_env()
         _cached_key = key
-    _cached.fire(site, iteration, path=path)
+    return _cached

@@ -16,9 +16,12 @@ non-negative. There, negative ids collide with the -1/-2 sentinels of its
 pad shim; here they raise ``ValueError``.
 
 ``flash_attention`` runs the CUDA kernels for CUDA tensors and their plain
-PyTorch versions for CPU tensors: the forward ``csrc/flash_fwd.cu``
-(replacing the TPU's ``_flash_kernel``) and, through a
-``torch.autograd.Function``, the two backward kernels of
+PyTorch versions for CPU tensors, each kernel a PyTorch operator
+(``tdl::flash_fwd``, ``tdl::flash_bwd_dq``, ``tdl::flash_bwd_dkv``,
+registered with ``torch.library``: CUDA implementation the kernel, CPU
+implementation the plain version): the forward ``csrc/flash_fwd.cu``
+(replacing the TPU's ``_flash_kernel``) and, through the forward
+operator's autograd formula, the two backward kernels of
 ``csrc/flash_bwd.cu`` (replacing ``_flash_bwd_dq_kernel``, which here also
 computes ``delta = rowsum(dO * out)``, and ``_flash_bwd_dkv_kernel``), all
 with tensor-core products: bfloat16 operands, and for float32 split TF32
@@ -350,9 +353,18 @@ def check_block_q(dtype, block_q: int) -> None:
                          f"has q-tiles of {', '.join(map(str, allowed))} rows")
 
 
+def _require_cuda(name: str, *tensors) -> None:
+    """The public kernel wrappers launch the kernel or raise: a CPU tensor
+    is refused here, before the operator would dispatch it to the plain
+    version."""
+    if not all(t is None or t.is_cuda for t in tensors):
+        raise ValueError(f"{name} needs every tensor on one CUDA device")
+
+
 def flash_forward(q, k, v, qseg, kseg, causal: bool, scale: float,
                   q_offset: int, block_q: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA flash forward kernel (``csrc/flash_fwd.cu``).
+    """Launch the CUDA flash forward kernel (``csrc/flash_fwd.cu``) through
+    the ``tdl::flash_fwd`` operator.
 
     Same arguments and results as :func:`flash_forward_reference`, for CUDA
     tensors only: float32 or bfloat16 q/k/v on one device with a contiguous
@@ -364,6 +376,92 @@ def flash_forward(q, k, v, qseg, kseg, causal: bool, scale: float,
     anything else, and when the launch fails; it never copies.
     ``flash_forward.launches`` counts the launches, and
     ``flash_forward.launches_by_q_rows`` counts them by (dtype name, rows)."""
+    _require_cuda("flash_forward", q, k, v, qseg, kseg)
+    return torch.ops.tdl.flash_fwd(q, k, v, qseg, kseg, bool(causal), float(scale),
+                                   int(q_offset), int(block_q))
+
+
+flash_forward.launches = 0
+flash_forward.launches_by_q_rows = Counter()
+
+
+def _check_row_stats(q, B, H, Tq, **stats):
+    for name, t in stats.items():
+        if (t.dtype != torch.float32 or tuple(t.shape) != (B, H, Tq)
+                or not t.is_contiguous() or t.device != q.device):
+            raise ValueError(f"{name} must be a contiguous float32 [B,H,Tq] tensor on "
+                             f"the inputs' device; got {t.dtype} {tuple(t.shape)}")
+
+
+def flash_backward_dkv(q, k, v, do, lse, delta, qseg, kseg, causal: bool,
+                       scale: float, q_offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA dk/dv kernel (``csrc/flash_bwd.cu``, replacing the
+    TPU's ``_flash_bwd_dkv_kernel``) through the ``tdl::flash_bwd_dkv``
+    operator. Same arguments and results as
+    :func:`flash_backward_dkv_reference`, for CUDA tensors only (checked as
+    in :func:`flash_forward`; ``do`` like q, ``lse``/``delta`` contiguous
+    float32 [B,H,Tq]; every row of q, k, v and ``do`` 16-byte aligned).
+    ``flash_backward_dkv.launches`` counts the launches."""
+    _require_cuda("flash_backward_dkv", q, k, v, do, lse, delta, qseg, kseg)
+    return torch.ops.tdl.flash_bwd_dkv(q, k, v, do, lse, delta, qseg, kseg, bool(causal),
+                                       float(scale), int(q_offset))
+
+
+flash_backward_dkv.launches = 0
+
+
+def flash_backward_dq(q, k, v, out, do, lse, qseg, kseg, causal: bool,
+                      scale: float, q_offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA dq kernel (``csrc/flash_bwd.cu``, replacing the TPU's
+    ``_flash_bwd_dq_kernel``) through the ``tdl::flash_bwd_dq`` operator; it
+    also computes delta = rowsum(dO * O) for the dk/dv kernel. Same
+    arguments and results (dq, delta) as
+    :func:`flash_backward_dq_reference`, for CUDA tensors only (checked as
+    in :func:`flash_backward_dkv`; ``out`` like q). ``flash_backward_dq.
+    launches`` counts the launches."""
+    _require_cuda("flash_backward_dq", q, k, v, out, do, lse, qseg, kseg)
+    return torch.ops.tdl.flash_bwd_dq(q, k, v, out, do, lse, qseg, kseg, bool(causal),
+                                      float(scale), int(q_offset))
+
+
+flash_backward_dq.launches = 0
+
+
+def flash_backward(q, k, v, out, lse, do, qseg, kseg, causal: bool, scale: float,
+                   q_offset: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The flash backward on the card: the dq kernel, which also computes
+    delta, then the dk/dv kernel with that delta, on the current stream.
+    Same arguments and results as :func:`flash_backward_reference`.
+    Neither kernel uses atomics, so the gradients are the same bits from run
+    to run."""
+    rest = (qseg, kseg, causal, scale, q_offset)
+    dq, delta = flash_backward_dq(q, k, v, out, do, lse, *rest)
+    return (dq, *flash_backward_dkv(q, k, v, do, lse, delta, *rest))
+
+
+# ------------------------------------------------------------- the operators
+#
+# The three kernels are PyTorch operators, so that ``torch.export`` traces a
+# call as one graph node (``tdl.flash_fwd``) and a reloaded program finds
+# the kernel by name. Each operator's CUDA implementation checks its inputs,
+# launches the kernel on the current stream and counts the launch; its CPU
+# implementation is the plain version. The fake implementations give the
+# outputs' shapes, dtypes and contiguous strides and touch no data: a traced
+# call is not a launch.
+
+_FWD_SCHEMA = ("(Tensor q, Tensor k, Tensor v, Tensor? qseg, Tensor? kseg, bool causal, "
+               "float scale, int q_offset, int block_q) -> (Tensor, Tensor)")
+_DKV_SCHEMA = ("(Tensor q, Tensor k, Tensor v, Tensor do, Tensor lse, Tensor delta, "
+               "Tensor? qseg, Tensor? kseg, bool causal, float scale, int q_offset) "
+               "-> (Tensor, Tensor)")
+_DQ_SCHEMA = ("(Tensor q, Tensor k, Tensor v, Tensor out, Tensor do, Tensor lse, "
+              "Tensor? qseg, Tensor? kseg, bool causal, float scale, int q_offset) "
+              "-> (Tensor, Tensor)")
+
+
+@torch.library.custom_op("tdl::flash_fwd", mutates_args=(), device_types="cuda",
+                         schema=_FWD_SCHEMA)
+def _flash_fwd_op(q, k, v, qseg, kseg, causal, scale, q_offset, block_q):
     B, H, Tq, Tk, D = _check_kernel_inputs("flash_forward", q, k, v, qseg, kseg)
     _check_rows_aligned("flash_forward", q=q, k=k, v=v)
     dt = autotune.dtype_name(q.dtype)
@@ -383,26 +481,21 @@ def flash_forward(q, k, v, qseg, kseg, causal: bool, scale: float,
     return out, lse
 
 
-flash_forward.launches = 0
-flash_forward.launches_by_q_rows = Counter()
+@_flash_fwd_op.register_kernel("cpu")
+def _(q, k, v, qseg, kseg, causal, scale, q_offset, block_q):
+    out, lse = flash_forward_reference(q, k, v, qseg, kseg, causal, scale, q_offset)
+    return out, lse.contiguous()
 
 
-def _check_row_stats(q, B, H, Tq, **stats):
-    for name, t in stats.items():
-        if (t.dtype != torch.float32 or tuple(t.shape) != (B, H, Tq)
-                or not t.is_contiguous() or t.device != q.device):
-            raise ValueError(f"{name} must be a contiguous float32 [B,H,Tq] tensor on "
-                             f"the inputs' device; got {t.dtype} {tuple(t.shape)}")
+@_flash_fwd_op.register_fake
+def _(q, k, v, qseg, kseg, causal, scale, q_offset, block_q):
+    B, H, Tq, D = q.shape
+    return q.new_empty((B, H, Tq, D)), q.new_empty((B, H, Tq), dtype=torch.float32)
 
 
-def flash_backward_dkv(q, k, v, do, lse, delta, qseg, kseg, causal: bool,
-                       scale: float, q_offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA dk/dv kernel (``csrc/flash_bwd.cu``, replacing the
-    TPU's ``_flash_bwd_dkv_kernel``). Same arguments and results as
-    :func:`flash_backward_dkv_reference`, for CUDA tensors only (checked as
-    in :func:`flash_forward`; ``do`` like q, ``lse``/``delta`` contiguous
-    float32 [B,H,Tq]; every row of q, k, v and ``do`` 16-byte aligned).
-    ``flash_backward_dkv.launches`` counts the launches."""
+@torch.library.custom_op("tdl::flash_bwd_dkv", mutates_args=(), device_types="cuda",
+                         schema=_DKV_SCHEMA)
+def _flash_bwd_dkv_op(q, k, v, do, lse, delta, qseg, kseg, causal, scale, q_offset):
     B, H, Tq, Tk, D = _check_kernel_inputs("flash_backward_dkv", q, k, v, qseg, kseg, (do,))
     _check_row_stats(q, B, H, Tq, lse=lse, delta=delta)
     _check_rows_aligned("flash_backward_dkv", q=q, k=k, v=v, do=do)
@@ -416,17 +509,21 @@ def flash_backward_dkv(q, k, v, do, lse, delta, qseg, kseg, causal: bool,
     return dk, dv
 
 
-flash_backward_dkv.launches = 0
+@_flash_bwd_dkv_op.register_kernel("cpu")
+def _(q, k, v, do, lse, delta, qseg, kseg, causal, scale, q_offset):
+    dk, dv = flash_backward_dkv_reference(q, k, v, do, lse, delta, qseg, kseg, causal, scale,
+                                          q_offset)
+    return dk.contiguous(), dv.contiguous()
 
 
-def flash_backward_dq(q, k, v, out, do, lse, qseg, kseg, causal: bool,
-                      scale: float, q_offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA dq kernel (``csrc/flash_bwd.cu``, replacing the TPU's
-    ``_flash_bwd_dq_kernel``), which also computes delta = rowsum(dO * O)
-    for the dk/dv kernel. Same arguments and results (dq, delta) as
-    :func:`flash_backward_dq_reference`, for CUDA tensors only (checked as
-    in :func:`flash_backward_dkv`; ``out`` like q). ``flash_backward_dq.
-    launches`` counts the launches."""
+@_flash_bwd_dkv_op.register_fake
+def _(q, k, v, do, lse, delta, qseg, kseg, causal, scale, q_offset):
+    return k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+@torch.library.custom_op("tdl::flash_bwd_dq", mutates_args=(), device_types="cuda",
+                         schema=_DQ_SCHEMA)
+def _flash_bwd_dq_op(q, k, v, out, do, lse, qseg, kseg, causal, scale, q_offset):
     B, H, Tq, Tk, D = _check_kernel_inputs("flash_backward_dq", q, k, v, qseg, kseg,
                                            (out, do))
     _check_row_stats(q, B, H, Tq, lse=lse)
@@ -441,49 +538,57 @@ def flash_backward_dq(q, k, v, out, do, lse, qseg, kseg, causal: bool,
     return dq, delta
 
 
-flash_backward_dq.launches = 0
+@_flash_bwd_dq_op.register_kernel("cpu")
+def _(q, k, v, out, do, lse, qseg, kseg, causal, scale, q_offset):
+    dq, delta = flash_backward_dq_reference(q, k, v, out, do, lse, qseg, kseg, causal, scale,
+                                            q_offset)
+    return dq.contiguous(), delta
 
 
-def flash_backward(q, k, v, out, lse, do, qseg, kseg, causal: bool, scale: float,
-                   q_offset: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The flash backward on the card: the dq kernel, which also computes
-    delta, then the dk/dv kernel with that delta, on the current stream.
-    Same arguments and results as :func:`flash_backward_reference`.
-    Neither kernel uses atomics, so the gradients are the same bits from run
-    to run."""
-    rest = (qseg, kseg, causal, scale, q_offset)
-    dq, delta = flash_backward_dq(q, k, v, out, do, lse, *rest)
-    return (dq, *flash_backward_dkv(q, k, v, do, lse, delta, *rest))
+@_flash_bwd_dq_op.register_fake
+def _(q, k, v, out, do, lse, qseg, kseg, causal, scale, q_offset):
+    B, H, Tq, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((B, H, Tq), dtype=torch.float32)
 
 
-class FlashAttentionFunction(torch.autograd.Function):
-    """Flash attention with its backward, the counterpart of the JAX
-    package's ``custom_vjp`` (attention.py:179-189, :403). ``apply(q, k, v,
-    qseg, kseg, causal, scale, q_offset, block_q)`` returns (out, lse); lse
-    carries no gradient. CUDA tensors go through the kernels, CPU tensors
-    through the plain versions. ``block_q`` (the forward's q-tile rows)
-    reaches the forward kernel only: the backward kernels have one tile,
-    and the plain version's result does not depend on the tile."""
+def _fwd_setup_context(ctx, inputs, output):
+    q, k, v, qseg, kseg, causal, scale, q_offset, _block_q = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse, qseg, kseg)
+    ctx.attrs = (causal, scale, q_offset)
+    ctx.mark_non_differentiable(lse)
+
+
+def _fwd_backward(ctx, do, _lse_grad):
+    """The backward of ``tdl::flash_fwd`` (the counterpart of the JAX
+    package's ``custom_vjp``, attention.py:179-189, :403): the dq operator,
+    which also gives delta, then the dk/dv operator. lse carries no
+    gradient. ``block_q`` reaches the forward kernel only: the backward
+    kernels have one tile."""
+    q, k, v, out, lse, qseg, kseg = ctx.saved_tensors
+    if do.stride(-1) != 1:  # e.g. the expanded gradient of a sum
+        do = do.contiguous()
+    rest = (qseg, kseg, *ctx.attrs)
+    dq, delta = torch.ops.tdl.flash_bwd_dq(q, k, v, out, do, lse, *rest)
+    dk, dv = torch.ops.tdl.flash_bwd_dkv(q, k, v, do, lse, delta, *rest)
+    return dq, dk, dv, None, None, None, None, None, None
+
+
+_flash_fwd_op.register_autograd(_fwd_backward, setup_context=_fwd_setup_context)
+
+
+class FlashAttentionFunction:
+    """The forward operator with its backward: ``apply(q, k, v, qseg, kseg,
+    causal, scale, q_offset, block_q)`` returns (out, lse) from
+    ``tdl::flash_fwd``, whose registered autograd formula runs the two
+    backward operators; lse carries no gradient. CUDA tensors go through the
+    kernels, CPU tensors through the plain versions. ``flash_attention``
+    calls the operator here and nowhere else."""
 
     @staticmethod
-    def forward(ctx, q, k, v, qseg, kseg, causal, scale, q_offset, block_q):
-        if q.is_cuda:
-            out, lse = flash_forward(q, k, v, qseg, kseg, causal, scale, q_offset, block_q)
-        else:
-            out, lse = flash_forward_reference(q, k, v, qseg, kseg, causal, scale, q_offset)
-        ctx.save_for_backward(q, k, v, out, lse, qseg, kseg)
-        ctx.attrs = (causal, scale, q_offset)
-        ctx.mark_non_differentiable(lse)
-        return out, lse
-
-    @staticmethod
-    def backward(ctx, do, _lse_grad):
-        q, k, v, out, lse, qseg, kseg = ctx.saved_tensors
-        if do.stride(-1) != 1:  # e.g. the expanded gradient of a sum
-            do = do.contiguous()
-        bwd = flash_backward if q.is_cuda else flash_backward_reference
-        dq, dk, dv = bwd(q, k, v, out, lse, do, qseg, kseg, *ctx.attrs)
-        return dq, dk, dv, None, None, None, None, None, None
+    def apply(q, k, v, qseg, kseg, causal, scale, q_offset, block_q):
+        return torch.ops.tdl.flash_fwd(q, k, v, qseg, kseg, bool(causal), float(scale),
+                                       int(q_offset), int(block_q))
 
 
 def _segment_ids(segment_ids, B, Tq, Tk, device):
@@ -538,10 +643,11 @@ def flash_attention(q, k, v, mask=None, *, segment_ids=None, causal: bool = Fals
     original keys. ``return_lse=True`` also returns the per-row logsumexp
     [B, H, Tq] in float32.
 
-    Differentiable in q, k and v (:class:`FlashAttentionFunction`). CUDA
-    tensors go through the CUDA kernels (:func:`flash_forward`, and
-    :func:`flash_backward` for the gradients), CPU tensors through their
-    plain versions.
+    Differentiable in q, k and v: the ``tdl::flash_fwd`` operator, whose
+    autograd formula runs ``tdl::flash_bwd_dq`` and ``tdl::flash_bwd_dkv``.
+    CUDA tensors go through the CUDA kernels, CPU tensors through their
+    plain versions; ``torch.export`` keeps the call as one
+    ``tdl.flash_fwd`` node.
 
     ``block_q``/``block_k``: the forward's tile, as in the JAX package.
     ``None`` asks the autotune table (:func:`autotune.resolve_blocks`: a

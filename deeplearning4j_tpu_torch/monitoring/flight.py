@@ -49,6 +49,7 @@ ENV_PROC = "TDL_PROC_NAME"
 #: eight distinct procs instead of eight colliding ``rank0`` spools
 ENV_PROC_PREFIX = "TDL_PROC_PREFIX"
 ENV_RUN_ID = "TDL_RUN_ID"
+ENV_LOSS_EVERY = "TDL_FLIGHT_LOSS_EVERY"
 
 #: spool filename prefix — the leak-audit conftest fixture and the
 #: supervisor's postmortem collector both key on it
@@ -331,3 +332,13 @@ def read_spools(directory: str, on_error=None) -> List[dict]:
     ``aggregate.spool_error_counter("flight")`` (or any callable taking the
     skipped filename) as ``on_error`` to count the degradation."""
     return scan_spool_json(directory, SPOOL_PREFIX, on_error=on_error)
+
+
+def loss_every() -> int:
+    """Cadence of loss capture on a trainer's ``step_end`` events. Reading
+    the loss waits for the device, so the default is every 10th step;
+    ``TDL_FLIGHT_LOSS_EVERY=1`` records every step's loss."""
+    try:
+        return max(1, int(os.environ.get(ENV_LOSS_EVERY, "10")))
+    except ValueError:
+        return 10

@@ -27,6 +27,7 @@ log = logging.getLogger(__name__)
 
 ENV_DIR = "TDL_HEARTBEAT_DIR"
 ENV_INTERVAL = "TDL_HEARTBEAT_INTERVAL"
+ENV_RANK = "TDL_PROCESS_ID"
 
 
 def host_rss_bytes() -> int:
@@ -140,3 +141,23 @@ def read_heartbeat(directory: str, rank: int) -> Optional[Tuple[int, float]]:
         return int(data["iteration"]), mtime
     except (OSError, ValueError, KeyError):
         return None
+
+
+_writer: Optional[HeartbeatWriter] = None
+_writer_key: Optional[Tuple[str, int, float]] = None
+
+
+def maybe_beat(iteration: int) -> None:
+    """Fit-loop hook: writes a heartbeat iff ``TDL_HEARTBEAT_DIR`` is set
+    (one env lookup when unsupervised). The cached writer is rebuilt
+    whenever the env contract (dir, rank, interval) changes."""
+    global _writer, _writer_key
+    directory = os.environ.get(ENV_DIR)
+    if not directory:
+        return
+    key = (directory, int(os.environ.get(ENV_RANK, "0")),
+           float(os.environ.get(ENV_INTERVAL, "1.0")))
+    if _writer is None or key != _writer_key:
+        _writer = HeartbeatWriter(key[0], rank=key[1], interval=key[2])
+        _writer_key = key
+    _writer.beat(iteration)

@@ -32,6 +32,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..common import data_parallel
 from ..common.device import DEFAULT_DEVICE, resolve_device
 from . import activations as act
 from . import losses as loss_fns
@@ -446,7 +447,10 @@ class BatchNormalization(Layer):
     at 0), in float32 whatever the activations' dtype; the running stats
     move as ``decay·old + (1 − decay)·batch`` (``F.batch_norm`` uses the
     opposite momentum and the unbiased variance, so it is not used). [B, C,
-    H, W] normalises per channel over (B, H, W), [B, C, T] over (B, T)."""
+    H, W] normalises per channel over (B, H, W), [B, C, T] over (B, T).
+    Inside a data-parallel step over several ranks the sums are the global
+    batch's (``common.data_parallel``), as GSPMD makes them in the JAX
+    package's ``ParallelTrainer``."""
 
     n_out: int = 0  # inferred from input
     decay: float = 0.9
@@ -485,8 +489,12 @@ class BatchNormalization(Layer):
             n = 1
             for a in axes:
                 n *= x.shape[a]
-            mean = xf.sum(dim=axes) / n
-            var = torch.clamp((xf * xf).sum(dim=axes) / n - mean * mean, min=0.0)
+            s1, s2 = xf.sum(dim=axes), (xf * xf).sum(dim=axes)
+            dp = data_parallel.spans_ranks()
+            if dp is not None:  # the global batch's moments (common.data_parallel)
+                s1, s2, n = dp.sum_moments(s1, s2, n)
+            mean = s1 / n
+            var = torch.clamp(s2 / n - mean * mean, min=0.0)
             with torch.no_grad():
                 new_state = {
                     "mean": self.decay * state["mean"] + (1 - self.decay) * mean,

@@ -12,6 +12,10 @@ runs at dropout 0.
 :class:`RngKey` stands in for a JAX key: the network derives one per step as
 JAX does (``fold_in(key(seed ^ 0x5EED), iteration)``, then ``fold_in(·,
 layer)``) and turns it into a generator only where random numbers are drawn.
+Inside a data-parallel step over several ranks, every mask and noise array
+is drawn at the global batch's shape and each rank takes its rows, so a
+W-rank fit draws what a one-process fit on the global batch draws
+(``common.data_parallel``).
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from ..common.data_parallel import batch_rows
 
 
 @dataclass(frozen=True)
@@ -41,7 +47,20 @@ class RngKey:
 
 
 def _bernoulli(p, shape, like, generator):
-    return torch.rand(shape, generator=generator, device=like.device) < p
+    """A keep-mask of ``shape`` (batch first). Inside a data-parallel step
+    over several ranks, the mask is drawn at the global batch's shape and
+    this rank takes its rows (``common.data_parallel.batch_rows``)."""
+    draw, rows = batch_rows(shape)
+    r = torch.rand(draw, generator=generator, device=like.device)
+    return (r if rows is None else r[rows]) < p
+
+
+def _normal(x, generator):
+    """Standard normal noise shaped like ``x`` (batch first), drawn at the
+    global batch's shape inside a data-parallel step, as :func:`_bernoulli`."""
+    draw, rows = batch_rows(x.shape)
+    n = torch.randn(draw, generator=generator, device=x.device, dtype=x.dtype)
+    return n if rows is None else n[rows]
 
 
 @dataclass
@@ -81,8 +100,7 @@ class GaussianDropout:
         if not training or self.rate <= 0.0 or generator is None:
             return x
         std = (self.rate / (1.0 - self.rate)) ** 0.5
-        noise = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
-        return x * (1.0 + std * noise)
+        return x * (1.0 + std * _normal(x, generator))
 
 
 @dataclass
@@ -94,8 +112,7 @@ class GaussianNoise:
     def apply(self, x, generator, training: bool):
         if not training or self.stddev <= 0.0 or generator is None:
             return x
-        return x + self.stddev * torch.randn(x.shape, generator=generator, device=x.device,
-                                             dtype=x.dtype)
+        return x + self.stddev * _normal(x, generator)
 
 
 @dataclass

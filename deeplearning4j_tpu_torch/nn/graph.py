@@ -16,8 +16,9 @@ A train step is the JAX package's ``_step_body`` run eagerly: the loss of
 every network output whose layer has ``compute_loss``, plus L1/L2 over the
 layers' parameters (not the vertices'), its gradients, frozen layers'
 gradients zeroed, gradient normalization, ``updater.apply`` and
-``p -= u``, then the constraints. Under the precision policy's bf16 (on the
-card) the graph runs on bf16 copies of the float32 masters; losses and BN
+``p -= u``, then the constraints; under a data-parallel trainer the
+gradients and the loss are the data group's (``common.data_parallel``).
+Under the precision policy's bf16 (on the card) the graph runs on bf16 copies of the float32 masters; losses and BN
 moments stay float32. As in the reference, the train step passes no
 features mask, so a GlobalPoolingLayer or LastTimeStep in a graph pools
 every step.
@@ -39,6 +40,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..common import data_parallel
 from ..common.device import resolve_device
 from ..common.dtypes import to_torch
 from ..common.precision import amp_enabled, cast_floating, cast_input, compute_dtype
@@ -48,7 +50,8 @@ from .conf import BatchNormalization, GlobalPoolingLayer, LastTimeStep
 from .constraints import apply_constraints
 from .dropout import RngKey
 from .graph_conf import ComputationGraphConfiguration
-from .multilayer import _WEIGHT_NOISE_SALT, _BnState, _grad_normalize, _LazyScoreMixin, _mask_frozen
+from .multilayer import (_WEIGHT_NOISE_SALT, _BnState, _grad_normalize, _LazyScoreMixin,
+                         _mask_frozen, reduce_nested)
 
 _RESERVED = frozenset(dir(nn.ModuleDict()))
 
@@ -82,6 +85,8 @@ class ComputationGraph(_LazyScoreMixin, nn.Module):
         self._types = conf.infer_types()  # output type per node
         self._in_types = self._compute_in_types()
         self._keys = {name: module_key(name) for name in conf.nodes}
+        # set by the data-parallel trainers for a fit (common.data_parallel)
+        self._data_parallel = None
 
     def _compute_in_types(self):
         """Input InputType per node AFTER its preprocessor."""
@@ -202,16 +207,27 @@ class ComputationGraph(_LazyScoreMixin, nn.Module):
         amp = amp_enabled(self._dtype, self.device)
         cdt = compute_dtype(self.device)
         params = self._params()
-        with torch.enable_grad():
+        dp = self._data_parallel
+        weight = None
+        if dp is not None and lmasks:
+            if len(self.conf.network_outputs) != 1:
+                raise NotImplementedError(
+                    "data-parallel fit of a graph with label masks and several outputs: "
+                    "each output's loss has its own live count")
+            weight = dp.loss_weight(next(iter(lmasks.values())))
+        with torch.enable_grad(), data_parallel.use(dp):
             pc = cast_floating(params, cdt) if amp else params
             xc = {k: cast_input(v, cdt) for k, v in inputs.items()} if amp else inputs
             loss, new_bn = self._forward(pc, self._bn(), xc, training=True, rng=rng,
                                          labels=labels, lmasks=lmasks)
             flat = [(name, k, p) for name, pd in params.items() for k, p in pd.items()]
-            raw = torch.autograd.grad(loss, [p for _, _, p in flat], allow_unused=True)
+            raw = torch.autograd.grad(loss if weight is None else loss * weight,
+                                      [p for _, _, p in flat], allow_unused=True)
         grads = {name: {} for name in params}
         for (name, k, p), g in zip(flat, raw):
             grads[name][k] = torch.zeros_like(p) if g is None else g
+        if dp is not None:
+            grads, loss = reduce_nested(dp, grads, loss, weight)
         frozen = {name for name, node in self.conf.nodes.items()
                   if node.layer is not None and node.layer.frozen}
         grads = _mask_frozen(grads, frozen)

@@ -11,6 +11,9 @@ port's ``nn.updaters`` state keyed ``"<layer>.<name>"``.
 A train step is the JAX package's ``_step_body`` run eagerly: the loss
 (with L1/L2) and its gradients, frozen layers' gradients zeroed, gradient
 normalization, ``updater.apply`` and ``p -= u``, then the constraints.
+Under a data-parallel trainer (``parallel.trainer``) the step is one
+logical step over the ranks: the gradients and the loss are reduced across
+the data group right after ``autograd.grad`` (``common.data_parallel``).
 With the precision policy's bf16 on the card (``common.precision``), the
 forward and backward run on bf16 copies of the float32 masters; losses and
 BN moments stay float32. ``fit`` takes an iterator, a ``DataSet`` or
@@ -21,8 +24,7 @@ place of keys: a step's key is ``(seed ^ 0x5EED, iteration)``, a layer's
 that key folded with its index (:class:`~.dropout.RngKey`).
 
 Not ported yet: ``set_bucketing`` and ``set_device_ingest`` (ROADMAP.md
-queue 1 item 8), ``export`` (item 9), the monitoring trace and watchdog
-hooks (item 8). Checkpoints of the network are ``serde.checkpoint`` and
+queue 1 item 8), the monitoring trace and watchdog hooks (item 8). Checkpoints of the network are ``serde.checkpoint`` and
 ``serde.model_serializer``.
 """
 
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..common import data_parallel
 from ..common.device import resolve_device
 from ..common.dtypes import to_torch
 from ..common.precision import amp_enabled, cast_floating, cast_input, compute_dtype
@@ -60,6 +63,17 @@ def _mask_frozen(grads, frozen):
         return grads
     return {k: ({n: torch.zeros_like(g) for n, g in v.items()} if k in frozen else v)
             for k, v in grads.items()}
+
+
+def reduce_nested(dp, grads, loss, weight):
+    """{layer: {name: gradient}} and the loss of this rank's step as the
+    data group's (``DataParallelContext.reduce_step``)."""
+    flat, loss = dp.reduce_step({(si, k): g for si, v in grads.items() for k, g in v.items()},
+                                loss, weight)
+    out = {si: {} for si in grads}
+    for (si, k), g in flat.items():
+        out[si][k] = g
+    return out, loss
 
 
 def _layer_norm(layer_grads):
@@ -164,6 +178,9 @@ class MultiLayerNetwork(_LazyScoreMixin, nn.Module):
         self.score_ = float("nan")
         self.last_batch_size = 0
         self._rnn_state: Dict[str, Any] = {}  # streaming rnnTimeStep state
+        # set by the data-parallel trainers for the duration of a fit
+        # (common.data_parallel); None: a one-process step
+        self._data_parallel = None
         self._input_types = conf.input_types()
         self._dtype = to_torch(conf.dtype)
 
@@ -268,16 +285,21 @@ class MultiLayerNetwork(_LazyScoreMixin, nn.Module):
         amp = amp_enabled(self._dtype, self.device)
         cdt = compute_dtype(self.device)
         params = self._params()
-        with torch.enable_grad():
+        dp = self._data_parallel
+        with torch.enable_grad(), data_parallel.use(dp):
             pc = cast_floating(params, cdt) if amp else params
             xc = cast_input(x, cdt) if amp else x
             loss, (new_bn, new_rnn) = self._loss_fn(pc, self._bn(), xc, y, fmask, lmask, rng,
                                                     True, rnn_states)
+            weight = dp.loss_weight(lmask) if dp is not None else None
             flat = [(si, k, p) for si, pd in params.items() for k, p in pd.items()]
-            raw = torch.autograd.grad(loss, [p for _, _, p in flat], allow_unused=True)
+            raw = torch.autograd.grad(loss if weight is None else loss * weight,
+                                      [p for _, _, p in flat], allow_unused=True)
         grads = {si: {} for si in params}
         for (si, k, p), g in zip(flat, raw):
             grads[si][k] = torch.zeros_like(p) if g is None else g
+        if dp is not None:
+            grads, loss = reduce_nested(dp, grads, loss, weight)
         frozen = {str(i) for i, l in enumerate(self.conf.layers) if l.frozen}
         grads = _mask_frozen(grads, frozen)
         grads = _grad_normalize(grads, self.conf.gradient_normalization,
@@ -396,6 +418,8 @@ class MultiLayerNetwork(_LazyScoreMixin, nn.Module):
             fm_all = None if fm_all is None else padt(fm_all)
         S = x_all.shape[-1] // fwd
         seg_weights = lm_all.reshape(B, S, fwd).sum(dim=(0, 2))
+        if self._data_parallel is not None:  # the global batch's steps
+            seg_weights = self._data_parallel.all_reduce_sum(seg_weights)
         seg = lambda a, s: a[..., s * fwd:(s + 1) * fwd]  # noqa: E731
         rnn_states = self._zero_rnn_states(B)
         self.last_batch_size = B
@@ -544,9 +568,15 @@ class MultiLayerNetwork(_LazyScoreMixin, nn.Module):
         m.updater_state = copy.deepcopy(self.updater_state)
         return m
 
-    # ------------------------------------------------------- not ported yet
+    # --------------------------------------------------------------- export
 
-    def export(self, path: str, example_input) -> None:
-        raise NotImplementedError("export: compiled-artifact export is not ported yet "
-                                  "(ROADMAP.md queue 1 item 9: the kernels become "
-                                  "torch.library custom ops first)")
+    def export(self, path: str, example_input):
+        """Write the inference forward (``output()``) as a compiled artifact
+        (``serde.compiled``): a ``torch.export`` program traced at
+        ``example_input`` on the network's device, and the parameters and
+        BN statistics as its weights. ``serde.compiled.load_compiled``
+        reloads it without this class. Returns the seconds of the trace and
+        of the write (``{"export", "save"}``)."""
+        from ..serde.compiled import export_multilayer
+
+        return export_multilayer(self, path, example_input)

@@ -68,7 +68,11 @@ def test_importing_the_port_loads_no_jax():
                    "monitoring.heartbeat", "monitoring.alerts", "serving.executor",
                    "serving.json_server", "serving.loadgen", "serving.pool",
                    "common.durability", "serde.checkpoint", "serde.net_state",
-                   "serde.model_serializer", "listeners.listeners", "nn.earlystopping"):
+                   "serde.model_serializer", "listeners.listeners", "nn.earlystopping",
+                   "kernels.attention", "serde.compiled", "common.data_parallel",
+                   "monitoring.trace", "parallel.mesh", "parallel.collectives",
+                   "parallel.compression", "parallel.launcher", "parallel.trainer",
+                   "parallel.wrapper"):
         assert f"deeplearning4j_tpu_torch.{module}" in added
     assert [m for m in added if _forbidden(m)] == []
 
@@ -186,6 +190,34 @@ def test_networks_default_to_cuda_and_raise_without_a_card():
     assert next(LeNet().init(device="cpu").parameters()).device.type == "cpu"
     state = BatchNormalization().init_state(InputType.feed_forward(4), device="cpu")
     assert {t.device.type for t in state.values()} == {"cpu"}
+
+
+def test_distributed_and_export_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """``launcher.initialize`` and ``launch`` (platform ``cuda`` and backend
+    ``nccl`` unless asked for the CPU), ``load_compiled`` (the card unless
+    given ``device``) and the trainers (their network's device) raise on a
+    host with no card before any process starts or any store binds."""
+    _no_card()
+    from deeplearning4j_tpu_torch.models import LeNet
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel import ParallelTrainer, launcher
+    from deeplearning4j_tpu_torch.serde.compiled import export_compiled, load_compiled
+
+    for name in ("TDL_PLATFORM", "TDL_BACKEND"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv("TDL_COORDINATOR", "127.0.0.1:1")
+    monkeypatch.setenv("TDL_NUM_PROCESSES", "1")
+    monkeypatch.setenv("TDL_PROCESS_ID", "0")
+    path = str(tmp_path / "m.zip")
+    export_compiled(lambda w, x: x * w["s"], (torch.ones(2),), {"s": torch.ones(())}, path)
+    calls = {"launcher.initialize": lambda: launcher.initialize(),
+             "launcher.launch": lambda: launcher.launch("x:y", 1),
+             "load_compiled": lambda: load_compiled(path),
+             "ParallelTrainer": lambda: ParallelTrainer(MultiLayerNetwork(LeNet().conf()))}
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    assert load_compiled(path, device="cpu")(torch.full((2,), 3.0)).tolist() == [3.0, 3.0]
 
 
 def test_cpu_training_never_touches_the_build(monkeypatch):

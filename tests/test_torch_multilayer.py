@@ -278,8 +278,8 @@ def test_clone_is_independent_and_not_ported_calls_raise():
     assert not torch.equal(copy.params(), tnet.params())
     copy.fit(DataSet(x, y))
     assert torch.equal(copy.params(), tnet.params())
-    for call in (lambda: tnet.set_bucketing(True), lambda: tnet.set_device_ingest(None),
-                 lambda: tnet.export("m.zip", x)):
+    # export is ported (serde.compiled, tests/test_torch_compiled_export.py)
+    for call in (lambda: tnet.set_bucketing(True), lambda: tnet.set_device_ingest(None)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             call()
     # init_pretrained is ported: without a local zip it refuses, as in JAX
