@@ -176,13 +176,36 @@ Phases:
    Dense -> Output, whose running statistics equal the one-process fit's
    within 1e-5; (d) ``ParameterAveragingTrainingMaster(workers=2,
    averaging_frequency=2)`` on 6c's MLN, 8 batches, card against CPU
-   (1e-5, 1e-4).
+   (1e-5, 1e-4);
+11. sharded training, ranks sharing the card over gloo with CUDA tensors
+   (``launcher.launch(backend="gloo")``; the collectives gloo refuses for
+   CUDA tensors stage through the host, and the phase prints which did):
+   (a) BERT-base at full width and depth (max_len 128, phase 5's batch: B
+   16, T 128, 19 MLM positions, Adam) placed on a 4-rank (dp, tp, sp) =
+   (1, 2, 2) mesh (``place_params``), Ulysses attention through the flash
+   kernels: one float32 step against the one-process float32 step (loss
+   1e-5, each gathered gradient 1e-3 of its norm), then 5 + 10 bf16 steps
+   (median ms on rank 0), exactly 12 launches of each flash kernel per rank
+   per step, each rank's resident bytes of parameters and Adam state
+   against the one-process total and the spec-derived expectation, and the
+   bytes the collectives moved per step; (b) the same model at (2, 1, 2)
+   with ring attention (plain PyTorch, no launch): one float32 step within
+   the same limits; (c) phase 10's attention MLN under
+   ``MultiProcessTrainer(mesh_layout=SpecLayout(1, 2, 2))`` on 4 ranks, 6
+   float32 steps against the one-process fit (10c's limits), one launch of
+   each kernel per step per rank, saved through ``trainer.checkpointer``
+   after step 3; a 2-rank gang under ``SpecLayout(1, 2, 1)`` refuses the
+   restore without ``reshard=True`` (naming both layouts), restores with it
+   bit for bit to the saved state, and trains steps 4-6 within 10c's limits
+   of the uninterrupted fit; save, verify and restore ms and the reshard
+   metrics.
 
 A line before the last is a JSON object describing each kernel (launch
 counts on the main path, error against the plain version, times and the
 card's bound; the forward also by q-tile instantiation, with the launches
-of the autotune search; phase 10's launches are in the counts: the forward
-in 10a-d, the backward pair in 10b-d), then the card's name and power
+of the autotune search; phase 10's and 11's launches are in the counts: the
+forward in 10a-d, the backward pair in 10b-d, all three in 11a and 11c),
+then the card's name and power
 limit; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero and
 prints no result. The script imports only the port
@@ -3945,6 +3968,331 @@ def phase_master(tag, launches):
 
 
 
+# ------------------------------------------------------------- phase 11
+
+SP_B, SP_T, SP_P = 16, 128, 19
+SP_WARMUP, SP_TIMED = 5, 10
+SP_TIMEOUT = 600.0
+SHARD_SAVE_AFTER = 3  # 11c: steps before the checkpoint
+
+
+def _sp_model_tree():
+    """Phase 5's BERT-base weights (seed 3, drawn on the CPU) as the JAX
+    ``init_params`` tree, and its config at max_len 128, dropout 0."""
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+    from deeplearning4j_tpu_torch.models.weights import params_to_numpy
+
+    cfg = tfm.TransformerConfig.bert_base(max_len=SP_T, dropout=0.0)
+    return cfg, params_to_numpy(tfm.init_params(3, cfg, device="cpu"))
+
+
+def _grad_errors(got, ref):
+    """{name: |got - ref| / |ref|} of whole gradients (JAX-shaped trees of
+    numpy arrays against {name: tensor})."""
+    errs = {}
+    for name, r in ref.items():
+        parts = name.split(".")
+        node = got["blocks"][int(parts[1])] if parts[0] == "blocks" else got[parts[0]]
+        g = torch_from(node[parts[-1]], r.device)
+        errs[name] = ((g - r).norm() / r.norm().clamp(min=1e-30)).item() if r.norm() > 0 \
+            else g.norm().item()
+    return errs
+
+
+def torch_from(a, device):
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def sp_worker():
+    """Phase 11a/11b's rank (``chip_smoke.py:sp_worker``, started by
+    ``parallel.launcher.launch`` over gloo, each rank on the card): the
+    flagship placed on (dp, tp, sp) meshes; rank 0 also runs the
+    one-process float32 step it is held to. Writes ``result.rank<r>.json``
+    into ``TDL_SMOKE_SP``'s directory."""
+    import torch
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch import set_fp32_numerics
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+    from deeplearning4j_tpu_torch.models.weights import _flatten, params_from_jax
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    from deeplearning4j_tpu_torch.parallel import collectives
+    from deeplearning4j_tpu_torch.parallel.launcher import local_device
+    from deeplearning4j_tpu_torch.parallel.mesh import mesh_from_shape
+
+    spec = json.loads(os.environ["TDL_SMOKE_SP"])
+    set_fp32_numerics()
+    rank = dist.get_rank()
+    device = local_device()
+    cfg, tree = _sp_model_tree()
+    batch = _mlm_batch(cfg, np.random.RandomState(5), SP_B, SP_T, SP_P)
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    result = {"backend": dist.get_backend(), "device": str(device)}
+    ref = None
+    if rank == 0:  # the one-process float32 step on the card, through the kernels
+        whole = params_from_jax(tree, cfg32, device=device)
+        ref_loss, ref_grads = tfm.loss_and_grads(whole, batch, cfg32)
+        ref = (ref_loss.item(), ref_grads)
+        del whole
+
+    def f32_step(name, shape, impl):
+        c = dataclasses.replace(cfg32, attn_impl=impl, sequence_axis="sp")
+        mesh = mesh_from_shape(dict(zip(("dp", "tp", "sp"), shape)))
+        model = tfm.place_params(tree, c, mesh, device=device)
+        _zero_counts()
+        loss, grads = tfm.loss_and_grads(model, batch, c)
+        out = {"loss": loss.item(), "launches": _read_counts()}
+        got = tfm.gather_params(model, grads)
+        if ref is not None:
+            errs = _grad_errors(got, ref[1])
+            worst = max(errs, key=errs.get)
+            out.update(ref_loss=ref[0], worst=worst, worst_err=errs[worst], n=len(errs))
+        result[name] = out
+        del model, grads, got
+
+    f32_step("f32", (1, 2, 2), "ulysses")
+    # 11a (ii): bf16 compute, Adam, the timed steps
+    c16 = dataclasses.replace(cfg, attn_impl="ulysses", sequence_axis="sp")
+    mesh = mesh_from_shape({"dp": 1, "tp": 2, "sp": 2})
+    model = tfm.place_params(tree, c16, mesh, device=device)
+    upd = Adam(1e-4)
+    state = upd.init(model)
+    step = tfm.make_train_step(c16, upd)
+    times, losses, launches, moved = [], [], [], []
+    for it in range(SP_WARMUP + SP_TIMED):
+        _zero_counts()
+        before = sum(collectives.traffic.values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, state, loss = step(model, state, batch, it)
+        losses.append(loss.item())
+        torch.cuda.synchronize()
+        if it >= SP_WARMUP:
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches.append(_read_counts())
+        moved.append(sum(collectives.traffic.values()) - before)
+    held = sum(p.numel() * p.element_size() for p in model.parameters())
+    held += sum(t.numel() * t.element_size() for slot in state.values() for t in slot.values())
+    # parameters, Adam's m and v: a leaf split over tp is 1/tp of it, the
+    # rest whole (sp replicates parameters)
+    specs, tp = tfm._flat_specs(c16), mesh.axis_size("tp")
+    flat = dict(_flatten(tree))
+    expect = 3 * sum(a.nbytes // (tp if "tp" in specs[n] else 1) for n, a in flat.items())
+    whole = 3 * sum(a.nbytes for a in flat.values())
+    result["bf16"] = {"times": times, "losses": losses, "launches": launches,
+                      "moved": moved, "held": held, "expect": expect, "whole": whole}
+    del model, state
+    # 11b: ring attention at (2, 1, 2), float32
+    f32_step("ring", (2, 1, 2), "ring")
+    result["staged"] = dict(collectives.staged_counts)
+    with open(os.path.join(spec["dir"], f"result.rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def _launch_gang(tag, workdir, name, target, n, env_key, spec):
+    """Run ``chip_smoke.py:<target>`` on ``n`` gloo ranks sharing the card;
+    returns each rank's ``result.rank<r>.json``."""
+    from deeplearning4j_tpu_torch.parallel import launcher
+
+    d = os.path.join(workdir, name)
+    os.makedirs(d, exist_ok=True)
+    spec = {"dir": d, **spec}
+    t0 = time.perf_counter()
+    results = launcher.launch(f"{os.path.abspath(__file__)}:{target}", n_processes=n,
+                              platform="cuda", backend="gloo", timeout=SP_TIMEOUT,
+                              extra_env={env_key: json.dumps(spec)})
+    for r in results:
+        if r.returncode != 0:
+            print(f"--- {name} rank {r.rank} stderr\n{r.stderr[-3000:]}", flush=True)
+    check(all(r.returncode == 0 for r in results),
+          f"11: {name} ranks ended with {[r.returncode for r in results]}")
+    print(f"{tag} 11 {name}: {n} gloo ranks on the card ran in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    out = []
+    for rank in range(n):
+        with open(os.path.join(d, f"result.rank{rank}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def phase_sharded_flagship(tag, launches, workdir):
+    """11a and 11b (module docstring)."""
+    ranks = _launch_gang(tag, workdir, "flagship", "sp_worker", 4, "TDL_SMOKE_SP", {})
+    check(all(r["backend"] == "gloo" and r["device"].startswith("cuda") for r in ranks),
+          f"11a: ranks on {[(r['backend'], r['device']) for r in ranks]}")
+    for name, what, impl in (("f32", "11a (dp, tp, sp) = (1, 2, 2) Ulysses", "ulysses"),
+                             ("ring", "11b (dp, tp, sp) = (2, 1, 2) ring", "ring")):
+        r0 = ranks[0][name]
+        losses = [r[name]["loss"] for r in ranks]
+        rel = max(abs(x - r0["ref_loss"]) / abs(r0["ref_loss"]) for x in losses)
+        print(f"{tag} {what}, float32 step vs the one-process float32 step: loss "
+              f"{r0['loss']:.7f} vs {r0['ref_loss']:.7f} (worst rank rel {rel:.2e}); largest "
+              f"gathered gradient error {r0['worst_err']:.2e} of its norm ({r0['worst']}, "
+              f"{r0['n']} tensors); launches per rank {[r[name]['launches'] for r in ranks]}",
+              flush=True)
+        check(rel <= TRAIN_LOSS_REL, f"{what}: loss differs by {rel:.2e}")
+        check(r0["worst_err"] <= TRAIN_GRAD_REL,
+              f"{what}: gradient {r0['worst']} differs by {r0['worst_err']:.2e}")
+        for r in ranks:
+            counts = r[name]["launches"]
+            if impl == "ulysses":
+                check(counts == {k: 12 for k in counts},
+                      f"{what}: a rank launched {counts}, expected 12 of each per step")
+                for k, v in counts.items():
+                    launches[f"{k}_f32"].append(v)
+            else:
+                check(not any(counts.values()), f"{what}: ring attention launched {counts}")
+    b = ranks[0]["bf16"]
+    for r in ranks:
+        for i, counts in enumerate(r["bf16"]["launches"]):
+            check(counts == {k: 12 for k in counts},
+                  f"11a bf16 step {i}: a rank launched {counts}, expected 12 of each")
+        for k in r["bf16"]["launches"][0]:
+            launches[k].append(sum(c[k] for c in r["bf16"]["launches"]))
+        check(all(math.isfinite(x) for x in r["bf16"]["losses"]), "11a: non-finite bf16 loss")
+        check(r["bf16"]["held"] == r["bf16"]["expect"],
+              f"11a: a rank holds {r['bf16']['held']} B, the specs give {r['bf16']['expect']}")
+    check(b["losses"][-1] < b["losses"][0], f"11a: bf16 loss did not fall: {b['losses']}")
+    ms = statistics.median(b["times"])
+    moved = statistics.median(b["moved"][SP_WARMUP:])
+    print(f"{tag} 11a bf16 steps (4 ranks sharing the card over gloo), B={SP_B} T={SP_T} "
+          f"P={SP_P} Adam: loss {b['losses'][0]:.4f} -> {b['losses'][-1]:.4f}; rank 0 step "
+          f"{spread(b['times'])}, {SP_B * SP_T / ms * 1e3:.0f} tokens/s at the median; 12 "
+          f"launches of each flash kernel per rank per step", flush=True)
+    print(f"{tag} 11a resident parameters + Adam state per rank: "
+          f"{[r['bf16']['held'] for r in ranks]} B (spec-derived {b['expect']} B) against "
+          f"{b['whole']} B in one process ({b['held'] / b['whole']:.3f}); collectives moved "
+          f"{moved / 1e6:.1f} MB per step per rank (median); staged through the host: "
+          f"{ranks[0]['staged'] or 'none'}", flush=True)
+    return ms
+
+
+def shard_mln_worker():
+    """Phase 11c's rank (``chip_smoke.py:shard_mln_worker``): ``train``
+    (4 ranks: 6 float32 steps under (1, 2, 2), the checkpoint after step 3)
+    or ``resume`` (2 ranks: the restore under (1, 2, 1), refused without
+    reshard=True, then steps 4-6)."""
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch import set_fp32_numerics
+    from deeplearning4j_tpu_torch.monitoring.partition import elastic_metrics
+    from deeplearning4j_tpu_torch.parallel.launcher import local_device
+    from deeplearning4j_tpu_torch.parallel.partition import Partitioner, SpecLayout
+    from deeplearning4j_tpu_torch.parallel.trainer import MultiProcessTrainer
+    from deeplearning4j_tpu_torch.serde.checkpoint import TrainingCheckpointer, verify_checkpoint
+
+    spec = json.loads(os.environ["TDL_SMOKE_SHARD"])
+    set_fp32_numerics()
+    rank = dist.get_rank()
+    device = local_device()
+    ckdir = os.path.join(spec["dir"], "..", "ckpt")
+    batches = _dp_batches("attention", DP_STEPS)
+    result = {"scores": [], "launches": []}
+    with float32_policy():
+        net = _dp_net("attention", device)
+        if spec["phase"] == "train":
+            part = Partitioner(SpecLayout(1, 2, 2))
+            first = 0
+        else:
+            part = Partitioner(SpecLayout(1, 2, 1))
+            ck = TrainingCheckpointer(ckdir, partitioner=part)
+            try:
+                ck.restore(net)
+                result["refused"] = None
+            except ValueError as e:
+                result["refused"] = str(e)
+            t0 = time.perf_counter()
+            ck.restore(net, reshard=True)
+            result["restore_ms"] = (time.perf_counter() - t0) * 1e3
+            m = elastic_metrics()
+            result["reshard_bytes"] = m.reshard_bytes.value
+            result["reshard_seconds"] = m.reshard_seconds.snapshot()["series"][0]["sum"]
+            np.savez(os.path.join(spec["dir"], f"restored.rank{rank}.npz"),
+                     **net._partition.gather_state(net))
+            first = SHARD_SAVE_AFTER
+        trainer = MultiProcessTrainer(net, mesh_layout=part)
+        for i in range(first, DP_STEPS):
+            _zero_counts()
+            trainer.fit([batches[i]])
+            result["scores"].append(net.score_)
+            result["launches"].append(_read_counts())
+            if spec["phase"] == "train" and i + 1 == SHARD_SAVE_AFTER:
+                ck = trainer.checkpointer(ckdir, async_write=False)
+                t0 = time.perf_counter()
+                ck.save(net)
+                result["save_ms"] = (time.perf_counter() - t0) * 1e3
+                np.savez(os.path.join(spec["dir"], f"saved.rank{rank}.npz"),
+                         **net._partition.gather_state(net))
+                if rank == 0:
+                    t0 = time.perf_counter()
+                    v = verify_checkpoint(ckdir)
+                    result["verify_ms"] = (time.perf_counter() - t0) * 1e3
+                    result["verify_ok"] = v["ok"]
+        np.savez(os.path.join(spec["dir"], f"final.rank{rank}.npz"),
+                 **net._partition.gather_state(net))
+    with open(os.path.join(spec["dir"], f"result.rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def phase_sharded_mln(tag, launches, workdir):
+    """11c (module docstring)."""
+    train = _launch_gang(tag, workdir, "shard_train", "shard_mln_worker", 4, "TDL_SMOKE_SHARD",
+                         {"phase": "train"})
+    resume = _launch_gang(tag, workdir, "shard_resume", "shard_mln_worker", 2,
+                          "TDL_SMOKE_SHARD", {"phase": "resume"})
+    load = lambda name, what, r: dict(np.load(os.path.join(workdir, name, f"{what}.rank{r}.npz")))  # noqa: E731
+    with float32_policy():
+        before = _snapshot(_dp_net("attention", "cuda"))
+    ref, scores = _in_process_fit("attention", DP_STEPS)
+    for r, res in enumerate(train):
+        check(res["launches"] == [{k: 1 for k in _counters()}] * DP_STEPS,
+              f"11c: rank {r} launched {res['launches']}, expected one of each per step")
+        for k in _counters():
+            launches[f"{k}_f32"].append(DP_STEPS)
+    for r in range(2):
+        check(resume[r]["launches"] == [{k: 1 for k in _counters()}] * (DP_STEPS - SHARD_SAVE_AFTER),
+              f"11c resume: rank {r} launched {resume[r]['launches']}")
+        for k in _counters():
+            launches[f"{k}_f32"].append(DP_STEPS - SHARD_SAVE_AFTER)
+    final = load("shard_train", "final", 0)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(train[0]["scores"], scores))
+    errs = _dp_errors(final, ref, before)
+    worst = max(errs, key=errs.get)
+    print(f"{tag} 11c attention MLN under SpecLayout(1, 2, 2), 4 ranks, {DP_STEPS} float32 "
+          f"steps vs the one-process fit: worst loss error {rel:.2e}, largest update error "
+          f"{errs[worst]:.2e} ({worst}); one launch of each flash kernel per step per rank",
+          flush=True)
+    check(rel <= TRAIN_LOSS_REL, f"11c: loss differs by {rel:.2e}")
+    check(errs[worst] <= TRAIN_GRAD_REL, f"11c: update of {worst} differs by {errs[worst]:.2e}")
+    saved = load("shard_train", "saved", 0)
+    for r in range(2):
+        check(_states_equal(load("shard_resume", "restored", r), saved),
+              f"11c: rank {r}'s resharded restore differs from the saved state")
+    msg = resume[0]["refused"] or ""
+    check("data=1 x fsdp=2 x tp=2" in msg and "data=1 x fsdp=2 x tp=1" in msg,
+          f"11c: the restore without reshard=True was not refused naming both layouts: {msg!r}")
+    check(train[0].get("verify_ok"), "11c: verify_checkpoint failed on the saved lineage")
+    resumed = load("shard_resume", "final", 0)
+    rel2 = max(abs(a - b) / abs(b) for a, b in zip(resume[0]["scores"],
+                                                 scores[SHARD_SAVE_AFTER:]))
+    errs2 = _dp_errors(resumed, ref, before)
+    worst2 = max(errs2, key=errs2.get)
+    print(f"{tag} 11c checkpoint after step {SHARD_SAVE_AFTER}: save {train[0]['save_ms']:.1f} "
+          f"ms (rank 0), verify {train[0]['verify_ms']:.1f} ms, restore onto SpecLayout(1, 2, 1) "
+          f"with reshard=True {resume[0]['restore_ms']:.1f} ms, bit for bit on both ranks; "
+          f"tdl_reshard_bytes_total {resume[0]['reshard_bytes']:.0f}, tdl_reshard_seconds "
+          f"{resume[0]['reshard_seconds']:.4f} (rank 0); without reshard=True: refused, naming "
+          f"both layouts", flush=True)
+    print(f"{tag} 11c resumed on 2 ranks, steps {SHARD_SAVE_AFTER + 1}-{DP_STEPS} vs the "
+          f"uninterrupted fit: worst loss error {rel2:.2e}, largest update error "
+          f"{errs2[worst2]:.2e} ({worst2})", flush=True)
+    check(rel2 <= TRAIN_LOSS_REL, f"11c resume: loss differs by {rel2:.2e}")
+    check(errs2[worst2] <= TRAIN_GRAD_REL,
+          f"11c resume: update of {worst2} differs by {errs2[worst2]:.2e}")
+
+
 def main() -> int:
     import torch
 
@@ -4071,6 +4419,19 @@ def main() -> int:
             phase_master(tag, launches)
             print(f"phase 10d averaging master: ok ({time.perf_counter() - t:.1f} s); phase 10 "
                   f"{time.perf_counter() - t10:.1f} s", flush=True)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        _free_card()
+        t11 = time.perf_counter()
+        workdir = tempfile.mkdtemp(prefix="tdl_smoke_shard_")
+        try:
+            phase_sharded_flagship(tag, launches, workdir)
+            print(f"phase 11a/11b sharded flagship: ok ({time.perf_counter() - t11:.1f} s)",
+                  flush=True)
+            t = time.perf_counter()
+            phase_sharded_mln(tag, launches, workdir)
+            print(f"phase 11c networks under mesh_layout: ok ({time.perf_counter() - t:.1f} s); "
+                  f"phase 11 {time.perf_counter() - t11:.1f} s", flush=True)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
     except SmokeFailure as e:

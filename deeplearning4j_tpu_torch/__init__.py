@@ -44,7 +44,12 @@ the runtime plumbing the next slices need):
 - ``serde`` — checkpoints in the JAX package's on-disk formats: the
   ``TrainingCheckpointer`` lineage with ``verify_checkpoint`` and
   ``PreemptionHandler``, and ``ModelSerializer``'s zip; ``listeners`` and
-  ``nn.earlystopping`` on top of them.
+  ``nn.earlystopping`` on top of them; sharded lineages with a layout stamp
+  and ``reshard=True``;
+- ``parallel`` — the mesh of ranks with named axes, collectives over them,
+  the launcher, data-parallel trainers, and sharded training: FSDP×TP
+  layouts (``partition``), tensor-parallel rules (``sharding``), and the
+  flagship on a (dp, tp, sp) mesh with ring or Ulysses attention.
 
 Entry points that place tensors take ``device`` and default to ``"cuda"``;
 the CPU is used only when asked for (``device="cpu"``).

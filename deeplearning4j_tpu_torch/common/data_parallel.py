@@ -32,6 +32,15 @@ reproduces those semantics by hand:
   takes rows [r*b, (r+1)*b): a W-rank fit draws what a one-process fit on
   the global batch draws.
 
+Sharded training (``parallel.partition``, a trainer's ``mesh_layout=`` or
+``sharding_rules=``) uses the same context over the group of ranks that
+compute distinct rows (``data``, and ``fsdp`` too under a layout), with
+``shards``: the partitioned network's :class:`~..parallel.partition.
+NetPartition`. The step then gathers each parameter into a whole tensor for
+the forward, reduces the whole gradients as above (so gradient
+normalization and constraints read whole-layer norms), and applies the
+updater to this rank's blocks only.
+
 Ranks feed equal local batches, as the JAX trainers require. Outside a
 context (``use(None)``, the default) nothing here runs.
 """
@@ -52,13 +61,15 @@ class DataParallelContext:
     ``torch.distributed`` process group, or None for a one-process run
     that issues no collective), ``rank`` and ``world``. ``phases`` (a
     ``monitoring.trace.StepPhaseRecorder``) times the gradient reduction
-    as the step's ``collective`` phase."""
+    as the step's ``collective`` phase; ``shards``, the partitioned
+    network's ``NetPartition`` (None: whole parameters)."""
 
-    def __init__(self, group=None, rank: int = 0, world: int = 1, phases=None):
+    def __init__(self, group=None, rank: int = 0, world: int = 1, phases=None, shards=None):
         self.group = group
         self.rank = int(rank)
         self.world = int(world)
         self.phases = phases
+        self.shards = shards
 
     def _all_reduce(self, buf: torch.Tensor) -> None:
         import torch.distributed as dist

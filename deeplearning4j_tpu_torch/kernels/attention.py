@@ -32,6 +32,15 @@ decides before any launch, by :func:`flash_takes`, whether a call goes to
 the kernels or to the dense path. The kernels need no pad shim: they mask
 the ragged last tile themselves.
 
+Sequence parallelism: :func:`ring_attention` (plain PyTorch in float32,
+K/V rotating around the ring, as the JAX package computes it in XLA) and
+:func:`ulysses_attention` (two differentiable all-to-alls around
+``dot_product_attention``, so the flash kernels run on each rank's head
+group) take this rank's sequence shard of a mesh axis
+(``parallel.mesh.use_mesh``). ``dot_product_attention(impl="ring" |
+"ulysses")`` raises and names them, where the JAX package's front door
+quietly gives dense attention.
+
 Rows with no live key. The forward gives such a row the uniform softmax
 over the Tk keys (out = mean of v) and lse = -1e30 + log Tk, which is -1e30
 in float32. Its gradient is that of ``mha_reference``: dq = 0, nothing
@@ -700,8 +709,84 @@ def dot_product_attention(q, k, v, mask=None, *, causal: bool = False,
             return flash_attention(q, k, v, mask, causal=causal, scale=scale)
         return mha_reference(q, k, v, mask, causal=causal, scale=scale)
     if impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"impl={impl!r}: sequence-parallel attention is not ported yet "
-            "(ROADMAP.md, 'Modules still to port': distribution, ring and "
-            "Ulysses attention)")
+        # the JAX package's front door quietly gives dense attention here;
+        # the port refuses, as the JAX transformer refuses that fallback
+        fn = "ring_attention" if impl == "ring" else "ulysses_attention"
+        raise ValueError(
+            f"impl={impl!r} is sequence-parallel attention: call {fn}(q, k, v, "
+            "axis_name=...) on the sequence shards of a mesh axis (or a TransformerConfig "
+            f"with attn_impl={impl!r} and sequence_axis); dot_product_attention does not "
+            "fall back to dense attention")
     raise ValueError(f"unknown attention impl {impl!r} (auto, xla or flash)")
+
+
+# ----------------------------------------------------- sequence parallelism
+
+
+def ring_attention(q, k, v, *, axis_name, causal: bool = False,
+                   scale: Optional[float] = None, key_mask=None):
+    """Ring attention for context parallelism, on this rank's sequence
+    shard [B, H, T_local, D] of a sequence split over the mesh axis
+    ``axis_name`` (``parallel.mesh.use_mesh``): K, V and the key mask
+    [B, T_local] (1 = attend) rotate around the ring by the differentiable
+    ``ppermute`` while an online-softmax accumulator merges each block's
+    partial attention. Plain PyTorch in float32, as the JAX package computes
+    it (no kernel: there it is XLA); causal positions are global, masked
+    scores the finite -1e30, and the result is in q's dtype."""
+    from ..parallel.collectives import axis_index, axis_size, ppermute, ppermute_grad
+
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    n = axis_size(axis_name)
+    me = axis_index(axis_name)
+    B, H, Tl, D = q.shape
+    qf = q.float()
+    qpos = me * Tl + torch.arange(Tl, device=q.device)
+    m = torch.full((B, H, Tl, 1), _NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, Tl, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, H, Tl, D), dtype=torch.float32, device=q.device)
+    kb, vb, mb, src = k, v, key_mask, me
+    perm = [(i, (i + 1) % n) for i in range(n)]
+    for step in range(n):
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kb.float()) * scale
+        if causal:
+            kpos = src * Tl + torch.arange(Tl, device=q.device)
+            s = torch.where((qpos[:, None] >= kpos[None, :])[None, None], s, _NEG_INF)
+        if mb is not None:
+            s = torch.where(mb[:, None, None, :].to(torch.bool), s, _NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + torch.einsum("bhqk,bhkd->bhqd", p, vb.float())
+        m = m_new
+        if step < n - 1:  # after the last block nothing needs the next one
+            kb = ppermute_grad(kb, axis_name, perm)
+            vb = ppermute_grad(vb, axis_name, perm)
+            if mb is not None:
+                mb = ppermute(mb, axis_name, perm)
+            src = (src - 1) % n  # we now hold the previous rank's shard
+    return (acc / l).to(q.dtype)
+
+
+def ulysses_attention(q, k, v, *, axis_name, causal: bool = False,
+                      scale: Optional[float] = None, key_mask=None, inner_impl: str = "auto"):
+    """Ulysses (DeepSpeed-style) sequence parallelism on this rank's
+    sequence shard [B, H, T_local, D] (H divisible by the axis size): the
+    differentiable all-to-all swaps the sequence split for a head split,
+    [B, H/P, T, D], the key mask [B, T_local] is all-gathered to [B, T],
+    ``dot_product_attention(..., impl=inner_impl)`` attends over the whole
+    sequence (on the card, ``auto`` takes the flash kernels whenever
+    :func:`flash_takes` accepts the call), and the output swaps back."""
+    from ..parallel.collectives import all_gather, all_to_all_grad, axis_size
+
+    n = axis_size(axis_name)
+    H = q.shape[1]
+    if H % n:
+        raise ValueError(f"ulysses needs heads ({H}) divisible by axis size ({n})")
+    q, k, v = (all_to_all_grad(t, axis_name, 1, 2) for t in (q, k, v))
+    mask = None
+    if key_mask is not None:
+        mask = all_gather(torch.as_tensor(key_mask, device=q.device), axis_name, axis=1)
+    out = dot_product_attention(q, k, v, mask, causal=causal, scale=scale, impl=inner_impl)
+    return all_to_all_grad(out, axis_name, 2, 1)

@@ -25,6 +25,14 @@ default, or the dense :class:`DecodeSlotPool`). Training: dropout,
 from autograd, through the flash backward kernels for the attention.
 Randomness: where the JAX package takes a ``jax.random`` key (``rng``), the
 port takes a ``torch.Generator`` (``generator``) on the parameters' device.
+
+Sharded training: ``place_params`` gives each rank of a (dp, tp, sp) mesh
+its blocks of the weights by ``partition_specs`` (Megatron's tensor
+parallelism over tp, ring or Ulysses attention over the config's
+``sequence_axis``); ``loss_fn``, ``loss_and_grads`` and
+``make_train_step`` on such a model take the global batch and make one
+logical step with the single-device numbers (the section "a model placed
+on a mesh" below).
 """
 
 from __future__ import annotations
@@ -42,7 +50,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..common.bucketing import bucket_size
 from ..common.device import resolve_device
-from ..kernels.attention import dot_product_attention
+from ..kernels.attention import dot_product_attention, ring_attention, ulysses_attention
 
 _NEG_INF = -1e30  # matches kernels.attention masking
 
@@ -60,12 +68,11 @@ class TransformerConfig:
     dropout: float = 0.1             # applied only when training (train=True)
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
-    attn_impl: str = "auto"          # auto | xla | flash (ring/ulysses: not ported)
+    attn_impl: str = "auto"          # auto | xla | flash | ring | ulysses
+    sequence_axis: Optional[str] = None  # mesh axis of ring/Ulysses attention ("sp")
     norm_position: str = "pre"       # "pre" (GPT-style) | "post" (original BERT)
     gelu_approximate: bool = True    # True = tanh gelu, False = erf gelu
     remat: bool = False              # recompute each block in the backward (memory for FLOPs)
-    # The JAX config's ``sequence_axis`` (ring attention) has no counterpart
-    # until sequence parallelism is ported.
 
     @property
     def head_dim(self) -> int:
@@ -160,6 +167,8 @@ class Transformer(nn.Module):
         self.embed = Embed(cfg, dev)
         self.blocks = nn.ModuleList(Block(cfg, dev) for _ in range(cfg.n_layers))
         self.mlm = MlmHead(cfg, dev)
+        # set by place_params: the mesh whose rank's blocks this module holds
+        self.mesh = None
 
     @property
     def device(self) -> torch.device:
@@ -259,10 +268,16 @@ def _gelu(x, cfg: TransformerConfig):
 
 
 def _attention(cfg: TransformerConfig, q, k, v, pad_mask):
+    if cfg.attn_impl in ("ring", "ulysses") and cfg.sequence_axis:
+        # this rank's sequence shard of a model placed on a mesh
+        # (place_params); the heads may be tp-split at the same time
+        fn = ring_attention if cfg.attn_impl == "ring" else ulysses_attention
+        return fn(q, k, v, axis_name=cfg.sequence_axis, causal=cfg.causal, key_mask=pad_mask)
     if cfg.attn_impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r}: sequence-parallel attention is not "
-            "ported yet (ROADMAP.md, 'Modules still to port': distribution)")
+        raise ValueError(
+            f"attn_impl={cfg.attn_impl!r} requires sequence_axis (a mesh axis "
+            "name) — silently falling back to dense attention would fake "
+            "sequence parallelism")
     return dot_product_attention(q, k, v, pad_mask, causal=cfg.causal,
                                  impl=cfg.attn_impl)
 
@@ -336,6 +351,11 @@ def _residual(cfg: TransformerConfig, p: Block, h, attn_sub, ffn_sub):
 
 
 def _embed(params: Transformer, tokens, cfg: TransformerConfig, *, segments=None):
+    if params.mesh is not None:
+        raise RuntimeError(
+            "a model placed on a mesh (place_params) holds this rank's blocks: it trains "
+            "through loss_fn / loss_and_grads / make_train_step; gather_params gives the "
+            "whole weights for the other entry points")
     e = params.embed
     tokens = _index_tensor(tokens, cfg.vocab_size, "token", e.tok.device)
     T = tokens.shape[-1]
@@ -484,7 +504,13 @@ def loss_fn(params: Transformer, batch, cfg: TransformerConfig, generator=None,
     ``batch``: ``tokens`` [B,T], ``labels``, and optional ``weights``,
     ``segments``, ``pad_mask``. With ``mlm_positions`` ([B,P]) the head and
     the loss run only at those positions, and ``labels``/``weights`` are
-    [B,P] (the TF-BERT pretraining layout)."""
+    [B,P] (the TF-BERT pretraining layout).
+
+    On a model placed on a mesh (:func:`place_params`), ``batch`` is still
+    the global batch: this rank computes its rows and sequence positions and
+    returns its share of the loss (:func:`_placed_loss`)."""
+    if params.mesh is not None:
+        return _placed_loss(params, batch, cfg, generator, train)
     h = _encode(params, batch["tokens"], cfg, segments=batch.get("segments"),
                 pad_mask=batch.get("pad_mask"), generator=generator, train=train)
     logits = _mlm_head(params, h, cfg, positions=batch.get("mlm_positions"))
@@ -587,6 +613,8 @@ def loss_and_grads(params: Transformer, batch, cfg: TransformerConfig, generator
     with torch.enable_grad():
         loss = loss_fn(params, batch, cfg, generator, train)
     (grads,) = _grads(loss, params)
+    if params.mesh is not None:  # this rank's share: sum over the ranks of distinct tokens
+        return _reduce_placed(params, cfg, loss.detach(), grads)
     return loss.detach(), grads
 
 
@@ -959,6 +987,285 @@ def generate(params: Transformer, prompts, max_new_tokens: int, cfg: Transformer
 
 
 _PAGED_EXPORTS = ("BlockAllocator", "NoFreeBlocksError", "PagedDecodeSlotPool")
+
+
+# ------------------------------------------------ a model placed on a mesh
+#
+# The flagship on a dp x tp x sp mesh (``parallel.mesh``: axes "dp", "tp"
+# and the config's ``sequence_axis``), the JAX package's ``partition_specs``
+# and ``batch_specs`` and its shard_map'd step, written out by hand. Each
+# rank's module holds its blocks of the parameters (``place_params``) and
+# computes its rows (dp) and sequence positions (sp) of the global batch:
+#
+# - Megatron tensor parallelism over tp: ``qkv_w`` is split by columns but
+#   its blocks are contiguous over q|k|v, not grouped by head, so it (and
+#   ``qkv_b``) is all-gathered over tp and each rank takes its heads'
+#   columns; ``out_w`` and ``ffn_w2`` (rows) and ``ffn_w1`` (columns) line
+#   up with Megatron's split as they are, their partial products summed
+#   over tp before ``out_b`` / ``ffn_b2`` are added once;
+# - the embedding table is vocab-split over tp: a masked local lookup
+#   summed over tp, and the tied decoder gives vocab-split logits whose
+#   logsumexp and gold logit are reduced over tp;
+# - sequence parallelism over sp: ``pos`` rows at the rank's offset, ring or
+#   Ulysses attention (``kernels.attention``), and the MLM positions (which
+#   index the global sequence) each counted by the rank that owns them;
+# - dropout masks drawn at the global shape and sliced.
+#
+# Each rank's loss is its share of the global loss; ``loss_and_grads`` sums
+# the shares and the gradients over the ranks that saw distinct tokens (dp
+# and sp), and only over those: a leaf's tp copies compute the same thing.
+
+
+def partition_specs(cfg: TransformerConfig) -> Dict[str, object]:
+    """PartitionSpec tree matching the JAX ``init_params`` tree: Megatron
+    splits over ``tp`` (qkv/ffn_w1 by columns, out_w/ffn_w2 by rows, the
+    embedding table and the decoder's bias by vocab), the rest whole."""
+    from ..parallel.sharding import P
+
+    block = {
+        "qkv_w": P(None, "tp"), "qkv_b": P("tp"),
+        "out_w": P("tp", None), "out_b": P(),
+        "ln1_scale": P(), "ln1_bias": P(),
+        "ffn_w1": P(None, "tp"), "ffn_b1": P("tp"),
+        "ffn_w2": P("tp", None), "ffn_b2": P(),
+        "ln2_scale": P(), "ln2_bias": P(),
+    }
+    return {
+        "embed": {"tok": P("tp", None), "pos": P(), "seg": P(),
+                  "ln_scale": P(), "ln_bias": P()},
+        "blocks": [dict(block) for _ in range(cfg.n_layers)],
+        "mlm": {"w": P(), "b": P(), "ln_scale": P(), "ln_bias": P(), "out_bias": P("tp")},
+    }
+
+
+def batch_specs(cfg: TransformerConfig) -> Dict[str, object]:
+    """Input split: batch over dp, sequence over the sequence axis."""
+    from ..parallel.sharding import P
+
+    tok = P("dp", cfg.sequence_axis)
+    return {"tokens": tok, "segments": tok, "labels": tok, "weights": tok,
+            "mlm_positions": P("dp", None), "pad_mask": tok}
+
+
+def _flat_specs(cfg: TransformerConfig) -> Dict[str, object]:
+    """{parameter name (``blocks.3.qkv_w``): spec} of :func:`partition_specs`."""
+    specs = partition_specs(cfg)
+    out = {f"{top}.{k}": sp for top in ("embed", "mlm") for k, sp in specs[top].items()}
+    for i, blk in enumerate(specs["blocks"]):
+        out.update({f"blocks.{i}.{k}": sp for k, sp in blk.items()})
+    return out
+
+
+def _present(spec, mesh):
+    """``spec`` with the axes the mesh lacks dropped (a whole dim)."""
+    from ..parallel.sharding import P
+
+    return P(*(a if a is None or a in mesh.shape else None for a in spec))
+
+
+@torch.no_grad()
+def place_params(tree, cfg: TransformerConfig, mesh, *, device="cuda") -> Transformer:
+    """This rank's :class:`Transformer` on ``mesh``: the JAX ``init_params``
+    tree (numpy leaves), each leaf cut to the block that
+    :func:`partition_specs` gives the rank's mesh coordinates. The model
+    trains through ``loss_fn``/``loss_and_grads``/``make_train_step`` on the
+    global batch; :func:`gather_params` is the inverse."""
+    from ..parallel.sharding import shard_slices
+    from .weights import _flatten, _to_tensor
+
+    if "tp" not in mesh.shape or (cfg.sequence_axis and cfg.sequence_axis not in mesh.shape):
+        raise ValueError(f"mesh {mesh.shape} lacks the tp axis or the sequence axis "
+                         f"{cfg.sequence_axis!r}")
+    if cfg.remat:
+        raise ValueError("remat on a placed model: recomputing a block would repeat its "
+                         "collectives; train the placed model with remat=False")
+    specs = _flat_specs(cfg)
+    flat = dict(_flatten(tree))
+    model = Transformer(cfg, device=device)
+    for name, p in model.named_parameters():
+        whole = _to_tensor(flat[name])
+        block = whole[shard_slices(whole.shape, _present(specs[name], mesh), mesh)]
+        p.data = block.to(device=p.device, dtype=p.dtype).contiguous()
+    model.mesh = mesh
+    return model
+
+
+@torch.no_grad()
+def gather_params(model: Transformer, tensors: Optional[Dict[str, torch.Tensor]] = None):
+    """The whole parameters of a placed model (or of ``tensors``, blocks
+    keyed by parameter name: its gradients, an updater slot) as the JAX
+    ``init_params`` tree of numpy arrays. A collective: every rank of the
+    mesh calls it."""
+    from ..parallel.partition import gather_leaf
+
+    specs = _flat_specs(model.cfg)
+    tensors = dict(model.named_parameters()) if tensors is None else tensors
+    out: Dict[str, object] = {"embed": {}, "blocks": [{} for _ in model.blocks], "mlm": {}}
+    for name, p in tensors.items():
+        whole = gather_leaf(p.detach(), _present(specs[name], model.mesh), model.mesh)
+        parts = name.split(".")
+        node = out["blocks"][int(parts[1])] if parts[0] == "blocks" else out[parts[0]]
+        node[parts[-1]] = whole.float().cpu().numpy()
+    return out
+
+
+def shard_batch(batch, cfg: TransformerConfig, mesh):
+    """This rank's part of each array of a global batch, by
+    :func:`batch_specs`; with ``mlm_positions``, ``labels`` and ``weights``
+    are [B, P] in position space and split over dp only."""
+    from ..parallel.sharding import shard_slices
+
+    specs = batch_specs(cfg)
+    if batch.get("mlm_positions") is not None:
+        specs["labels"] = specs["weights"] = specs["mlm_positions"]
+    out = {}
+    for key, x in batch.items():
+        if x is None:
+            out[key] = None
+            continue
+        shape = tuple(np.shape(x))
+        out[key] = x[shard_slices(shape, _present(specs[key], mesh), mesh)]
+    return out
+
+
+def _rows(cfg: TransformerConfig, mesh, positions: bool = False):
+    """The mesh axes of distinct tokens (dp, and the sequence axis): the
+    ranks whose loss shares and gradients add up. With MLM ``positions``
+    the weights are split over dp only."""
+    axes = ["dp"] + ([] if positions else [cfg.sequence_axis])
+    return tuple(a for a in axes if a and a in mesh.shape)
+
+
+def _placed_dropout(x, cfg: TransformerConfig, generator, train: bool, mesh, B: int, T: int):
+    """``_dropout`` with the mask drawn at the global [B, T, D] and cut to
+    this rank's rows and positions."""
+    if not train or cfg.dropout <= 0.0 or generator is None:
+        return x
+    from ..parallel.sharding import P, shard_slices
+
+    keep = 1.0 - cfg.dropout
+    shape = (B, T, x.shape[-1])
+    mask = dropout_mask(generator, keep, shape, x.device)
+    mask = mask[shard_slices(shape, _present(P("dp", cfg.sequence_axis), mesh), mesh)]
+    return torch.where(mask, x / keep, 0.0)
+
+
+def _placed_block(cfg: TransformerConfig, p: Block, h, pad_mask, generator, train, mesh,
+                  B: int, T: int):
+    """``_block`` on this rank's rows, positions and heads."""
+    from ..parallel.collectives import all_gather_grad, copy_to_axis, reduce_from_axis
+
+    b, t, D = h.shape
+    tp = mesh.axis_size("tp")
+    Hl, hd = cfg.n_heads // tp, cfg.head_dim
+    cd = cfg.compute_dtype
+    lo = mesh.axis_index("tp") * Hl * hd
+    # this rank's heads' columns of q, k and v in the whole [D, 3D] weight
+    cols = torch.cat([torch.arange(j * D + lo, j * D + lo + Hl * hd, device=h.device)
+                      for j in range(3)])
+
+    def attn_sub(x):
+        x = copy_to_axis(x, "tp")
+        w = all_gather_grad(p.qkv_w, "tp", axis=1)[:, cols]
+        bias = all_gather_grad(p.qkv_b, "tp", axis=0)[cols]
+        qkv = x @ w.to(cd) + bias.to(cd)
+        q, k, v = (u.reshape(b, t, Hl, hd).transpose(1, 2) for u in qkv.split(Hl * hd, dim=-1))
+        o = _attention(cfg, q, k, v, pad_mask).transpose(1, 2).reshape(b, t, Hl * hd)
+        o = reduce_from_axis(o @ p.out_w.to(cd), "tp") + p.out_b.to(cd)
+        return _placed_dropout(o, cfg, generator, train, mesh, B, T)
+
+    def ffn_sub(x):
+        x = copy_to_axis(x, "tp")
+        x = _gelu(x @ p.ffn_w1.to(cd) + p.ffn_b1.to(cd), cfg)
+        x = reduce_from_axis(x @ p.ffn_w2.to(cd), "tp") + p.ffn_b2.to(cd)
+        return _placed_dropout(x, cfg, generator, train, mesh, B, T)
+
+    return _residual(cfg, p, h, attn_sub, ffn_sub)
+
+
+def _placed_loss(params: Transformer, batch, cfg: TransformerConfig, generator, train: bool):
+    """This rank's share of ``loss_fn`` on the global ``batch``: the sum of
+    its tokens' (or owned MLM positions') weighted cross-entropy over the
+    global weight sum."""
+    from ..parallel.collectives import copy_to_axis, pmax, psum, reduce_from_axis
+    from ..parallel.mesh import use_mesh
+
+    mesh = params.mesh
+    B, T = np.shape(batch["tokens"])
+    local = shard_batch(batch, cfg, mesh)
+    e, m = params.embed, params.mlm
+    dev = e.tok.device
+    V = cfg.vocab_size
+    Vl = e.tok.shape[0]
+    cd = cfg.compute_dtype
+    with use_mesh(mesh):
+        vlo = mesh.axis_index("tp") * Vl
+        tokens = _index_tensor(local["tokens"], V, "token", dev)
+        b, t = tokens.shape
+        off = mesh.axis_index(cfg.sequence_axis) * t if cfg.sequence_axis else 0
+        # vocab-parallel lookup: each tp rank adds its rows of the table
+        ids = tokens - vlo
+        inside = (ids >= 0) & (ids < Vl)
+        h = reduce_from_axis(e.tok[ids.clamp(0, Vl - 1)] * inside[..., None], "tp")
+        h = h + e.pos[off:off + t][None]
+        if local.get("segments") is not None:
+            h = h + e.seg[_index_tensor(local["segments"], cfg.type_vocab, "segment", dev)]
+        elif cfg.type_vocab > 0:
+            h = h + e.seg[0]
+        h = _layer_norm(h, e.ln_scale, e.ln_bias).to(cd)
+        pad_mask = local.get("pad_mask")
+        if pad_mask is not None:
+            pad_mask = torch.as_tensor(pad_mask, device=dev)
+        for blk in params.blocks:
+            h = _placed_block(cfg, blk, h, pad_mask, generator, train, mesh, B, T)
+        positions = local.get("mlm_positions")
+        weights = local.get("weights")
+        labels = _index_tensor(local["labels"], V, "label", dev)
+        weights = (torch.ones(labels.shape, dtype=torch.float32, device=dev) if weights is None
+                   else torch.as_tensor(weights, device=dev).float())
+        if positions is not None:
+            # global positions: this rank counts those in its sequence shard
+            pos = _index_tensor(positions, T, "position", dev) - off
+            own = (pos >= 0) & (pos < t)
+            pos = pos.clamp(0, t - 1)
+            h = torch.gather(h, 1, pos[..., None].expand(*pos.shape, h.shape[-1]))
+            counted = weights * own
+        else:
+            counted = weights
+        x = _gelu(h.to(cd) @ m.w.to(cd) + m.b.to(cd), cfg)
+        x = copy_to_axis(_layer_norm(x, m.ln_scale, m.ln_bias), "tp")
+        logits = x.to(cd).float() @ e.tok.to(cd).float().T + m.out_bias.float()
+        # vocab-parallel logsumexp and gold logit
+        mx = pmax(logits.detach().amax(dim=-1), "tp")
+        logz = torch.log(reduce_from_axis(torch.exp(logits - mx[..., None]).sum(-1), "tp")) + mx
+        lab = labels - vlo
+        hit = (lab >= 0) & (lab < Vl)
+        gold = reduce_from_axis(
+            torch.gather(logits, -1, lab.clamp(0, Vl - 1)[..., None])[..., 0] * hit, "tp")
+        total = psum(weights.sum(), _rows(cfg, mesh, positions is not None))
+        return ((logz - gold) * counted).sum() / torch.clamp(total, min=1.0)
+
+
+def _reduce_placed(params: Transformer, cfg: TransformerConfig, share, grads):
+    """(loss, grads) of the global batch from this rank's share and its
+    gradients: one all-reduce of the flattened gradients and the share over
+    the ranks of distinct tokens."""
+    from ..parallel.collectives import psum
+    from ..parallel.mesh import use_mesh
+
+    rows = _rows(cfg, params.mesh)
+    if params.mesh.axis_size(rows) == 1:
+        return share, grads
+    names = list(grads)
+    buf = torch.cat([grads[n].reshape(-1) for n in names] + [share.float().reshape(1)])
+    with use_mesh(params.mesh):
+        buf = psum(buf, rows)
+    out, off = {}, 0
+    for n in names:
+        k = grads[n].numel()
+        out[n] = buf[off:off + k].view(grads[n].shape).to(grads[n].dtype)
+        off += k
+    return buf[-1], out
 
 
 def __getattr__(name):

@@ -131,6 +131,76 @@ def _dense(x, params, has_bias):
     return z + params["b"] if has_bias else z
 
 
+# ---------------------------------------------------------------- param roles
+
+# Role vocabulary for parameter partitioning (``parallel.partition.SpecLayout``
+# maps each role to a PartitionSpec over the data/fsdp/tp mesh): a copy of
+# the JAX package's table. nn owns the vocabulary and the name→role tagging;
+# parallel owns the role→spec policy.
+ROLE_EMBEDDING = "embedding"   # lookup tables: vocab/class dim shards fsdp×tp
+ROLE_KERNEL = "kernel"         # dense/conv/recurrent projection matrices
+ROLE_NORM = "norm"             # per-feature scales (gamma/beta/alpha/ln_*)
+ROLE_BIAS = "bias"             # per-unit offsets (and scalar margins)
+
+# Canonical param-name → role table covering every name the JAX package's
+# layers and functional models produce. Partitioning treats an unknown name
+# as UNCOVERED (no silent replication): add new names here, or override
+# ``Layer.param_roles`` where a name's role is layer-dependent.
+_PARAM_NAME_ROLES = {
+    "W": ROLE_KERNEL, "RW": ROLE_KERNEL, "b": ROLE_BIAS,
+    "gamma": ROLE_NORM, "beta": ROLE_NORM,
+    "pi": ROLE_BIAS, "pf": ROLE_BIAS, "po": ROLE_BIAS,  # LSTM peepholes [H]
+    "dW": ROLE_KERNEL, "pW": ROLE_KERNEL,  # separable conv depth/pointwise
+    "rb": ROLE_BIAS,                       # GRU reset_after bias
+    "alpha": ROLE_NORM,                    # PReLU per-feature slope
+    "centers": ROLE_EMBEDDING,             # CenterLoss per-class centers
+    "V": ROLE_KERNEL, "w": ROLE_KERNEL, "r": ROLE_BIAS,  # OCNN
+    "Wq": ROLE_KERNEL, "Wk": ROLE_KERNEL, "Wv": ROLE_KERNEL,
+    "Wo": ROLE_KERNEL, "Wr": ROLE_KERNEL,
+    "Wh": ROLE_KERNEL, "Wx": ROLE_KERNEL,
+    "Q": ROLE_EMBEDDING,                   # learned query table [n_queries, proj]
+    # functional transformer (models/transformer.py)
+    "tok": ROLE_EMBEDDING, "pos": ROLE_EMBEDDING, "seg": ROLE_EMBEDDING,
+    "qkv_w": ROLE_KERNEL, "out_w": ROLE_KERNEL,
+    "ffn_w1": ROLE_KERNEL, "ffn_w2": ROLE_KERNEL,
+    "qkv_b": ROLE_BIAS, "out_b": ROLE_BIAS,
+    "ffn_b1": ROLE_BIAS, "ffn_b2": ROLE_BIAS, "out_bias": ROLE_BIAS,
+    "ln_scale": ROLE_NORM, "ln_bias": ROLE_NORM,
+    "ln1_scale": ROLE_NORM, "ln1_bias": ROLE_NORM,
+    "ln2_scale": ROLE_NORM, "ln2_bias": ROLE_NORM,
+}
+
+
+def param_role(name: str, leaf=None) -> Optional[str]:
+    """Role for one param leaf by name (None = uncovered). Falls back to
+    suffix patterns (``*_w``/``*_b``/``*_scale``/``*_bias``/``*embed*``)."""
+    if name in _PARAM_NAME_ROLES:
+        return _PARAM_NAME_ROLES[name]
+    ln = name.lower()
+    if "embed" in ln:
+        return ROLE_EMBEDDING
+    if ln.endswith("_scale") or ln.endswith("_gain"):
+        return ROLE_NORM
+    if ln.endswith("_bias") or ln.endswith("_b"):
+        return ROLE_BIAS
+    if ln.endswith("_w") or ln.endswith("_kernel"):
+        return ROLE_KERNEL
+    return None
+
+
+def classify_param_tree(params) -> Any:
+    """Mirror a params (sub)tree with role strings / None per leaf. Nested
+    containers (graph node dicts, transformer block lists) recurse; a
+    leaf's role comes from its own key name."""
+    if isinstance(params, dict) or hasattr(params, "items"):
+        return {k: (classify_param_tree(v) if isinstance(v, (dict, list, tuple))
+                    else param_role(k, v))
+                for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(classify_param_tree(v) for v in params)
+    return None  # bare leaf with no name context
+
+
 # --------------------------------------------------------------- base config
 
 
@@ -162,6 +232,11 @@ class Layer:
 
     def has_params(self) -> bool:
         return True
+
+    def param_roles(self, params) -> Any:
+        """Role tree mirroring ``init_params``' output (the role vocabulary
+        above): each leaf classified by its canonical parameter name."""
+        return classify_param_tree(params)
 
     def flops_per_example(self, it: InputType) -> float:
         """Estimated forward floating-point operations for one example; the

@@ -47,11 +47,10 @@ from ..common.precision import amp_enabled, cast_floating, cast_input, compute_d
 from ..data.dataset import DataSet, MultiDataSet
 from ..eval.evaluation import Evaluation
 from .conf import BatchNormalization, GlobalPoolingLayer, LastTimeStep
-from .constraints import apply_constraints
 from .dropout import RngKey
 from .graph_conf import ComputationGraphConfiguration
 from .multilayer import (_WEIGHT_NOISE_SALT, _BnState, _grad_normalize, _LazyScoreMixin,
-                         _mask_frozen, reduce_nested)
+                         _mask_frozen, constrain, reduce_nested)
 
 _RESERVED = frozenset(dir(nn.ModuleDict()))
 
@@ -208,6 +207,8 @@ class ComputationGraph(_LazyScoreMixin, nn.Module):
         cdt = compute_dtype(self.device)
         params = self._params()
         dp = self._data_parallel
+        shards = getattr(dp, "shards", None)  # a partitioned graph: see MultiLayerNetwork._step
+        live = shards.gather(params) if shards is not None else params
         weight = None
         if dp is not None and lmasks:
             if len(self.conf.network_outputs) != 1:
@@ -216,11 +217,11 @@ class ComputationGraph(_LazyScoreMixin, nn.Module):
                     "each output's loss has its own live count")
             weight = dp.loss_weight(next(iter(lmasks.values())))
         with torch.enable_grad(), data_parallel.use(dp):
-            pc = cast_floating(params, cdt) if amp else params
+            pc = cast_floating(live, cdt) if amp else live
             xc = {k: cast_input(v, cdt) for k, v in inputs.items()} if amp else inputs
             loss, new_bn = self._forward(pc, self._bn(), xc, training=True, rng=rng,
                                          labels=labels, lmasks=lmasks)
-            flat = [(name, k, p) for name, pd in params.items() for k, p in pd.items()]
+            flat = [(name, k, p) for name, pd in live.items() for k, p in pd.items()]
             raw = torch.autograd.grad(loss if weight is None else loss * weight,
                                       [p for _, _, p in flat], allow_unused=True)
         grads = {name: {} for name in params}
@@ -233,28 +234,28 @@ class ComputationGraph(_LazyScoreMixin, nn.Module):
         grads = _mask_frozen(grads, frozen)
         grads = _grad_normalize(grads, self.conf.gradient_normalization,
                                 self.conf.gradient_normalization_threshold)
-        named = {f"{self._keys[name]}.{k}": p for name, k, p in flat}
+        if shards is not None:
+            grads = shards.keep(grads)
+        named = {f"{self._keys[name]}.{k}": p for name, pd in params.items() for k, p in pd.items()}
         grads = {f"{self._keys[name]}.{k}": g for name, v in grads.items() for k, g in v.items()}
         updates, self.updater_state = self.conf.updater.apply(
             grads, self.updater_state, named, iteration, self.epoch)
         with torch.no_grad():
             for key, p in named.items():
                 p.sub_(updates[key])
-            self._apply_constraints()
+            self._apply_constraints(shards)
             for name, st in new_bn.items():
                 self.bn_state[self._keys[name]].mean.copy_(st["mean"])
                 self.bn_state[self._keys[name]].var.copy_(st["var"])
         return loss.detach()
 
     @torch.no_grad()
-    def _apply_constraints(self):
+    def _apply_constraints(self, shards=None):
         """Post-update constraint projection (parity with MultiLayerNetwork)."""
         for name, node in self.conf.nodes.items():
             key = self._keys[name]
             if node.layer is not None and node.layer.constraints and key in self.params_:
-                pd = self.params_[key]
-                for k, w in apply_constraints(dict(pd.items()), node.layer.constraints).items():
-                    pd[k].copy_(w)
+                constrain(self.params_[key], name, node.layer.constraints, shards)
 
     # ------------------------------------------------------------------- fit
 
@@ -332,7 +333,8 @@ class ComputationGraph(_LazyScoreMixin, nn.Module):
         """Every network output's activations, in the order of
         ``network_outputs``, in inference mode and the model's dtype."""
         inputs = self._coerce_inputs(list(features) if len(features) > 1 else features[0])
-        outs, _ = self._forward(self._params(), self._bn(), inputs, training=False, rng=None)
+        outs, _ = self._forward(self._whole_params("output()"), self._bn(), inputs,
+                                training=False, rng=None)
         return [outs[o] for o in self.conf.network_outputs]
 
     def output_single(self, features) -> torch.Tensor:
@@ -345,7 +347,8 @@ class ComputationGraph(_LazyScoreMixin, nn.Module):
         if ds is None:
             return self.score_
         inputs, labels, _ = self._batch(ds)
-        loss, _ = self._forward(self._params(), self._bn(), inputs, training=False, rng=None,
+        loss, _ = self._forward(self._whole_params("score()"), self._bn(), inputs,
+                                training=False, rng=None,
                                 labels=labels)
         return float(loss)
 
@@ -383,6 +386,7 @@ class ComputationGraph(_LazyScoreMixin, nn.Module):
 
     @torch.no_grad()
     def params(self) -> torch.Tensor:
+        self._whole_params("params()")
         chunks = [w.reshape(-1) for _, _, w in self._param_entries()]
         return (torch.cat(chunks) if chunks
                 else torch.zeros((0,), dtype=self._dtype, device=self.device))
@@ -392,6 +396,7 @@ class ComputationGraph(_LazyScoreMixin, nn.Module):
 
     @torch.no_grad()
     def set_params(self, flat) -> None:
+        self._whole_params("set_params()")
         arr = (flat if isinstance(flat, torch.Tensor)
                else torch.as_tensor(np.asarray(flat))).reshape(-1)
         expected = self.num_params()

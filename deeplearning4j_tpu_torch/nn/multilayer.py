@@ -76,6 +76,15 @@ def reduce_nested(dp, grads, loss, weight):
     return out, loss
 
 
+def constrain(pd, layer: str, constraints, shards=None) -> None:
+    """Apply ``constraints`` to one layer's parameters ``pd`` in place; a
+    partitioned network's (``shards``) are gathered first and each rank
+    keeps its block of the result."""
+    whole = dict(pd.items()) if shards is None else shards.whole(layer, pd)
+    for k, w in apply_constraints(whole, constraints).items():
+        pd[k].copy_(w if shards is None else shards.block(layer, k, w))
+
+
 def _layer_norm(layer_grads):
     return torch.sqrt(sum(torch.sum(torch.square(g)) for g in layer_grads.values()) + 1e-12)
 
@@ -132,6 +141,20 @@ class _LazyScoreMixin:
     @score_.setter
     def score_(self, v):
         self.__dict__["_score_v"] = float(v) if isinstance(v, (int, float)) else v
+
+    #: set by ``parallel.partition.Partitioner.partition_net``: this rank
+    #: holds blocks of the parameters and updater state
+    _partition = None
+
+    def _whole_params(self, what: str):
+        """``_params()`` where ``what`` needs whole tensors: a partitioned
+        network raises (its blocks are not the parameters)."""
+        if self._partition is not None:
+            raise RuntimeError(
+                f"{what} on a partitioned network: each rank holds blocks of its "
+                "parameters; gather them with net._partition.gather_state(net), or "
+                "restore a checkpoint into a network without a partitioner")
+        return self._params()
 
     def _put(self, arr, dtype=None):
         """An input array as a tensor on the network's device (float64
@@ -286,13 +309,17 @@ class MultiLayerNetwork(_LazyScoreMixin, nn.Module):
         cdt = compute_dtype(self.device)
         params = self._params()
         dp = self._data_parallel
+        # a partitioned network (parallel.partition) holds blocks: the step
+        # runs on the whole tensors and updates the blocks
+        shards = getattr(dp, "shards", None)
+        live = shards.gather(params) if shards is not None else params
         with torch.enable_grad(), data_parallel.use(dp):
-            pc = cast_floating(params, cdt) if amp else params
+            pc = cast_floating(live, cdt) if amp else live
             xc = cast_input(x, cdt) if amp else x
             loss, (new_bn, new_rnn) = self._loss_fn(pc, self._bn(), xc, y, fmask, lmask, rng,
                                                     True, rnn_states)
             weight = dp.loss_weight(lmask) if dp is not None else None
-            flat = [(si, k, p) for si, pd in params.items() for k, p in pd.items()]
+            flat = [(si, k, p) for si, pd in live.items() for k, p in pd.items()]
             raw = torch.autograd.grad(loss if weight is None else loss * weight,
                                       [p for _, _, p in flat], allow_unused=True)
         grads = {si: {} for si in params}
@@ -304,14 +331,16 @@ class MultiLayerNetwork(_LazyScoreMixin, nn.Module):
         grads = _mask_frozen(grads, frozen)
         grads = _grad_normalize(grads, self.conf.gradient_normalization,
                                 self.conf.gradient_normalization_threshold)
-        named = {f"{si}.{k}": p for si, k, p in flat}
+        if shards is not None:
+            grads = shards.keep(grads)
+        named = {f"{si}.{k}": p for si, pd in params.items() for k, p in pd.items()}
         grads = {f"{si}.{k}": g for si, v in grads.items() for k, g in v.items()}
         updates, self.updater_state = self.conf.updater.apply(
             grads, self.updater_state, named, iteration, self.epoch)
         with torch.no_grad():
             for name, p in named.items():
                 p.sub_(updates[name])
-            self._apply_constraints()
+            self._apply_constraints(shards)
             for si, st in new_bn.items():
                 self.bn_state[si].mean.copy_(st["mean"])
                 self.bn_state[si].var.copy_(st["var"])
@@ -319,14 +348,14 @@ class MultiLayerNetwork(_LazyScoreMixin, nn.Module):
         return loss.detach(), new_rnn
 
     @torch.no_grad()
-    def _apply_constraints(self):
-        """Post-update constraint projection (BaseConstraint.applyConstraint)."""
+    def _apply_constraints(self, shards=None):
+        """Post-update constraint projection (BaseConstraint.applyConstraint);
+        on a partitioned network, of the whole tensors (a norm spans every
+        block)."""
         for i, layer in enumerate(self.conf.layers):
             si = str(i)
             if layer.constraints and si in self.params_:
-                pd = self.params_[si]
-                for k, w in apply_constraints(dict(pd.items()), layer.constraints).items():
-                    pd[k].copy_(w)
+                constrain(self.params_[si], si, layer.constraints, shards)
 
     def _step_rng(self, iteration):
         return RngKey((self.conf.seed ^ 0x5EED, int(iteration)))
@@ -459,7 +488,7 @@ class MultiLayerNetwork(_LazyScoreMixin, nn.Module):
     def output(self, x, training: bool = False) -> torch.Tensor:
         """Forward to the final layer's activations (MultiLayerNetwork.output),
         in inference mode and the model's dtype."""
-        params = self._params()
+        params = self._whole_params("output()")
         h, _, _ = self._forward(params, self._bn(), self._put(x, self._dtype), training=False,
                                 rng=None)
         return self._head_forward(params, h)
@@ -467,7 +496,7 @@ class MultiLayerNetwork(_LazyScoreMixin, nn.Module):
     @torch.no_grad()
     def feed_forward(self, x) -> List[torch.Tensor]:
         """All layer activations (MultiLayerNetwork.feedForward)."""
-        params = self._params()
+        params = self._whole_params("feed_forward()")
         xj = self._put(x, self._dtype)
         acts, _, _ = self._forward(params, self._bn(), xj, training=False, rng=None,
                                    collect=True)
@@ -478,7 +507,8 @@ class MultiLayerNetwork(_LazyScoreMixin, nn.Module):
         """Score = loss on dataset (Model.score), in inference mode."""
         if ds is None:
             return self.score_
-        loss, _ = self._loss_fn(self._params(), self._bn(), self._put(ds.features, self._dtype),
+        loss, _ = self._loss_fn(self._whole_params("score()"), self._bn(),
+                                self._put(ds.features, self._dtype),
                                 self._put(ds.labels), self._put(ds.features_mask),
                                 self._put(ds.labels_mask), None, False)
         return float(loss)
@@ -494,7 +524,7 @@ class MultiLayerNetwork(_LazyScoreMixin, nn.Module):
             xj = xj[:, :, None]
         if not self._rnn_state:
             self._rnn_state = self._zero_rnn_states(xj.shape[0])
-        params, bn = self._params(), self._bn()
+        params, bn = self._whole_params("rnn_time_step()"), self._bn()
         new_rnn = {}
         h = xj
         for i, layer in enumerate(self.conf.layers[:-1]):
@@ -532,6 +562,7 @@ class MultiLayerNetwork(_LazyScoreMixin, nn.Module):
     def params(self) -> torch.Tensor:
         """Flat 1-D copy of all parameters in the JAX package's order (layers
         by index, names sorted), as MultiLayerNetwork.params()'s buffer."""
+        self._whole_params("params()")
         chunks = [w.reshape(-1) for _, _, w in self._param_entries()]
         return (torch.cat(chunks) if chunks
                 else torch.zeros((0,), dtype=self._dtype, device=self.device))
@@ -541,6 +572,7 @@ class MultiLayerNetwork(_LazyScoreMixin, nn.Module):
 
     @torch.no_grad()
     def set_params(self, flat) -> None:
+        self._whole_params("set_params()")
         arr = (flat if isinstance(flat, torch.Tensor)
                else torch.as_tensor(np.asarray(flat))).reshape(-1)
         expected = self.num_params()

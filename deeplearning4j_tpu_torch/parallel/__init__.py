@@ -1,9 +1,11 @@
-"""Parallelism of the port: data-parallel training over processes, one
-device each (``mesh``, ``trainer``, ``wrapper``, ``launcher``,
-``collectives``, ``compression``), and batched inference on one card
-(``inference``). The JAX package's sharded training (FSDP x TP layouts,
-tensor-parallel rules, pipelines, sequence parallelism) and its gang
-supervisor are the next slice (ROADMAP.md item 6).
+"""Parallelism of the port: training over processes, one device each, on a
+mesh of ranks with named axes (``mesh``, ``collectives``, ``launcher``,
+``trainer``, ``wrapper``, ``compression``): data-parallel, and sharded
+(FSDP x TP layouts in ``partition``, tensor-parallel rules in
+``sharding``; sequence parallelism is ``kernels.attention``'s ring and
+Ulysses attention); and batched inference on one card (``inference``).
+Pipelines (a ``pipe`` axis) and the gang supervisor are ROADMAP.md item
+6c.
 
 The package's names load lazily (PEP 562): a serving router that imports
 ``parallel.inference`` does not pay for importing torch."""
@@ -11,16 +13,21 @@ The package's names load lazily (PEP 562): a serving router that imports
 from importlib import import_module
 
 _EXPORTS = {
-    "MeshSpec": "mesh", "build_mesh": "mesh", "device_count": "mesh",
-    "mesh_from_shape": "mesh", "data_parallel_mesh": "mesh",
+    "MeshSpec": "mesh", "Mesh": "mesh", "build_mesh": "mesh", "device_count": "mesh",
+    "mesh_from_shape": "mesh", "data_parallel_mesh": "mesh", "tp_dp_mesh": "mesh",
+    "use_mesh": "mesh", "SpecLayout": "partition", "Partitioner": "partition",
+    "PartitionReport": "partition", "largest_layout": "partition",
+    "ShardingRules": "sharding", "alternating_dense_rules": "sharding",
+    "PartitionSpec": "sharding",
     "ParallelTrainer": "trainer", "MultiProcessTrainer": "trainer",
     "ParameterAveragingTrainingMaster": "trainer", "SharedTrainingMaster": "trainer",
     "ParallelWrapper": "wrapper", "ParallelInference": "inference",
 }
 _SUBMODULES = ("collectives", "compression", "launcher", "mesh", "trainer", "wrapper",
-               "inference")
+               "inference", "partition", "sharding")
 
-__all__ = sorted(_EXPORTS) + ["collectives", "compression", "launcher"]
+__all__ = sorted(_EXPORTS) + ["collectives", "compression", "launcher", "partition",
+                              "sharding"]
 
 
 def __getattr__(name):

@@ -1,13 +1,31 @@
-"""Collectives: the data group's reductions, and the host-side control SPI
-with an in-process fake that injects failures and delays.
+"""Collectives: reductions and exchanges over the axes of the mesh, their
+differentiable forms, and the host-side control SPI with an in-process fake
+that injects failures and delays.
 
 Counterpart of ``deeplearning4j_tpu/parallel/collectives.py``. The JAX
-package compiles its data-plane collectives into the step
-(``jax.lax.psum`` over a mesh axis); the port issues them eagerly through
-``torch.distributed`` over the data group (``parallel.mesh``): NCCL between
-cards, gloo between CPU processes. ``axis_name`` names the mesh axis as in
-the JAX package; the port's mesh has one, ``data``. Each function returns a
-new tensor and leaves its argument as it was.
+package compiles its data-plane collectives into the step (``jax.lax.psum``
+over a mesh axis); the port issues them eagerly through ``torch.distributed``
+over the process groups of the active mesh (``parallel.mesh.use_mesh``, else
+the data mesh over the whole group): NCCL between cards, gloo between CPU
+processes or between ranks sharing one card. ``axis_name`` is an axis of the
+mesh or a tuple of axes, as in ``jax.lax``; over a tuple, indices are
+row-major, the first axis the major one. Each function returns a new tensor
+and leaves its argument as it was.
+
+Host staging. Gloo takes CUDA tensors for some collectives and not for
+others (it passes the device pointer to a socket write, and the process
+aborts). :func:`stages` decides, once per call and from the backend alone,
+whether a collective goes through a host copy: only under gloo, only for a
+CUDA tensor, and only for the operations in :data:`GLOO_CUDA_STAGED`, the
+ones gloo refused on an H100 (``chip_smoke.py`` phase 11 prints them).
+Under NCCL nothing stages. Compute never leaves the card.
+
+Differentiable forms, for collectives inside a forward that autograd goes
+through: :func:`all_to_all_grad` (backward: the swapped all-to-all),
+:func:`ppermute_grad` (backward: the inverse permutation),
+:func:`copy_to_axis` and :func:`reduce_from_axis` (Megatron's pair:
+identity forward with a sum backward, and the reverse) and
+:func:`all_gather_grad` (backward: the sum, then this rank's slice).
 
 The host-side control plane keeps the JAX package's SPI and fake
 (reference: the Aeron ``Transport`` SPI and its ``DummyTransport``): the
@@ -20,85 +38,289 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
-from .mesh import AXIS_DATA, data_group
+from .mesh import AXIS_DATA, Axes, active_mesh
+
+
+# ------------------------------------------------------------- host staging
+
+#: the collectives gloo refuses for CUDA tensors, which go through a host
+#: copy under gloo. Seen with four ranks sharing an H100 (torch 2.11, one
+#: gang per collective): point-to-point send/recv and
+#: ``batch_isend_irecv`` abort in gloo's socket write ("Bad address");
+#: ``all_reduce`` (sum, max), ``broadcast``, ``all_gather``,
+#: ``all_gather_into_tensor``, ``all_to_all_single``, ``reduce_scatter``
+#: and ``reduce_scatter_tensor`` take CUDA tensors. The list form of
+#: ``all_to_all`` is refused by gloo on any device, so :func:`all_to_all`
+#: uses ``all_to_all_single``.
+GLOO_CUDA_STAGED = frozenset({"p2p"})
+
+#: collectives that staged through the host in this process, by name
+staged_counts: Dict[str, int] = {}
+#: bytes each data-plane collective of this process sent, by name (a
+#: tensor's bytes once per call; what a step moves is read around it)
+traffic: Dict[str, int] = {}
+
+
+def _count(op: str, x) -> None:
+    traffic[op] = traffic.get(op, 0) + x.numel() * x.element_size()
+
+
+def stages(op: str, x, group) -> bool:
+    """Whether collective ``op`` on ``x`` over ``group`` goes through a host
+    copy: gloo, a CUDA tensor, and an ``op`` in :data:`GLOO_CUDA_STAGED`."""
+    import torch.distributed as dist
+
+    if not x.is_cuda or op not in GLOO_CUDA_STAGED:
+        return False
+    return dist.get_backend(group) == "gloo"
+
+
+def _host(op: str, x, group):
+    if stages(op, x, group):
+        staged_counts[op] = staged_counts.get(op, 0) + 1
+        return x.detach().cpu(), True
+    return x, False
 
 
 # ------------------------------------------------------- data-plane wrappers
 
-def _check_axis(axis_name: str) -> None:
-    if axis_name != AXIS_DATA:
-        raise NotImplementedError(f"axis {axis_name!r}: the port's mesh has the {AXIS_DATA!r} "
-                                  "axis only (sharded training is ROADMAP.md item 6)")
+
+def _axis(axis_name: Axes):
+    """(group, ranks in axis-index order, this rank's axis index) of
+    ``axis_name`` on the active mesh; group None for one rank."""
+    mesh = active_mesh()
+    return mesh.group(axis_name), mesh.axis_ranks(axis_name), mesh.axis_index(axis_name)
 
 
-def psum(x, axis_name: str = AXIS_DATA):
-    """The sum of ``x`` over the data group."""
+def axis_size(axis_name: Axes) -> int:
+    return active_mesh().axis_size(axis_name)
+
+
+def axis_index(axis_name: Axes) -> int:
+    return active_mesh().axis_index(axis_name)
+
+
+def psum(x, axis_name: Axes = AXIS_DATA):
+    """The sum of ``x`` over ``axis_name``."""
     import torch.distributed as dist
 
-    _check_axis(axis_name)
-    y = x.clone()
-    dist.all_reduce(y, group=data_group())
+    group, _, _ = _axis(axis_name)
+    y = x.detach().clone()
+    if group is not None:
+        _count("all_reduce", y)
+        dist.all_reduce(y, group=group)
     return y
 
 
-def pmean(x, axis_name: str = AXIS_DATA):
-    """The mean of ``x`` over the data group."""
+def pmax(x, axis_name: Axes):
+    """The elementwise maximum of ``x`` over ``axis_name``."""
     import torch.distributed as dist
 
-    return psum(x, axis_name) / dist.get_world_size(data_group())
+    group, _, _ = _axis(axis_name)
+    y = x.detach().clone()
+    if group is not None:
+        _count("all_reduce", y)
+        dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
+    return y
 
 
-def all_gather(x, axis_name: str = AXIS_DATA, axis: int = 0, tiled: bool = True):
-    """Every rank's ``x`` concatenated along ``axis`` in rank order
-    (``tiled``), or stacked on a new leading axis."""
+def pmean(x, axis_name: Axes = AXIS_DATA):
+    """The mean of ``x`` over ``axis_name``."""
+    return psum(x, axis_name) / axis_size(axis_name)
+
+
+def all_gather(x, axis_name: Axes = AXIS_DATA, axis: int = 0, tiled: bool = True):
+    """Every rank's ``x`` along ``axis_name``, in axis-index order,
+    concatenated along ``axis`` (``tiled``) or stacked on a new axis
+    there."""
     import torch
     import torch.distributed as dist
 
-    _check_axis(axis_name)
-    group = data_group()
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x.contiguous(), group=group)
+    group, ranks, _ = _axis(axis_name)
+    if group is None:
+        return x.detach().clone() if tiled else x.detach().unsqueeze(axis)
+    src, staged = _host("all_gather", x.contiguous(), group)
+    _count("all_gather", src)
+    parts = [torch.empty_like(src) for _ in ranks]
+    dist.all_gather(parts, src, group=group)
+    parts = [parts[dist.get_group_rank(group, r)] for r in ranks]
+    if staged:
+        parts = [p.to(x.device) for p in parts]
     return torch.cat(parts, dim=axis) if tiled else torch.stack(parts, dim=axis)
 
 
-def ppermute(x, axis_name: str, perm):
-    """``x`` sent along the (source, destination) pairs of ``perm``; a rank
-    that receives from none gets zeros, as ``jax.lax.ppermute`` gives."""
+def ppermute(x, axis_name: Axes, perm: Sequence[Tuple[int, int]]):
+    """``x`` sent along the (source, destination) pairs of ``perm``, in
+    axis indices; a rank that receives from none gets zeros, as
+    ``jax.lax.ppermute`` gives."""
     import torch
     import torch.distributed as dist
 
-    _check_axis(axis_name)
-    group = data_group()
-    rank = dist.get_rank(group)
-    out = torch.zeros_like(x)
+    group, ranks, me = _axis(axis_name)
+    if group is None:
+        return x.detach().clone() if (0, 0) in [tuple(p) for p in perm] \
+            else torch.zeros_like(x)
+    src, staged = _host("p2p", x.contiguous(), group)
+    _count("p2p", src)
+    out = torch.zeros_like(src)
     ops = []
-    for src, dst in perm:
-        if src == rank:
-            ops.append(dist.P2POp(dist.isend, x.contiguous(),
-                                  dist.get_global_rank(group, dst), group))
-        if dst == rank:
-            ops.append(dist.P2POp(dist.irecv, out, dist.get_global_rank(group, src), group))
+    for s, d in perm:
+        if s == me and d == me:
+            out.copy_(src)
+            continue
+        if s == me:
+            ops.append(dist.P2POp(dist.isend, src, ranks[d]))
+        if d == me:
+            ops.append(dist.P2POp(dist.irecv, out, ranks[s]))
     for work in (dist.batch_isend_irecv(ops) if ops else []):
         work.wait()
-    return out
+    return out.to(x.device) if staged else out
 
 
-def all_to_all(x, axis_name: str, split_axis: int, concat_axis: int):
-    """``x`` split into world-many chunks along ``split_axis``, chunk r sent
-    to rank r, and the received chunks concatenated along ``concat_axis``
-    (``jax.lax.all_to_all(..., tiled=True)``)."""
+def all_to_all(x, axis_name: Axes, split_axis: int, concat_axis: int):
+    """``x`` split into axis-size chunks along ``split_axis``, chunk i sent
+    to axis index i, and the received chunks concatenated along
+    ``concat_axis`` in axis-index order (``jax.lax.all_to_all(...,
+    tiled=True)``)."""
     import torch
     import torch.distributed as dist
 
-    _check_axis(axis_name)
-    group = data_group()
-    world = dist.get_world_size(group)
-    ins = [c.contiguous() for c in torch.chunk(x, world, dim=split_axis)]
-    outs = [torch.empty_like(c) for c in ins]
-    dist.all_to_all(outs, ins, group=group)
-    return torch.cat(outs, dim=concat_axis)
+    group, ranks, _ = _axis(axis_name)
+    if group is None:
+        return x.detach().clone()
+    n = len(ranks)
+    if x.shape[split_axis] % n:
+        raise ValueError(f"all_to_all: dim {split_axis} of {tuple(x.shape)} does not split "
+                         f"over {n} ranks")
+    src, staged = _host("all_to_all", x, group)
+    order = [dist.get_group_rank(group, r) for r in ranks]  # axis index -> group rank
+    chunks = torch.chunk(src.movedim(split_axis, 0), n, dim=0)
+    by_group = [None] * n
+    for i, c in enumerate(chunks):
+        by_group[order[i]] = c
+    send = torch.stack(by_group).contiguous()  # [n, chunk, ...] in group-rank order
+    _count("all_to_all", send)
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    got = [recv[order[i]].movedim(0, split_axis) for i in range(n)]
+    out = torch.cat(got, dim=concat_axis)
+    return out.to(x.device) if staged else out
+
+
+# ------------------------------------------------------ differentiable forms
+
+
+def _autograd():
+    import torch
+
+    from .mesh import use_mesh
+
+    # each backward runs its collective on the mesh its forward ran on (the
+    # backward pass may run after use_mesh's block has ended, or on
+    # autograd's device thread)
+
+    class AllToAll(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, axis_name, split_axis, concat_axis):
+            ctx.mesh, ctx.args = active_mesh(), (axis_name, split_axis, concat_axis)
+            return all_to_all(x, axis_name, split_axis, concat_axis)
+
+        @staticmethod
+        def backward(ctx, g):
+            axis_name, split_axis, concat_axis = ctx.args
+            with use_mesh(ctx.mesh):
+                return (all_to_all(g.contiguous(), axis_name, concat_axis, split_axis),
+                        None, None, None)
+
+    class PPermute(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, axis_name, perm):
+            ctx.mesh, ctx.args = active_mesh(), (axis_name, perm)
+            return ppermute(x, axis_name, perm)
+
+        @staticmethod
+        def backward(ctx, g):
+            axis_name, perm = ctx.args
+            with use_mesh(ctx.mesh):
+                return ppermute(g, axis_name, [(d, s) for s, d in perm]), None, None
+
+    class CopyToAxis(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, axis_name):
+            ctx.mesh, ctx.axis_name = active_mesh(), axis_name
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            with use_mesh(ctx.mesh):
+                return psum(g, ctx.axis_name), None
+
+    class ReduceFromAxis(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, axis_name):
+            return psum(x, axis_name)
+
+        @staticmethod
+        def backward(ctx, g):
+            return g, None
+
+    class AllGather(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, axis_name, axis):
+            ctx.mesh, ctx.args = active_mesh(), (axis_name, axis, x.shape[axis])
+            return all_gather(x, axis_name, axis=axis, tiled=True)
+
+        @staticmethod
+        def backward(ctx, g):
+            axis_name, axis, n = ctx.args
+            with use_mesh(ctx.mesh):
+                i = axis_index(axis_name)
+                return psum(g, axis_name).narrow(axis, i * n, n), None, None
+
+    return AllToAll, PPermute, CopyToAxis, ReduceFromAxis, AllGather
+
+
+_FUNCTIONS = None
+
+
+def _fn(i):
+    global _FUNCTIONS
+    if _FUNCTIONS is None:
+        _FUNCTIONS = _autograd()
+    return _FUNCTIONS[i]
+
+
+def all_to_all_grad(x, axis_name: Axes, split_axis: int, concat_axis: int):
+    """:func:`all_to_all` with autograd: the backward is the all-to-all
+    with the two axes swapped."""
+    return _fn(0).apply(x, axis_name, split_axis, concat_axis)
+
+
+def ppermute_grad(x, axis_name: Axes, perm):
+    """:func:`ppermute` with autograd: the backward sends the gradient
+    along the inverse permutation."""
+    return _fn(1).apply(x, axis_name, tuple(tuple(p) for p in perm))
+
+
+def copy_to_axis(x, axis_name: Axes):
+    """Identity forward, sum over ``axis_name`` backward: where an input
+    that every rank of the axis holds enters a product split over it
+    (Megatron's f)."""
+    return _fn(2).apply(x, axis_name)
+
+
+def reduce_from_axis(x, axis_name: Axes):
+    """Sum over ``axis_name`` forward, identity backward: the partial
+    results of a product split over the axis, summed (Megatron's g)."""
+    return _fn(3).apply(x, axis_name)
+
+
+def all_gather_grad(x, axis_name: Axes, axis: int = 0):
+    """Tiled :func:`all_gather` with autograd: the backward sums the
+    gradient over ``axis_name`` and keeps this rank's slice."""
+    return _fn(4).apply(x, axis_name, axis)
 
 
 # ------------------------------------------------------ host-side control SPI

@@ -25,9 +25,24 @@ metric families of the JAX trainers (``tdl_parallel_step_seconds``,
 ``tdl_step_wall_seconds``; ``tdl_step_phase_seconds`` by phase) into the
 port's registry under the same names and labels.
 
-Not ported yet (the next slice, ROADMAP.md item 6): ``sharding_rules=``
-(tensor-parallel rules) and ``mesh_layout=`` (FSDP x TP), sharded
-checkpoints (``checkpointer()``), and ``sharded_etl`` (item 8).
+Sharded training: ``mesh_layout=SpecLayout(data, fsdp, tp)`` (or a
+``Partitioner``) keeps on each rank its blocks of the parameters and the
+updater state (``parallel.partition``), and ``sharding_rules=`` (a
+``parallel.sharding.ShardingRules``, ``ParallelTrainer`` only, as in the JAX
+package) does the same by per-parameter rules over a ``model`` axis. The
+step is still one logical step on the global batch: rows split over the
+data axis (and over ``fsdp`` under a layout, where the JAX package
+replicates them: the numbers are the same), each parameter gathered whole
+for the forward, the whole gradients reduced over the ranks of distinct
+rows, and the updater applied to the blocks. Whatever reads a whole
+layer's norm sees the whole layer: every ``GradientNormalization`` mode
+(``ClipElementWiseAbsoluteValue``, ``ClipL2PerLayer``,
+``ClipL2PerParamType``, ``RenormalizeL2PerLayer``) runs on the whole reduced
+gradients, and the weight constraints on the gathered parameters; the
+port's updaters are elementwise (none has a trust ratio), so updating the
+blocks is exact. ``checkpointer()`` carries the partitioner into
+``serde.checkpoint``. Not ported yet: ``sharded_etl``
+(ROADMAP.md item 8), and a ``pipe`` axis (item 6c).
 """
 
 from __future__ import annotations
@@ -43,9 +58,7 @@ from ..data.dataset import DataSet
 from ..monitoring import aggregate, flight, heartbeat
 from ..monitoring.registry import get_registry
 from ..monitoring.trace import StepPhaseRecorder, step_phase_histogram
-from .mesh import AXIS_DATA, DataMesh, build_mesh
-
-_NEXT_SLICE = "the next slice of ROADMAP.md item 6 (sharded training)"
+from .mesh import AXIS_DATA, Mesh, build_mesh
 
 
 def _trainer_metrics():
@@ -81,36 +94,82 @@ class ParallelTrainer:
     ordinary step on every rank (the same inputs, so the replicas stay
     equal), as the JAX trainer does."""
 
-    def __init__(self, net, mesh: Optional[DataMesh] = None, data_axis: str = AXIS_DATA,
+    def __init__(self, net, mesh: Optional[Mesh] = None, data_axis: str = AXIS_DATA,
                  sharding_rules=None, mesh_layout=None, bucketing=None):
-        if sharding_rules is not None or mesh_layout is not None:
-            raise NotImplementedError(
-                "sharding_rules/mesh_layout: tensor-parallel and FSDP placement are "
-                f"{_NEXT_SLICE}; the port trains data-parallel only")
-        if data_axis != AXIS_DATA:
-            raise NotImplementedError(f"data_axis={data_axis!r}: the port's mesh has the "
-                                      f"{AXIS_DATA!r} axis only")
         from ..common import compile_cache
 
         compile_cache.maybe_enable_from_env()
         self.net = net
         if bucketing is not None:
             net.set_bucketing(bucketing)
-        self.mesh = mesh if mesh is not None else build_mesh(data=-1)
-        self.data_axis = data_axis
-        self._ndata = self.mesh.size
-        group = self.mesh.group()
-        import torch.distributed as dist
+        if mesh_layout is not None and sharding_rules is not None:
+            raise ValueError("pass mesh_layout OR sharding_rules, not both")
+        self.partitioner = None
+        self.partition_report = None
+        self.sharding_rules = sharding_rules
+        rows = (data_axis,)
+        if mesh_layout is not None:
+            from .partition import Partitioner, SpecLayout
 
-        self._rank = dist.get_rank(group) if group is not None else 0
+            if isinstance(mesh_layout, SpecLayout):
+                mesh_layout = Partitioner(mesh_layout, mesh=mesh)
+            elif mesh is not None and mesh is not mesh_layout.mesh:
+                # a pre-built Partitioner owns its mesh
+                raise ValueError("mesh conflicts with mesh_layout's Partitioner mesh — pass "
+                                 "the mesh to Partitioner(...), or pass a SpecLayout")
+            mesh = mesh_layout.mesh
+            data_axis = mesh_layout.layout.data_axis
+            rows = (data_axis, mesh_layout.layout.fsdp_axis)
+            self.partitioner = mesh_layout
+        self.mesh = mesh if mesh is not None else build_mesh(**{data_axis: -1})
+        if data_axis not in self.mesh.shape:
+            raise ValueError(f"data_axis {data_axis!r} is not an axis of the mesh "
+                             f"{self.mesh.shape}")
+        self.data_axis = data_axis
+        # the ranks that compute distinct rows of the global batch
+        self._rows = rows
+        self._ndata = self.mesh.axis_size(rows)
+        self._rank = self.mesh.axis_index(rows)
         (self._step_hist, self._coll_bytes, devices_gauge,
          self._step_wall) = _trainer_metrics()
         self._trainer_label = type(self).__name__
-        devices_gauge.labels(self._trainer_label).set(self._ndata)
+        devices_gauge.labels(self._trainer_label).set(self.mesh.n_devices)
         self._grad_bytes: Optional[int] = None
         self._phases = StepPhaseRecorder()
-        self._context = DataParallelContext(group, self._rank, self._ndata, self._phases)
+        self._context = DataParallelContext(self.mesh.group(rows), self._rank, self._ndata,
+                                            self._phases)
         self._last_step_entry: Optional[float] = None
+
+    # -- placement ----------------------------------------------------------
+
+    def _place_net(self):
+        """Partition the network once (a network restored from a sharded
+        checkpoint comes partitioned already)."""
+        n = self.net
+        if self.partitioner is None and self.sharding_rules is None:
+            return
+        if getattr(n, "_partition", None) is None:
+            if self.partitioner is not None:
+                self.partition_report = self.partitioner.partition_net(n)
+            else:
+                from .partition import param_tree, partition_with_specs
+
+                # the rules' specs, a dim its axis does not divide left whole
+                _, specs = self.sharding_rules.shard_tree(param_tree(n), self.mesh)
+                partition_with_specs(n, self.mesh, specs)
+        self._context.shards = n._partition
+
+    # -- checkpointing ------------------------------------------------------
+
+    def checkpointer(self, directory: str, **kw):
+        """A :class:`~..serde.checkpoint.TrainingCheckpointer` carrying this
+        trainer's partitioner: each rank saves its blocks, the layout is
+        stamped in the manifest, and a restore under another layout needs
+        ``reshard=True``."""
+        from ..serde.checkpoint import TrainingCheckpointer
+
+        kw.setdefault("partitioner", self.partitioner)
+        return TrainingCheckpointer(directory, **kw)
 
     # -- input staging ------------------------------------------------------
 
@@ -158,6 +217,10 @@ class ParallelTrainer:
     def _fit_batch(self, ds: DataSet):
         b = ds.num_examples()
         rem = b % self._ndata
+        if rem and (self.partitioner is not None or self.sharding_rules is not None):
+            raise ValueError(f"a global batch of {b} rows over {self._ndata} ranks of "
+                             f"distinct rows ({self._rows}): a sharded network has no "
+                             "replicated remainder step")
         if rem:
             # trim to divisibility; the remainder goes through a replicated step
             keep = b - rem
@@ -179,6 +242,7 @@ class ParallelTrainer:
         # TDL_FAULT_SPEC env contracts are active): heartbeat first, so a
         # fault injected at iteration k is attributed to k, then the flight
         # step_begin, so a victim's last step is on the black box
+        self._place_net()
         it = int(self.net.iteration)
         heartbeat.maybe_beat(it)
         flight_on = flight.active()
@@ -200,12 +264,18 @@ class ParallelTrainer:
         with self._phases.phase("compute"):
             self._fit_core_inner(ds)
         self._step_hist.labels(self._trainer_label).observe(time.perf_counter() - t0)
+        if self._grad_bytes is None:  # whole parameter bytes
+            part = getattr(self.net, "_partition", None)
+            self._grad_bytes = (part.whole_bytes() if part is not None else
+                                sum(w.numel() * w.element_size()
+                                    for _, _, w in self.net._param_entries()))
         if self._ndata > 1:
             # logical payload of the step's gradient all-reduce
-            if self._grad_bytes is None:
-                self._grad_bytes = sum(w.numel() * w.element_size()
-                                       for _, _, w in self.net._param_entries())
             self._coll_bytes.labels(self._trainer_label, "grad_allreduce").inc(self._grad_bytes)
+        if getattr(self.net, "_partition", None) is not None:
+            # the blocks' all-gather into whole tensors
+            self._coll_bytes.labels(self._trainer_label, "param_allgather").inc(
+                self._grad_bytes)
         self._phases.step_done()
         if flight_on:
             loss = None
@@ -242,15 +312,22 @@ def _mln():
 
 class MultiProcessTrainer(ParallelTrainer):
     """Data-parallel trainer whose every rank feeds its LOCAL shard: each
-    process reads batch_global / world examples (the standard SPMD input
-    pipeline); the step and its reduction are :class:`ParallelTrainer`'s.
-    Local batches must be of one size on every rank, as in the JAX
-    package."""
+    process reads the rows of its data coordinate, batch_global / data
+    examples (the standard SPMD input pipeline; ranks that differ only in
+    ``fsdp`` or ``tp`` feed the same rows, as JAX's
+    ``make_array_from_process_local_data`` asks); the step and its
+    reduction are :class:`ParallelTrainer`'s. Local batches must be of one
+    size on every rank, as in the JAX package. ``sharding_rules`` raises, as
+    in the JAX package: use ``mesh_layout``."""
 
-    def __init__(self, net, mesh: Optional[DataMesh] = None, data_axis: str = AXIS_DATA,
+    def __init__(self, net, mesh: Optional[Mesh] = None, data_axis: str = AXIS_DATA,
                  sharding_rules=None, mesh_layout=None):
-        super().__init__(net, mesh, data_axis, sharding_rules=sharding_rules,
-                         mesh_layout=mesh_layout)
+        if sharding_rules is not None:
+            raise NotImplementedError(
+                "MultiProcessTrainer(sharding_rules=): as in the JAX package, a "
+                "multi-process gang takes mesh_layout=SpecLayout(...); ParallelTrainer "
+                "takes sharding_rules")
+        super().__init__(net, mesh, data_axis, mesh_layout=mesh_layout)
 
     def _bucket_multiple(self) -> int:
         # each rank feeds its local shard to its one device
@@ -271,7 +348,17 @@ class MultiProcessTrainer(ParallelTrainer):
         self._fit_core(ds)
 
     def _shard(self, ds: DataSet) -> DataSet:
-        return self._staged(ds)
+        # the local batch is the data coordinate's rows; under a layout each
+        # fsdp rank of that coordinate takes its part of them
+        split = self._ndata // self.mesh.axis_size(self.data_axis)
+        if split == 1:
+            return self._staged(ds)
+        b = ds.num_examples()
+        if b % split:
+            raise ValueError(f"local batch {b} does not split over the {split} ranks of "
+                             f"its data coordinate ({self._rows[1:]})")
+        i = self.mesh.axis_index(self._rows[1:])
+        return _slice_ds(self._staged(ds), i * (b // split), (i + 1) * (b // split))
 
 
 def _check_lockstep_buckets(b: int) -> None:
@@ -403,7 +490,7 @@ class SharedTrainingMaster(ParallelTrainer):
     ``threshold_algorithm`` is kept for API parity and used only by the
     host-side codecs in ``parallel.compression``."""
 
-    def __init__(self, net=None, mesh: Optional[DataMesh] = None,
+    def __init__(self, net=None, mesh: Optional[Mesh] = None,
                  threshold_algorithm=None, batch_size: Optional[int] = None,
                  workers_per_node: Optional[int] = None, **_ignored):
         if net is not None:

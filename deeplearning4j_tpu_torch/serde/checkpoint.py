@@ -53,12 +53,26 @@ per element (numpy's ``|V2``, what ``np.savez`` writes for the JAX
 package's bfloat16) and read back by reinterpreting those bytes, never by
 converting values.
 
-The port runs one process and has no partitioner: ``partitioner=`` and
-``reshard=True`` raise ``NotImplementedError`` (distribution, ROADMAP item
-6). A checkpoint written by a JAX gang (several shards, or stamped with a
-mesh layout) restores here by assembling its chunks into whole arrays on the
-host, as the JAX package does for a replicated target. Pre-lineage flat
-checkpoints (``<dir>/<tag>/train_state.json``) restore read-only.
+Sharded lineages (``partitioner=``, a ``parallel.partition.Partitioner``;
+``ParallelTrainer.checkpointer`` passes the trainer's): each rank of the
+mesh writes ``shard_<rank>.npz`` holding its blocks of the parameters and
+the updater state (only the first copy of a block the mesh replicates,
+JAX's ``replica_id == 0``), each with its index range in the whole array;
+the manifests and ``train_state.json`` carry the layout
+(``Partitioner.describe()``, the JAX package's identity), and rank 0 commits
+once every rank's manifest verifies (``commit_timeout``). A restore under a
+partitioner fills each rank's blocks from the saved chunks that overlap them
+(a coverage check cell for cell refuses torn or missing chunks); a restore
+under another layout than the saved one raises, naming both, unless
+``reshard=True``, and then records ``tdl_reshard_bytes_total``,
+``tdl_reshard_seconds`` and a ``ckpt_reshard`` flight event. The chunk
+indices make a JAX process's several chunks per leaf in one shard file and
+the port's one chunk per rank interchangeable: a lineage of either package
+restores into the other, under the same layout or resharded, bit for bit.
+Without a partitioner a checkpoint of any layout restores by assembling its
+chunks into whole arrays on the host (a deliberate difference: the JAX
+package asks for ``reshard=True`` there). Pre-lineage flat checkpoints
+(``<dir>/<tag>/train_state.json``) restore read-only.
 
 This module imports numpy only: torch is loaded by ``save``/``restore``
 (through :mod:`.net_state`), so ``verify_checkpoint`` runs in a process
@@ -96,9 +110,6 @@ CORRUPT_SUFFIX = ".corrupt"
 # ``gen-<iter>a`` (… ``z``); lexicographic order ("" < "a" < … < "z") makes
 # plain (iteration, name) sorting rank suffixed siblings newest-last
 _GEN_RE = re.compile(r"^gen-(\d{8,})([a-z]?)$")
-
-_NO_DISTRIBUTION = ("the port runs one process and has no partitioner yet: sharded "
-                    "checkpoints wait for distribution (ROADMAP item 6)")
 
 
 class CheckpointVerifyError(RuntimeError):
@@ -547,23 +558,31 @@ class TrainingCheckpointer:
     Knobs: ``async_write`` (the disk write on a background thread),
     ``keep_last`` (committed generations retained by GC, >= 1), ``durable``
     (fsync files AND directories on every rename-commit; off only for
-    benchmarks pricing the fsync). ``restore`` always runs the full per-array
+    benchmarks pricing the fsync), ``partitioner`` (a sharded lineage of a
+    partitioned network, module docstring), ``reshard`` (the default of
+    ``restore(reshard=)``), ``commit_timeout`` (rank 0's bounded wait for
+    the other ranks' manifests). ``restore`` always runs the full per-array
     CRC pass before loading: the JAX package's ``verify_on_restore=False``
-    waits for a benchmark that prices that pass. ``partitioner`` and
-    ``reshard=True`` raise ``NotImplementedError`` (module docstring); the
-    JAX package's ``commit_timeout``, rank 0's wait for the other ranks'
-    manifests, has no counterpart in one process."""
+    waits for a benchmark that prices that pass. ``save()`` of a partitioned
+    network is collective: every rank of its mesh calls it at the same
+    iteration."""
 
     def __init__(self, directory: str, async_write: bool = True,
                  partitioner=None, reshard: bool = False,
-                 keep_last: int = 3, durable: bool = True):
-        if partitioner is not None or reshard:
-            raise NotImplementedError(f"TrainingCheckpointer(partitioner=, reshard=): "
-                                      f"{_NO_DISTRIBUTION}")
+                 keep_last: int = 3, durable: bool = True, commit_timeout: float = 300.0):
+        if partitioner is not None:
+            from ..parallel.partition import Partitioner
+
+            if not isinstance(partitioner, Partitioner):
+                raise TypeError(f"partitioner={partitioner!r}: a parallel.partition.Partitioner "
+                                "(or None)")
         self.dir = directory
         self.async_write = async_write
+        self.partitioner = partitioner
+        self.reshard = reshard
         self.keep_last = max(1, int(keep_last))
         self.durable = durable
+        self.commit_timeout = commit_timeout
         self._writer: Optional[threading.Thread] = None
         # a failed async write must not vanish on the background thread: it
         # is captured here and re-raised from wait() / the next save()
@@ -596,14 +615,19 @@ class TrainingCheckpointer:
         ckdir = os.path.join(lineage, gen)
         os.makedirs(ckdir, exist_ok=True)
         arrays = snapshot(net)  # device→host NOW: later steps update in place
+        chunks, proc, process_count = _chunks(net, arrays)
         score = net.score_  # lazy: read once
         meta = {
             "iteration": int(net.iteration),
             "epoch": int(net.epoch),
             "score": float(score) if score == score else None,
-            "process_count": 1,
+            "process_count": process_count,
             "generation": gen,
         }
+        if self.partitioner is not None:
+            # the layout identity: a restore under another one is refused
+            # unless it asks to reshard
+            meta["mesh_layout"] = self.partitioner.describe()
         if iterator is not None and hasattr(iterator, "state"):
             meta["iterator"] = iterator.state()
 
@@ -615,13 +639,13 @@ class TrainingCheckpointer:
             # verification refuses mismatches, so no kill sequence can pair
             # new weights with stale counters
             blob = {"__save_id__": np.asarray(meta["iteration"], np.int64)}
-            for path, a in arrays.items():
+            for path, (idx, shape, a) in chunks.items():
                 key = f"{path}|0"
                 blob[key] = a
-                blob[f"{key}|idx"] = np.asarray([[0, n] for n in a.shape], np.int64)
-                blob[f"{key}|shape"] = np.asarray(a.shape, np.int64)
-            tmp = os.path.join(ckdir, "shard_0.npz.tmp")
-            final = os.path.join(ckdir, "shard_0.npz")
+                blob[f"{key}|idx"] = np.asarray(idx, np.int64)
+                blob[f"{key}|shape"] = np.asarray(shape, np.int64)
+            tmp = os.path.join(ckdir, f"shard_{proc}.npz.tmp")
+            final = os.path.join(ckdir, f"shard_{proc}.npz")
             with open(tmp, "wb") as f:
                 np.savez(f, **blob)
             # commit boundary 1 — mid-shard (chaos: torn_ckpt@stage=shard):
@@ -632,17 +656,18 @@ class TrainingCheckpointer:
             faults.fault_point("ckpt_manifest", meta["iteration"])
             manifest = _self_checksummed({
                 "save_id": meta["iteration"],
-                "proc": 0,
-                "process_count": 1,
-                "layout": None,
+                "proc": proc,
+                "process_count": process_count,
+                "layout": meta.get("mesh_layout"),
                 "shard": os.path.basename(final),
                 "entries": {k: _array_crc(v) for k, v in blob.items()},
                 "nbytes": int(sum(int(v.nbytes) for v in blob.values())),
             })
             durability.durable_write_json(
-                os.path.join(ckdir, "manifest_0.json"), manifest,
+                os.path.join(ckdir, f"manifest_{proc}.json"), manifest,
                 fsync=self.durable)
-            self._commit(lineage, ckdir, gen, meta, tag)
+            if proc == 0:
+                self._commit(lineage, ckdir, gen, meta, tag)
             dt = time.perf_counter() - t0
             self._save_hist.observe(dt)
             flight.record("ckpt_save", tag=tag, generation=gen,
@@ -678,27 +703,25 @@ class TrainingCheckpointer:
         or fully committed (restore finds it by iteration even if the
         pointer never moved)."""
         t0 = time.perf_counter()
-        # a torn leftover of a bigger JAX gang at this iteration may hold
-        # shards of ranks this save does not have: they must not be
-        # committed into this generation
+        # a torn leftover of a bigger gang at this iteration may hold shards
+        # of ranks this save does not have: they must not be committed into
+        # this generation
+        expected = int(meta["process_count"])
         for fname in os.listdir(ckdir):
             stale = None
             if fname.startswith("shard_") and fname.endswith(".npz"):
                 stale = fname[len("shard_"):-len(".npz")]
             elif fname.startswith("manifest_") and fname.endswith(".json"):
                 stale = fname[len("manifest_"):-len(".json")]
-            if stale is not None and stale != "0":
-                try:
+            try:
+                if stale is not None and int(stale) >= expected:
                     os.unlink(os.path.join(ckdir, fname))
-                except OSError:
-                    continue
+            except (ValueError, OSError):
+                continue
         durability.durable_write_json(
             os.path.join(ckdir, _STATE_FILE), _self_checksummed(meta),
             fsync=self.durable)
-        man, _ = _read_checksummed_json(os.path.join(ckdir, "manifest_0.json"))
-        if not _manifest_matches_save(man, meta):
-            raise RuntimeError(f"checkpoint manifest in {ckdir} does not verify for save "
-                               f"{meta['iteration']} — generation stays uncommitted")
+        self._await_manifests(ckdir, meta)
         if self.durable:
             durability.fsync_dir(ckdir)
         # commit boundary 3 — pre-COMMIT (chaos: torn_ckpt@stage=commit)
@@ -706,7 +729,7 @@ class TrainingCheckpointer:
         durability.durable_write_json(
             os.path.join(ckdir, _COMMIT_FILE),
             {"generation": gen, "iteration": meta["iteration"],
-             "process_count": 1,
+             "process_count": expected,
              "wall": time.time()},  # human-facing timestamp
             fsync=self.durable)
         self._m.commits.inc()
@@ -716,11 +739,29 @@ class TrainingCheckpointer:
             os.path.join(lineage, _POINTER_FILE), (gen + "\n").encode(),
             fsync=self.durable)
         flight.record("ckpt_commit", tag=tag, generation=gen,
-                      iteration=meta["iteration"], shards=1,
+                      iteration=meta["iteration"], shards=expected,
                       seconds=round(time.perf_counter() - t0, 4))
         self._gc(lineage)
         # post-commit hook (chaos: corrupt_ckpt bit-flips a committed shard)
         faults.fault_point("ckpt_committed", meta["iteration"], path=ckdir)
+
+    def _await_manifests(self, ckdir: str, meta: dict) -> None:
+        """Bounded poll until every rank's manifest is present, parses, and
+        self-checksums for THIS save. Raising here fails the save (the
+        generation stays uncommitted, which restore quarantines)."""
+        expected = int(meta["process_count"])
+        deadline = time.monotonic() + self.commit_timeout
+        while True:
+            missing = [p for p in range(expected) if not _manifest_matches_save(
+                _read_checksummed_json(os.path.join(ckdir, f"manifest_{p}.json"))[0], meta)]
+            if not missing:
+                return
+            if time.monotonic() >= deadline:
+                raise RuntimeError(
+                    f"checkpoint commit timed out after {self.commit_timeout}s waiting for "
+                    f"rank manifest(s) {missing} in {ckdir} — generation stays uncommitted; "
+                    "restore will quarantine it")
+            time.sleep(0.05)
 
     def _gc(self, lineage: str) -> None:
         """Keep-last-K: retire committed generations beyond ``keep_last``
@@ -766,9 +807,13 @@ class TrainingCheckpointer:
         :class:`CheckpointVerifyError` only when a commit demonstrably
         existed and nothing verifies. Restore is TRANSACTIONAL: any failure
         before success leaves parameters, updater state, BN statistics,
-        ``net.iteration`` and the iterator position bit-identical."""
-        if reshard:
-            raise NotImplementedError(f"restore(reshard=True): {_NO_DISTRIBUTION}")
+        ``net.iteration`` and the iterator position bit-identical.
+
+        Under a ``partitioner`` each rank loads its blocks from the saved
+        chunks (module docstring); a checkpoint written under another
+        layout needs ``reshard`` (default: the constructor's), else the
+        restore raises, naming both layouts."""
+        do_reshard = self.reshard if reshard is None else reshard
         self.wait()  # never read past our own in-flight async write
         lineage = os.path.join(self.dir, tag)
         if not os.path.isdir(lineage):
@@ -779,7 +824,8 @@ class TrainingCheckpointer:
         legacy = os.path.exists(os.path.join(lineage, _STATE_FILE))
         if not gens:
             if legacy:
-                return self._load_generation(net, iterator, tag, lineage, generation=None)
+                return self._load_generation(net, iterator, tag, lineage, generation=None,
+                                             reshard=do_reshard)
             if any(f.startswith("shard_") and f.endswith(".npz")
                    for f in os.listdir(lineage)):
                 # a legacy dir torn between the shard and metadata writes
@@ -836,7 +882,7 @@ class TrainingCheckpointer:
                     "restoring %s instead", newest_name,
                     ", ".join(f"{n}: {r}" for n, r in tried), name)
             return self._load_generation(net, iterator, tag, gendir,
-                                         generation=name, meta=meta)
+                                         generation=name, meta=meta, reshard=do_reshard)
         if legacy:
             # every generation failed (or none committed) but a pre-lineage
             # flat checkpoint survives underneath: the deepest fallback
@@ -848,7 +894,8 @@ class TrainingCheckpointer:
                                     for n, r in tried])
             log.warning("no generation in %s verifies — falling back to the "
                         "pre-lineage flat checkpoint", lineage)
-            return self._load_generation(net, iterator, tag, lineage, generation=None)
+            return self._load_generation(net, iterator, tag, lineage, generation=None,
+                                         reshard=do_reshard)
         if had_commit:
             raise CheckpointVerifyError(
                 f"no generation in {lineage} verifies (tried: "
@@ -862,9 +909,11 @@ class TrainingCheckpointer:
 
     def _quarantine(self, lineage: str, name: str, reason: str, tag: str) -> None:
         """Rename a failing generation to ``*.corrupt`` — evidence for the
-        postmortem, poison removed from the restore path. (The JAX package
-        lets only rank 0 rename a gang-scoped generation; here every
-        lineage is this process's.)"""
+        postmortem, poison removed from the restore path. A sharded
+        lineage's generation is renamed by rank 0 of the partitioner's mesh
+        only (every rank reaches the same verdict from the same bytes)."""
+        if self.partitioner is not None and self.partitioner.mesh.rank != 0:
+            return
         target = _rename_corrupt(os.path.join(lineage, name))
         if target is None:
             return
@@ -877,10 +926,12 @@ class TrainingCheckpointer:
                   name, os.path.basename(target), reason)
 
     def _load_generation(self, net, iterator, tag: str, ckdir: str,
-                         generation: Optional[str], meta: Optional[dict] = None) -> bool:
+                         generation: Optional[str], meta: Optional[dict] = None,
+                         reshard: bool = False) -> bool:
         """Load one (already-verified) generation — or a legacy flat dir —
-        into the net. Every array is read, assembled and checked against
-        the net before the first tensor is written (``net_state.load``)."""
+        into the net. Every array is read, assembled (or, under a
+        partitioner, cut into this rank's blocks) and checked against the
+        net before the first tensor is written."""
         from .net_state import load
 
         state_path = os.path.join(ckdir, _STATE_FILE)
@@ -889,9 +940,22 @@ class TrainingCheckpointer:
                 return False
             with open(state_path) as f:
                 meta = json.load(f)
-        if meta.get("mesh_layout") is not None:
+        saved = meta.get("mesh_layout")
+        want = self.partitioner.describe() if self.partitioner is not None else None
+        if reshard and saved is None and want is None:
+            raise ValueError(f"restore(reshard=True) of {ckdir}: neither the checkpoint nor "
+                             "this checkpointer names a mesh layout, so there is nothing to "
+                             "reshard between (pass a partitioner)")
+        resharding = self.partitioner is not None and saved is not None and saved != want
+        if resharding and not reshard:
+            raise ValueError(
+                f"mesh layout mismatch restoring {ckdir}: checkpoint was written with layout "
+                f"{_fmt_layout(saved)} but the restore requested {_fmt_layout(want)} — shards "
+                "do not line up; restore with a matching SpecLayout/Partitioner, or pass "
+                "reshard=True to redistribute the saved chunks onto the new layout")
+        if saved is not None and self.partitioner is None:
             log.info("restoring %s, written on the mesh layout %s: its chunks are assembled "
-                     "into whole arrays on the host", ckdir, meta["mesh_layout"])
+                     "into whole arrays on the host", ckdir, saved)
         shard_files = sorted(f for f in os.listdir(ckdir)
                              if f.startswith("shard_") and f.endswith(".npz"))
         expected = int(meta.get("process_count", 1))
@@ -900,7 +964,13 @@ class TrainingCheckpointer:
                 f"partial checkpoint in {ckdir}: {len(shard_files)} shard "
                 f"files for a {expected}-process save — a process was likely "
                 "killed mid-write; refusing to restore silently-zeroed weights")
-        load(net, _assemble(ckdir, meta, shard_files), source=ckdir)
+        t0 = time.perf_counter()
+        if self.partitioner is None:
+            load(net, _assemble(ckdir, meta, shard_files), source=ckdir)
+        else:
+            nbytes = _restore_blocks(net, self.partitioner, ckdir, meta, shard_files)
+            if resharding:
+                _note_reshard(saved, want, nbytes, time.perf_counter() - t0, tag)
         net.iteration = meta["iteration"]
         net.epoch = meta["epoch"]
         if iterator is not None and "iterator" in meta and \
@@ -920,6 +990,171 @@ class TrainingCheckpointer:
         if not committed:
             return None
         return os.path.join(lineage, committed[-1][1])
+
+
+def _fmt_layout(layout) -> str:
+    """Human-readable layout identity for mismatch errors."""
+    if not layout:
+        return "replicated (no mesh layout)"
+    ax = layout.get("axes", {})
+    out = f"data={ax.get('data')} x fsdp={ax.get('fsdp')} x tp={ax.get('tp')}"
+    if ax.get("pipe", 1) != 1:
+        out = f"pipe={ax.get('pipe')} x " + out
+    return out
+
+
+def _chunks(net, arrays: Dict[str, np.ndarray]):
+    """(chunks {path: (index ranges, whole shape, array)}, proc,
+    process_count) of one save: a partitioned network's blocks that are the
+    first copy on the mesh, under its rank; else every whole array under
+    rank 0 of one."""
+    part = getattr(net, "_partition", None)
+    if part is None:
+        return ({p: ([[0, n] for n in a.shape], a.shape, a) for p, a in arrays.items()},
+                0, 1)
+    from ..parallel.sharding import P, is_replica_zero, shard_slices
+
+    mesh = part.mesh
+    out = {}
+    for path, a in arrays.items():
+        top, rest = path.split("/", 1)
+        if top == "bn":
+            spec, shape = P(), a.shape
+        else:
+            layer, name = rest.split("/")[-2:]
+            spec, shape = part.spec(layer, name), part.shapes[(layer, name)]
+        if is_replica_zero(spec, mesh):
+            idx = [[s.start, s.stop] for s in shard_slices(shape, spec, mesh)]
+            out[path] = (idx, tuple(shape), a)
+    if mesh.n_devices == 1:
+        return out, 0, 1
+    return out, mesh.rank, mesh.n_devices
+
+
+def _fill_from_chunks(index, chunks, path: str, stats: dict) -> np.ndarray:
+    """One block's data, copied from the overlapping saved chunks
+    (``(saved index ranges, npz, key)`` each). The saved chunks need not
+    line up with the block (a restore under another layout); coverage is
+    verified cell for cell: the first-copy filter on save makes the chunks
+    a disjoint tiling, so the copied cells equal the block's iff every cell
+    was written exactly once."""
+    out = None
+    copied = 0
+    for saved_idx, npz, key in chunks:
+        ov = [(max(t.start, int(lo)), min(t.stop, int(hi)))
+              for t, (lo, hi) in zip(index, saved_idx)]
+        if any(lo >= hi for lo, hi in ov):
+            continue
+        data = npz[key]
+        if out is None:
+            out = np.zeros([t.stop - t.start for t in index], data.dtype)
+        dst = tuple(slice(lo - t.start, hi - t.start) for (lo, hi), t in zip(ov, index))
+        src = tuple(slice(lo - int(slo), hi - int(slo)) for (lo, hi), (slo, _) in
+                    zip(ov, saved_idx))
+        out[dst] = data[src]
+        copied += int(np.prod([hi - lo for lo, hi in ov]))
+    size = int(np.prod([t.stop - t.start for t in index])) if index else 1
+    if out is None or copied != size:
+        raise ValueError(
+            f"saved chunks cover {copied}/{size} cells of block {list(index)} of {path!r} — "
+            "the checkpoint does not tile this leaf (torn, overlapping, or foreign-layout "
+            "write)")
+    stats["bytes"] += int(out.nbytes)
+    return out
+
+
+def _restore_blocks(net, partitioner, ckdir: str, meta: dict, shard_files) -> int:
+    """Load this rank's blocks of every array of ``net``'s state under
+    ``partitioner`` from a generation's chunks (whatever layout wrote them),
+    partitioning the network first if it is not yet. Everything is read and
+    checked before the network changes. Returns the bytes copied."""
+    from ..parallel.partition import param_role_tree, partition_with_specs, whole_params
+    from ..parallel.sharding import P, shard_slices
+    from .net_state import _targets, from_numpy
+
+    specs = partitioner.spec_tree(whole_params(net), param_role_tree(net))
+    shapes = {f"params/{layer}/{name}": tuple(leaf.shape)
+              for layer, names in whole_params(net).items() for name, leaf in names.items()}
+    stats = {"bytes": 0}
+    index: Dict[str, list] = {}
+    handles = []
+    try:
+        for fname in shard_files:
+            npz = np.load(os.path.join(ckdir, fname))
+            handles.append(npz)
+            sid = int(npz["__save_id__"]) if "__save_id__" in npz.files else None
+            if sid is not None and sid != int(meta["iteration"]):
+                raise ValueError(f"checkpoint {ckdir}/{fname} save id {sid} does not match "
+                                 f"metadata iteration {meta['iteration']} — torn checkpoint")
+            for key in npz.files:
+                if "|" not in key or key.endswith("|idx") or key.endswith("|shape"):
+                    continue
+                path = key.rsplit("|", 1)[0]
+                index.setdefault(path, []).append(
+                    (np.asarray(npz[f"{key}|idx"]), tuple(int(n) for n in npz[f"{key}|shape"]),
+                     npz, key))
+        targets = _targets(net)
+        has = {top for top in ("updater", "bn") if any(p.startswith(top + "/") for p in index)}
+        blocks = {}
+        for path, t in targets.items():
+            top, rest = path.split("/", 1)
+            if top != "params" and top not in has:
+                continue  # a stateless updater's checkpoint keeps the net's state
+            if path not in index:
+                raise ValueError(f"checkpoint {ckdir} is missing chunks for {path!r}, which "
+                                 "the network declares — model drift between save and "
+                                 "restore; resharding cannot invent them")
+            layer, name = rest.split("/")[-2:]
+            whole = tuple(t.shape) if top == "bn" else shapes[f"params/{layer}/{name}"]
+            saved_shape = index[path][0][1]
+            if saved_shape != whole:
+                raise ValueError(f"param-shape mismatch restoring {ckdir}: {path!r} was saved "
+                                 f"as {saved_shape} but the network declares {whole} — "
+                                 "resharding cannot reconcile a shape change")
+            spec = P() if top == "bn" else specs[layer][name]
+            got = _fill_from_chunks(shard_slices(whole, spec, partitioner.mesh),
+                                    [(i, z, k) for i, _, z, k in index[path]], path, stats)
+            src = from_numpy(got)
+            if src.dtype != t.dtype:
+                raise ValueError(f"{ckdir}: {path!r} was saved as {src.dtype} but the network "
+                                 f"holds {t.dtype}; a checkpoint is restored into a network "
+                                 "of its own dtype, never converted")
+            blocks[path] = src
+        extra = sorted(p for p in index if p not in targets)
+        if extra:
+            raise ValueError(f"checkpoint {ckdir} holds state the network does not declare: "
+                             f"{extra[:8]} — model drift between save and restore")
+    finally:
+        for npz in handles:
+            npz.close()
+    import torch
+
+    if getattr(net, "_partition", None) is None:
+        partition_with_specs(net, partitioner.mesh, specs)
+    elif net._partition.specs != specs:
+        raise ValueError("the network is partitioned under another layout than the "
+                         "checkpointer's partitioner")
+    targets = _targets(net)
+    with torch.no_grad():
+        for path, src in blocks.items():
+            if tuple(src.shape) != tuple(targets[path].shape):
+                raise ValueError(f"{path!r}: block {tuple(src.shape)} != the network's "
+                                 f"{tuple(targets[path].shape)}")
+        for path, src in blocks.items():
+            targets[path].copy_(src)
+    return stats["bytes"]
+
+
+def _note_reshard(saved, want, nbytes: int, seconds: float, tag: str) -> None:
+    """A cross-layout restore is priced, not silent: the reshard counter and
+    histogram and a flight event naming both layouts."""
+    from ..monitoring.partition import elastic_metrics
+
+    m = elastic_metrics()
+    m.reshard_bytes.inc(nbytes)
+    m.reshard_seconds.observe(seconds)
+    flight.record("ckpt_reshard", tag=tag, from_layout=_fmt_layout(saved),
+                  to_layout=_fmt_layout(want), bytes=int(nbytes), seconds=round(seconds, 4))
 
 
 def _assemble(ckdir: str, meta: dict, shard_files) -> Dict[str, np.ndarray]:

@@ -222,8 +222,8 @@ def test_dot_product_attention_rejects_what_flash_cannot_take():
     full = torch.ones((1, 1, 16, 16))
     with pytest.raises(ValueError, match="mask must be"):
         TA.dot_product_attention(q, k, v, full, impl="flash")
-    for impl in ("ring", "ulysses"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for impl, fn in (("ring", "ring_attention"), ("ulysses", "ulysses_attention")):
+        with pytest.raises(ValueError, match=fn):
             TA.dot_product_attention(q, k, v, impl=impl)
     with pytest.raises(ValueError, match="unknown attention impl"):
         TA.dot_product_attention(q, k, v, impl="cudnn")

@@ -329,10 +329,16 @@ def test_preemption_handler_resumes_a_dropout_fit_bitwise(tmp_path):
 
 
 def test_distribution_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match=r"distribution \(ROADMAP item 6\)"):
+    """A partitioner must be the port's ``Partitioner``; ``reshard=True``
+    with no layout on either side (a replicated checkpoint, no partitioner)
+    has nothing to reshard between and raises. Sharded lineages are held in
+    ``test_torch_sharded_checkpoint.py``."""
+    with pytest.raises(TypeError, match="parallel.partition.Partitioner"):
         T.TrainingCheckpointer(str(tmp_path), partitioner=object())
-    with pytest.raises(NotImplementedError, match=r"distribution \(ROADMAP item 6\)"):
-        T.TrainingCheckpointer(str(tmp_path), reshard=True)
-    with pytest.raises(NotImplementedError, match=r"distribution \(ROADMAP item 6\)"):
-        T.TrainingCheckpointer(str(tmp_path)).restore(port_net("lenet"), reshard=True)
-    assert T.TrainingCheckpointer(str(tmp_path)).restore(port_net("lenet")) is False
+    src = port_net("lenet")
+    T.TrainingCheckpointer(str(tmp_path), async_write=False).save(src)
+    for ck, kw in ((T.TrainingCheckpointer(str(tmp_path), reshard=True), {}),
+                   (T.TrainingCheckpointer(str(tmp_path)), {"reshard": True})):
+        with pytest.raises(ValueError, match="nothing to reshard between"):
+            ck.restore(port_net("lenet"), **kw)
+    assert T.TrainingCheckpointer(str(tmp_path / "empty")).restore(port_net("lenet")) is False

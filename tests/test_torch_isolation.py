@@ -72,7 +72,8 @@ def test_importing_the_port_loads_no_jax():
                    "kernels.attention", "serde.compiled", "common.data_parallel",
                    "monitoring.trace", "parallel.mesh", "parallel.collectives",
                    "parallel.compression", "parallel.launcher", "parallel.trainer",
-                   "parallel.wrapper"):
+                   "parallel.wrapper", "parallel.sharding", "parallel.partition",
+                   "monitoring.partition"):
         assert f"deeplearning4j_tpu_torch.{module}" in added
     assert [m for m in added if _forbidden(m)] == []
 
@@ -195,8 +196,9 @@ def test_networks_default_to_cuda_and_raise_without_a_card():
 def test_distributed_and_export_entry_points_default_to_cuda(monkeypatch, tmp_path):
     """``launcher.initialize`` and ``launch`` (platform ``cuda`` and backend
     ``nccl`` unless asked for the CPU), ``load_compiled`` (the card unless
-    given ``device``) and the trainers (their network's device) raise on a
-    host with no card before any process starts or any store binds."""
+    given ``device``), the trainers, sharded or not (their network's
+    device), and ``place_params`` (the card unless given ``device``) raise
+    on a host with no card before any process starts or any store binds."""
     _no_card()
     from deeplearning4j_tpu_torch.models import LeNet
     from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
@@ -210,10 +212,19 @@ def test_distributed_and_export_entry_points_default_to_cuda(monkeypatch, tmp_pa
     monkeypatch.setenv("TDL_PROCESS_ID", "0")
     path = str(tmp_path / "m.zip")
     export_compiled(lambda w, x: x * w["s"], (torch.ones(2),), {"s": torch.ones(())}, path)
+    from deeplearning4j_tpu_torch.parallel.mesh import Mesh
+    from deeplearning4j_tpu_torch.parallel.partition import SpecLayout
+
+    kw = dict(vocab_size=32, max_len=8, d_model=8, n_heads=2, n_layers=1, d_ff=16)
+    tree = jax.tree.map(np.asarray, J.init_params(jax.random.key(0), J.TransformerConfig(**kw)))
     calls = {"launcher.initialize": lambda: launcher.initialize(),
              "launcher.launch": lambda: launcher.launch("x:y", 1),
              "load_compiled": lambda: load_compiled(path),
-             "ParallelTrainer": lambda: ParallelTrainer(MultiLayerNetwork(LeNet().conf()))}
+             "ParallelTrainer": lambda: ParallelTrainer(MultiLayerNetwork(LeNet().conf())),
+             "ParallelTrainer(mesh_layout=)": lambda: ParallelTrainer(
+                 MultiLayerNetwork(LeNet().conf()), mesh_layout=SpecLayout(1, 1, 1)),
+             "place_params": lambda: T.place_params(
+                 tree, T.TransformerConfig(**kw), Mesh.virtual({"dp": 1, "tp": 1, "sp": 1}, 0))}
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="cuda"):
             call()

@@ -271,17 +271,25 @@ def test_mesh_resolves_as_jax_and_refuses_other_axes():
     mesh = build_mesh()
     assert mesh.shape == {"data": 1} and mesh.size == 1 and mesh.group() is None
     assert build_mesh(data=1, model=1).size == 1  # a size-1 axis names nothing
-    with pytest.raises(NotImplementedError, match="item 6"):
-        build_mesh(MeshSpec({"data": 1, "tp": 2}), devices=[0, 1])
+    with pytest.raises(NotImplementedError, match="item 6c"):
+        build_mesh(MeshSpec({"data": 1, "pipe": 2}), devices=[0, 1])
     with pytest.raises(NotImplementedError, match="launch"):
         build_mesh(data=2, devices=[0, 1])
 
 
 def test_sharded_options_raise_naming_the_next_slice():
+    """Sharded training is ported (``test_torch_sharded.py``); a ``pipe``
+    axis is the next slice, ROADMAP.md item 6c, and both options at once
+    are refused, as in the JAX package."""
+    from deeplearning4j_tpu_torch.parallel.partition import SpecLayout
+    from deeplearning4j_tpu_torch.parallel.sharding import alternating_dense_rules
+
     net = port_net(_jmlp())
-    for kw in ({"sharding_rules": object()}, {"mesh_layout": object()}):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            ParallelTrainer(net, **kw)
+    with pytest.raises(NotImplementedError, match="item 6c"):
+        ParallelTrainer(net, mesh_layout=SpecLayout(data=1, fsdp=1, tp=1, pipe=2))
+    with pytest.raises(ValueError, match="OR"):
+        ParallelTrainer(net, mesh_layout=SpecLayout(1, 1, 1),
+                        sharding_rules=alternating_dense_rules())
 
 
 def test_trainer_metric_families_and_step_phases():

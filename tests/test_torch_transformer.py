@@ -229,7 +229,7 @@ def test_inputs_the_port_refuses():
         T.forward(model, np.zeros((1, 65), np.int64), tc)
     with pytest.raises(ValueError, match="position ids"):
         T.mlm_head(model, torch.zeros((1, 4, 32)), tc, positions=[[4]])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="requires sequence_axis"):
         T.forward(model, tokens, dataclasses.replace(tc, attn_impl="ring"))
 
 
