@@ -198,13 +198,35 @@ Phases:
    restore without ``reshard=True`` (naming both layouts), restores with it
    bit for bit to the saved state, and trains steps 4-6 within 10c's limits
    of the uninterrupted fit; save, verify and restore ms and the reshard
-   metrics.
+   metrics;
+12. pipeline parallelism (``parallel.pipeline``), ranks sharing the card
+   over gloo: (a) BERT-base at full width and depth (max_len 128, phase 5's
+   batch and weights, its 19 MLM positions as weight-1 labels of [16, 128])
+   on 4 ranks at ``SpecLayout(data=1, fsdp=1, pipe=4)``, 3 layers per stage
+   (the cost model's split), M=4 microbatches of [4, 12, 128, 64] into the
+   kernels: one float32 GPipe and one 1F1B step against the one-process
+   float32 step (loss 1e-5, each gathered gradient 1e-3 of its norm), their
+   losses bitwise equal, launches per rank per step (1F1B: 36 forward, 12
+   of each backward kernel; GPipe 12 each); ``PipelineParallelTrainer``
+   bf16 1F1B steps (5 + 10 timed, rank 0's median), each rank's resident
+   parameters + Adam state against the spec-derived count, the bytes of the
+   rings and the broadcasts over ``pipe``, and the peak memory above
+   resident of one bf16 step at M=8 (mb 2), GPipe against 1F1B in turns;
+   (b) the same model and batch in float32 at ``SpecLayout(data=2,
+   pipe=2)``: two 1F1B steps, ``profile_stages`` beside the predicted
+   fractions, ``maybe_rebalance([2.0, 1.0])`` moving the split to the one
+   ``balance_stages`` gives for the corrected costs, two more steps (stage
+   1 fetching rows from stage 0's chunk), all four within 10c's limits of
+   the one-process fit; saved through ``trainer.checkpointer``, restored
+   onto ``PipelinePartitioner(SpecLayout(data=1, fsdp=2))`` in a fresh
+   2-rank gang, refused without ``reshard=True`` and bit for bit with it.
 
 A line before the last is a JSON object describing each kernel (launch
 counts on the main path, error against the plain version, times and the
 card's bound; the forward also by q-tile instantiation, with the launches
-of the autotune search; phase 10's and 11's launches are in the counts: the
-forward in 10a-d, the backward pair in 10b-d, all three in 11a and 11c),
+of the autotune search; phase 10's, 11's and 12's launches are in the counts:
+the forward in 10a-d, the backward pair in 10b-d, all three in 11a, 11c,
+12a and 12b),
 then the card's name and power
 limit; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero and
@@ -531,6 +553,9 @@ def _kernel_cases():
     return [
         ("bert_base", 8, 12, 128, 128, 64, False, None),
         ("bert_base_pad", 8, 12, 128, 128, 64, False, "pad"),
+        # a pipeline microbatch of phase 12: mb 4 (M=4) and mb 2 (M=8)
+        ("bert_base_mb4", 4, 12, 128, 128, 64, False, None),
+        ("bert_base_mb2", 2, 12, 128, 128, 64, False, None),
         ("causal_256", 2, 4, 256, 256, 64, True, None),
         ("pad_200", 2, 4, 200, 200, 64, False, "pad"),
         ("pad_200_causal", 2, 4, 200, 200, 64, True, "pad"),
@@ -4091,7 +4116,7 @@ def sp_worker():
         json.dump(result, f)
 
 
-def _launch_gang(tag, workdir, name, target, n, env_key, spec):
+def _launch_gang(tag, workdir, name, target, n, env_key, spec, phase="11"):
     """Run ``chip_smoke.py:<target>`` on ``n`` gloo ranks sharing the card;
     returns each rank's ``result.rank<r>.json``."""
     from deeplearning4j_tpu_torch.parallel import launcher
@@ -4107,8 +4132,8 @@ def _launch_gang(tag, workdir, name, target, n, env_key, spec):
         if r.returncode != 0:
             print(f"--- {name} rank {r.rank} stderr\n{r.stderr[-3000:]}", flush=True)
     check(all(r.returncode == 0 for r in results),
-          f"11: {name} ranks ended with {[r.returncode for r in results]}")
-    print(f"{tag} 11 {name}: {n} gloo ranks on the card ran in "
+          f"{phase}: {name} ranks ended with {[r.returncode for r in results]}")
+    print(f"{tag} {phase} {name}: {n} gloo ranks on the card ran in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     out = []
     for rank in range(n):
@@ -4293,6 +4318,463 @@ def phase_sharded_mln(tag, launches, workdir):
           f"11c resume: update of {worst2} differs by {errs2[worst2]:.2e}")
 
 
+# ------------------------------------------------------------- phase 12
+
+PP_M, PP_MEM_M = 4, 8      # microbatches: the steps (mb 4) and the memory steps (mb 2)
+PP_WARMUP, PP_TIMED = 5, 10
+PP_LR = 1e-4
+
+
+def _pp_batch(cfg):
+    """Phase 5's batch (B 16, T 128, its 19 MLM positions per row) in the
+    pipeline's layout: labels and weights [B, T], weight 1 at the
+    positions."""
+    b = _mlm_batch(cfg, np.random.RandomState(5), SP_B, SP_T, SP_P)
+    labels = np.zeros((SP_B, SP_T), np.int64)
+    weights = np.zeros((SP_B, SP_T), np.float32)
+    rows = np.arange(SP_B)[:, None]
+    labels[rows, b["mlm_positions"]] = b["labels"]
+    weights[rows, b["mlm_positions"]] = 1.0
+    return {"tokens": b["tokens"], "labels": labels, "weights": weights}
+
+
+def _pp_counts(stage_layers, M, schedule):
+    """Launches of each kernel per rank per step: the fill-drain forward
+    runs each of the stage's layers once per microbatch, 1F1B's backward
+    loop twice more (the forward unit and the recompute); each backward
+    kernel once per layer and microbatch."""
+    fwd = M * stage_layers * (3 if schedule == "1f1b" else 1)
+    return {"flash_fwd": fwd, "flash_bwd_dkv": M * stage_layers, "flash_bwd_dq": M * stage_layers}
+
+
+def _whole_grads(grads, mesh):
+    """{"blocks.qkv_w": [L, ...], "embed.tok": ...}: block gradients
+    gathered over ``pipe`` from the chunks."""
+    from deeplearning4j_tpu_torch.parallel.collectives import all_gather
+    from deeplearning4j_tpu_torch.parallel.mesh import use_mesh
+
+    out = {}
+    with use_mesh(mesh):
+        for k, g in grads.items():
+            out[k] = all_gather(g.contiguous(), "pipe", axis=0) if k.startswith("blocks.") else g
+    return out
+
+
+def _pp_grad_errors(got, ref):
+    """{name: |got - ref| / |ref|} of the one-process gradients ({"blocks.3.
+    qkv_w": tensor}) against stacked pipeline gradients."""
+    errs = {}
+    for name, r in ref.items():
+        parts = name.split(".")
+        g = got[f"blocks.{parts[2]}"][int(parts[1])] if parts[0] == "blocks" else got[name]
+        errs[name] = ((g - r).norm() / r.norm().clamp(min=1e-30)).item() if r.norm() > 0 \
+            else g.norm().item()
+    return errs
+
+
+def _digests(state):
+    import hashlib
+
+    return {k: hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()
+            for k, v in state.items()}
+
+
+def _held_bytes(net):
+    return (sum(t.numel() * t.element_size() for d in net.params_.values() for t in d.values())
+            + sum(t.numel() * t.element_size() for slot in net.updater_state.values()
+                  for t in slot.values()))
+
+
+def pp_worker():
+    """Phase 12's rank (``chip_smoke.py:pp_worker``, gloo, every rank on the
+    card): ``12a`` (4 ranks, pipe=4), ``12b`` (4 ranks, data=2 x pipe=2)
+    or ``12b-restore`` (2 ranks, data=1 x fsdp=2). Writes
+    ``result.rank<r>.json`` into ``TDL_SMOKE_PP``'s directory."""
+    import torch
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch import set_fp32_numerics
+    from deeplearning4j_tpu_torch.parallel.launcher import local_device
+
+    spec = json.loads(os.environ["TDL_SMOKE_PP"])
+    set_fp32_numerics()
+    rank = dist.get_rank()
+    device = local_device()
+    result = {"backend": dist.get_backend(), "device": str(device)}
+    run = {"12a": _pp_flagship, "12b": _pp_rebalance, "12b-restore": _pp_restore}[spec["phase"]]
+    result.update(run(spec, rank, device))
+    with open(os.path.join(spec["dir"], f"result.rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    torch.cuda.synchronize()
+
+
+def _pp_flagship(spec, rank, device):
+    """12a: BERT-base over 4 stages of 3 layers."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+    from deeplearning4j_tpu_torch.models.weights import params_from_jax, pipeline_state_from_jax
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    from deeplearning4j_tpu_torch.parallel import pipeline as PP
+    from deeplearning4j_tpu_torch.parallel.partition import PipelinePartitioner, SpecLayout
+
+    cfg, tree = _sp_model_tree()
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    batch = _pp_batch(cfg)
+    layout = SpecLayout(data=1, fsdp=1, pipe=4)
+    part = PipelinePartitioner(layout)
+    mesh = part.mesh
+    bounds = PP.transformer_stage_boundaries(cfg, 4)
+    out = {"boundaries": bounds}
+    ref = None
+    if rank == 0:  # the one-process float32 step on the card, through the kernels
+        whole = params_from_jax(tree, cfg32, device=device)
+        ref_loss, ref_grads = tfm.loss_and_grads(whole, batch, cfg32)
+        ref = (ref_loss.item(), ref_grads)
+        del whole
+    canon = PP.canonical_pp_params(tree)
+    params, _ = pipeline_state_from_jax(canon, layout, rank, 4, device=device)
+    for sched in ("gpipe", "1f1b"):
+        view = {top: {k: t.detach().requires_grad_() for k, t in d.items()}
+                for top, d in params.items()}
+        flat = PP._flat_state(view)
+        loss_fn = PP.transformer_pp_loss_fn(cfg32, PP_M, mesh, schedule=sched, boundaries=bounds)
+        torch.cuda.synchronize()
+        _zero_counts()
+        loss = loss_fn(view, batch)
+        grads = dict(zip(flat, torch.autograd.grad(loss, list(flat.values()))))
+        torch.cuda.synchronize()
+        r = {"loss": loss.item(), "launches": _read_counts(), "run": dict(PP.last_run)}
+        got = _whole_grads(PP.reduce_replicated_grads(grads, mesh, None), mesh)
+        if ref is not None:
+            errs = _pp_grad_errors(got, ref[1])
+            worst = max(errs, key=errs.get)
+            r.update(ref_loss=ref[0], worst=worst, worst_err=errs[worst], n=len(errs))
+        out[sched] = r
+        del view, flat, grads, got
+    del params
+    # bf16 compute, 1F1B, Adam: the timed steps
+    from deeplearning4j_tpu_torch.parallel import collectives
+
+    trainer = PP.PipelineParallelTrainer(tree, cfg, Adam(PP_LR), part, n_microbatches=PP_M,
+                                         schedule="1f1b", device=device)
+    held = _held_bytes(trainer.net)
+    times, losses, launches, moved = [], [], [], []
+    for it in range(PP_WARMUP + PP_TIMED):
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer._fit_batch(batch)
+        torch.cuda.synchronize()
+        if it >= PP_WARMUP:
+            times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(trainer.net.score_)
+        launches.append(_read_counts())
+        moved.append(dict(trainer._moved))
+    out["bf16"] = {"times": times, "losses": losses, "launches": launches, "moved": moved,
+                   "run": dict(PP.last_run), "held": held,
+                   "staged": dict(collectives.staged_counts)}
+    # peak memory above resident, one bf16 step at M=8 (mb 2), in turns
+    trainer.n_microbatches = PP_MEM_M
+    peaks = {"gpipe": [], "1f1b": []}
+    mem_launches = []
+    for sched in ("gpipe", "1f1b", "gpipe", "1f1b"):
+        trainer.schedule = sched
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _zero_counts()
+        trainer._fit_batch(batch)
+        torch.cuda.synchronize()
+        mem_launches.append(_read_counts())
+        peaks[sched].append(torch.cuda.max_memory_allocated() - base)
+        out.setdefault("mem_runs", {})[sched] = dict(PP.last_run)
+    out["peaks"] = peaks
+    out["mem_launches"] = mem_launches
+    out["resident"] = base
+    return out
+
+
+def _pp_rebalance(spec, rank, device):
+    """12b: data=2 x pipe=2, float32: two 1F1B steps, the rebalance, two
+    more, the checkpoint."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+    from deeplearning4j_tpu_torch.models.weights import _flatten, params_from_jax
+    from deeplearning4j_tpu_torch.monitoring.costmodel import balance_stages
+    from deeplearning4j_tpu_torch.monitoring.registry import get_registry
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    from deeplearning4j_tpu_torch.parallel import pipeline as PP
+    from deeplearning4j_tpu_torch.parallel.partition import SpecLayout
+    from deeplearning4j_tpu_torch.serde.checkpoint import verify_checkpoint
+
+    cfg, tree = _sp_model_tree()
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    batch = _pp_batch(cfg)
+    out = {}
+    ref = None
+    if rank == 0:  # the one-process float32 fit on the same batch
+        model = params_from_jax(tree, cfg32, device=device)
+        upd = Adam(PP_LR)
+        state = upd.init(model)
+        step = tfm.make_train_step(cfg32, upd)
+        ref_losses, ref_params = [], []
+        for it in range(4):
+            model, state, loss = step(model, state, batch, it)
+            ref_losses.append(loss.item())
+            if it in (1, 3):  # before the rebalance and after it
+                ref_params.append({k: p.detach().clone() for k, p in model.named_parameters()})
+        ref = (ref_losses, ref_params)
+        del state
+    trainer = PP.PipelineParallelTrainer(tree, cfg32, Adam(PP_LR), SpecLayout(data=2, pipe=2),
+                                         n_microbatches=PP_M, schedule="1f1b", device=device)
+    losses, launches, splits = [], [], []
+    for it in range(4):
+        if it == 2:
+            out["measured"] = trainer.profile_stages(seq=SP_T, batch_size=4, repeats=5)
+            out["predicted"] = trainer.predicted_stage_costs()
+            skew = [2.0, 1.0]
+            costs = list(trainer._layer_costs)
+            pred = trainer.predicted_stage_costs()
+            for (a, b), meas, p in zip(trainer.boundaries, skew, pred):
+                for i in range(a, b):
+                    costs[i] = trainer._layer_costs[i] * meas / p
+            out["expected_split"] = balance_stages(costs, 2)
+            out["old_split"] = trainer.boundaries
+            out["new_split"] = trainer.maybe_rebalance(skew)
+        splits.append(trainer.boundaries)
+        _zero_counts()
+        trainer._fit_batch(batch)
+        torch.cuda.synchronize()
+        losses.append(trainer.net.score_)
+        launches.append(_read_counts())
+        if it == 1:
+            mid_state = trainer.gather_state()  # a collective: every rank
+    out.update(losses=losses, launches=launches, splits=splits,
+               fetched=PP.last_run.get("fetched_bytes", 0),
+               replicated=PP.last_run.get("replicated_grad_bytes", 0),
+               moved=dict(trainer._moved),
+               rebalances=sum(s["value"] for s in (get_registry().snapshot().get(
+                   "tdl_pipe_rebalances_total") or {}).get("series") or []))
+    ckdir = os.path.join(spec["dir"], "..", "pp_ckpt")
+    ck = trainer.checkpointer(ckdir, async_write=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck.save(trainer.net)
+    out["save_ms"] = (time.perf_counter() - t0) * 1e3
+    state = trainer.gather_state()
+    out["digests"] = _digests(state)
+    if rank == 0:
+        t0 = time.perf_counter()
+        out["verify_ok"] = verify_checkpoint(ckdir)["ok"]
+        out["verify_ms"] = (time.perf_counter() - t0) * 1e3
+        before = dict(_flatten(tree))
+        D = cfg.d_model
+        for when, ref_params, st in (("step2", ref[1][0], mid_state), ("step4", ref[1][1], state)):
+            errs, qkv = {}, {}
+            for name, want in ref_params.items():
+                parts = name.split(".")
+                key = (f"params/blocks/{parts[2]}" if parts[0] == "blocks"
+                       else f"params/{parts[0]}/{parts[1]}")
+                got = st[key][int(parts[1])] if parts[0] == "blocks" else st[key]
+                b = torch_from(before[name], device)
+                g = torch_from(got, device) - b
+                w = want - b
+                norm = w.norm().clamp(min=1e-30)
+                errs[name] = ((g - w).norm() / norm).item()
+                if name.endswith("qkv_b"):
+                    # each of the q, k and v slices' error, and its update,
+                    # as shares of the whole bias's update norm
+                    qkv[name] = [(((g - w)[i * D:(i + 1) * D].norm() / norm).item(),
+                                  (w[i * D:(i + 1) * D].norm() / norm).item()) for i in range(3)]
+            worst = max(errs, key=errs.get)
+            worst_qkv = max(qkv, key=errs.get)
+            out[when] = dict(worst=worst, worst_err=errs[worst], n=len(errs),
+                             qkv_name=worst_qkv, qkv_err=errs[worst_qkv], qkv=qkv[worst_qkv])
+        out.update(ref_losses=ref[0], **out["step4"])
+    return out
+
+
+def _pp_restore(spec, rank, device):
+    """12b's restore: a fresh 2-rank gang under PipelinePartitioner(SpecLayout(
+    data=1, fsdp=2)), refused without reshard=True, then with it."""
+    import torch
+
+    from deeplearning4j_tpu_torch.monitoring.partition import elastic_metrics
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    from deeplearning4j_tpu_torch.parallel.partition import PipelinePartitioner, SpecLayout
+    from deeplearning4j_tpu_torch.parallel.pipeline import pipeline_net
+    from deeplearning4j_tpu_torch.serde.checkpoint import TrainingCheckpointer
+
+    cfg, tree = _sp_model_tree()
+    net = pipeline_net(tree, Adam(PP_LR), device=device)
+    ck = TrainingCheckpointer(os.path.join(spec["dir"], "..", "pp_ckpt"),
+                              partitioner=PipelinePartitioner(SpecLayout(data=1, fsdp=2)))
+    out = {}
+    try:
+        ck.restore(net)
+        out["refused"] = None
+    except ValueError as e:
+        out["refused"] = str(e)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck.restore(net, reshard=True)
+    torch.cuda.synchronize()
+    out["restore_ms"] = (time.perf_counter() - t0) * 1e3
+    m = elastic_metrics()
+    out["reshard_bytes"] = m.reshard_bytes.value
+    out["reshard_seconds"] = m.reshard_seconds.snapshot()["series"][0]["sum"]
+    out["rows"] = int(net.params_["blocks"]["qkv_w"].shape[0])
+    out["digests"] = _digests(net._partition.gather_state(net))
+    out["iteration"] = net.iteration
+    return out
+
+
+def phase_pipeline_flagship(tag, launches, workdir):
+    """12a (module docstring)."""
+    ranks = _launch_gang(tag, workdir, "pp_flagship", "pp_worker", 4, "TDL_SMOKE_PP",
+                         {"phase": "12a"}, phase="12a")
+    check(all(r["backend"] == "gloo" and r["device"].startswith("cuda") for r in ranks),
+          f"12a: ranks on {[(r['backend'], r['device']) for r in ranks]}")
+    r0 = ranks[0]
+    check(r0["boundaries"] == [[0, 3], [3, 6], [6, 9], [9, 12]],
+          f"12a: cost-model boundaries {r0['boundaries']}")
+    for sched in ("gpipe", "1f1b"):
+        r = r0[sched]
+        losses = [x[sched]["loss"] for x in ranks]
+        rel = max(abs(x - r["ref_loss"]) / abs(r["ref_loss"]) for x in losses)
+        want = _pp_counts(3, PP_M, sched)
+        print(f"{tag} 12a BERT-base pipe=4 {sched} float32 step vs the one-process float32 step: "
+              f"loss {r['loss']:.7f} vs {r['ref_loss']:.7f} (worst rank rel {rel:.2e}); largest "
+              f"gathered gradient error {r['worst_err']:.2e} of its norm ({r['worst']}, "
+              f"{r['n']} tensors); launches per rank {[x[sched]['launches'] for x in ranks]}; "
+              f"ticks fwd {r['run']['forward_ticks']} bwd {r['run']['backward_ticks']}, stash "
+              f"{r['run']['stash_slots']}", flush=True)
+        check(rel <= TRAIN_LOSS_REL, f"12a {sched}: loss differs by {rel:.2e}")
+        check(r["worst_err"] <= TRAIN_GRAD_REL,
+              f"12a {sched}: gradient {r['worst']} differs by {r['worst_err']:.2e}")
+        for x in ranks:
+            check(x[sched]["launches"] == want,
+                  f"12a {sched}: a rank launched {x[sched]['launches']}, expected {want}")
+            for k, v in x[sched]["launches"].items():
+                launches[f"{k}_f32"].append(v)
+    check(all(x["gpipe"]["loss"] == x["1f1b"]["loss"] for x in ranks),
+          "12a: GPipe and 1F1B losses differ")
+    b = r0["bf16"]
+    want = _pp_counts(3, PP_M, "1f1b")
+    for x in ranks:
+        for i, counts in enumerate(x["bf16"]["launches"]):
+            check(counts == want, f"12a bf16 step {i}: a rank launched {counts}, expected {want}")
+        for k in want:
+            launches[k].append(sum(c[k] for c in x["bf16"]["launches"])
+                               + sum(c[k] for c in x["mem_launches"]))
+        check(all(math.isfinite(v) for v in x["bf16"]["losses"]), "12a: non-finite bf16 loss")
+    check(b["losses"][-1] < b["losses"][0], f"12a: bf16 loss did not fall: {b['losses']}")
+    cfg, tree = _sp_model_tree()
+    from deeplearning4j_tpu_torch.models.weights import _flatten
+
+    flat = dict(_flatten(tree))
+    expect = 3 * sum(a.nbytes // (4 if n.startswith("blocks.") else 1) for n, a in flat.items())
+    whole = 3 * sum(a.nbytes for a in flat.values())
+    for x in ranks:
+        check(x["bf16"]["held"] == expect,
+              f"12a: a rank holds {x['bf16']['held']} B, the specs give {expect}")
+    ms = statistics.median(b["times"])
+    moved = b["moved"][-1]
+    print(f"{tag} 12a bf16 1F1B steps (4 ranks sharing the card over gloo), B={SP_B} T={SP_T}, "
+          f"M={PP_M}, Adam: loss {b['losses'][0]:.4f} -> {b['losses'][-1]:.4f}; rank 0 step "
+          f"{spread(b['times'])}, {SP_B * SP_T / ms * 1e3:.0f} tokens/s at the median; "
+          f"launches per rank per step {want}", flush=True)
+    held = [x["bf16"]["held"] for x in ranks]
+    print(f"{tag} 12a resident parameters + Adam state per rank: {held} B (spec-derived "
+          f"{expect} B: a quarter of the blocks, embed and mlm whole) against "
+          f"{whole} B in one process ({expect / whole:.3f}); per rank per step: ring "
+          f"{b['run']['ring_bytes'] / 1e6:.2f} MB sent, broadcasts over pipe "
+          f"{b['run']['broadcast_bytes'] / 1e6:.2f} MB, replicated gradients "
+          f"{b['run']['replicated_grad_bytes'] / 1e6:.2f} MB (data=1); collectives by kind "
+          f"{ {k: round(v / 1e6, 2) for k, v in moved.items()} } MB; staged through the host: "
+          f"{b['staged'] or 'none'}", flush=True)
+    for x in ranks:
+        g, f = x["peaks"]["gpipe"][-1], x["peaks"]["1f1b"][-1]
+        check(f < g, f"12a: 1F1B's peak {f} B is not below GPipe's {g} B at M={PP_MEM_M}")
+    print(f"{tag} 12a peak max_memory_allocated above resident, one bf16 step at M={PP_MEM_M} "
+          f"(mb 2), second of two turns, per rank: GPipe "
+          f"{[round(x['peaks']['gpipe'][-1] / 2**20, 1) for x in ranks]} MiB, 1F1B "
+          f"{[round(x['peaks']['1f1b'][-1] / 2**20, 1) for x in ranks]} MiB (stash "
+          f"{r0['mem_runs']['1f1b']['stash_slots']} stage inputs)", flush=True)
+    return ms
+
+
+def phase_pipeline_rebalance(tag, launches, workdir):
+    """12b (module docstring)."""
+    ranks = _launch_gang(tag, workdir, "pp_rebalance", "pp_worker", 4, "TDL_SMOKE_PP",
+                         {"phase": "12b"}, phase="12b")
+    r0 = ranks[0]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], r0["ref_losses"]))
+    print(f"{tag} 12b BERT-base data=2 x pipe=2, float32 1F1B, 4 steps across a rebalance vs "
+          f"the one-process fit: losses {[round(v, 7) for v in r0['losses']]} vs "
+          f"{[round(v, 7) for v in r0['ref_losses']]} (worst rel {rel:.2e}); largest update "
+          f"error {r0['worst_err']:.2e} of its norm ({r0['worst']}, {r0['n']} tensors)",
+          flush=True)
+    check(rel <= TRAIN_LOSS_REL, f"12b: loss differs by {rel:.2e}")
+    for when in ("step2", "step4"):
+        e = r0[when]
+        check(e["worst_err"] <= TRAIN_GRAD_REL,
+              f"12b {when}: update of {e['worst']} differs by {e['worst_err']:.2e}")
+        print(f"{tag} 12b after {when[:4]} {when[4:]} ({'before' if when == 'step2' else 'after'} "
+              f"the rebalance): largest update error {e['worst_err']:.2e} of its norm "
+              f"({e['worst']}); largest qkv_b error {e['qkv_err']:.2e} ({e['qkv_name']}), by "
+              f"slice as shares of that bias's update norm: "
+              + ", ".join(f"{n} error {er:.2e} update {u:.2e}"
+                          for n, (er, u) in zip("qkv", e["qkv"])), flush=True)
+    m = [t / sum(r0["measured"]) for t in r0["measured"]]
+    p = [c / sum(r0["predicted"]) for c in r0["predicted"]]
+    print(f"{tag} 12b profile_stages (seq {SP_T}, batch 4, median of 5): measured "
+          f"{[round(t * 1e3, 3) for t in r0['measured']]} ms, fractions "
+          f"{[round(v, 3) for v in m]} vs predicted {[round(v, 3) for v in p]}", flush=True)
+    check(r0["new_split"] == r0["expected_split"] and r0["new_split"] != r0["old_split"],
+          f"12b: rebalance gave {r0['new_split']}, balance_stages gives {r0['expected_split']} "
+          f"(was {r0['old_split']})")
+    for rank, x in enumerate(ranks):
+        check(x["splits"] == ranks[0]["splits"] and x["losses"] == r0["losses"],
+              f"12b: rank {rank} disagrees")
+        stage = rank // 2  # SpecLayout's mesh: pipe outermost
+        for i, counts in enumerate(x["launches"]):
+            a, b = x["splits"][i][stage]
+            want = _pp_counts(b - a, PP_M, "1f1b")
+            check(counts == want, f"12b step {i}: rank {rank} launched {counts}, expected {want}")
+            for k, v in counts.items():
+                launches[f"{k}_f32"].append(v)
+        check(x["rebalances"] == 1, f"12b: tdl_pipe_rebalances_total {x['rebalances']}")
+    fetched = [x["fetched"] for x in ranks]
+    check(fetched[0] == fetched[1] == 0 and fetched[2] > 0,
+          f"12b: bytes fetched per rank {fetched}")
+    print(f"{tag} 12b split {r0['old_split']} -> {r0['new_split']} (balance_stages of the "
+          f"corrected costs), tdl_pipe_rebalances_total 1 on every rank; bytes fetched from "
+          f"another rank's chunk per step {fetched}; replicated gradients summed over data "
+          f"{r0['replicated'] / 1e6:.2f} MB per rank per step; collectives by kind "
+          f"{ {k: round(v / 1e6, 2) for k, v in r0['moved'].items()} } MB; launches per rank "
+          f"per step {[x['launches'][-1] for x in ranks]}", flush=True)
+    restore = _launch_gang(tag, workdir, "pp_restore", "pp_worker", 2, "TDL_SMOKE_PP",
+                           {"phase": "12b-restore"}, phase="12b")
+    for x in restore:
+        check(x["digests"] == r0["digests"],
+              "12b: the fsdp=2 restore differs from the saved pipe=2 state")
+        check(x["rows"] == 6, f"12b: an fsdp rank holds {x['rows']} layers")
+        msg = x["refused"] or ""
+        check("reshard=True" in msg and "pipe=2" in msg,
+              f"12b: the restore without reshard=True was not refused: {msg!r}")
+    check(r0.get("verify_ok"), "12b: verify_checkpoint failed on the saved lineage")
+    x = restore[0]
+    print(f"{tag} 12b checkpoint after step 4: save {r0['save_ms']:.1f} ms (rank 0), verify "
+          f"{r0['verify_ms']:.1f} ms, restore onto PipelinePartitioner(SpecLayout(data=1, "
+          f"fsdp=2)) with reshard=True {x['restore_ms']:.1f} ms, bit for bit ({len(x['digests'])} "
+          f"arrays, both ranks); tdl_reshard_bytes_total {x['reshard_bytes']:.0f}, "
+          f"tdl_reshard_seconds {x['reshard_seconds']:.4f} (rank 0); without reshard=True: "
+          f"refused", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -4432,6 +4914,19 @@ def main() -> int:
             phase_sharded_mln(tag, launches, workdir)
             print(f"phase 11c networks under mesh_layout: ok ({time.perf_counter() - t:.1f} s); "
                   f"phase 11 {time.perf_counter() - t11:.1f} s", flush=True)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        _free_card()
+        t12 = time.perf_counter()
+        workdir = tempfile.mkdtemp(prefix="tdl_smoke_pp_")
+        try:
+            phase_pipeline_flagship(tag, launches, workdir)
+            print(f"phase 12a pipelined flagship: ok ({time.perf_counter() - t12:.1f} s)",
+                  flush=True)
+            t = time.perf_counter()
+            phase_pipeline_rebalance(tag, launches, workdir)
+            print(f"phase 12b data x pipe, rebalance, reshard: ok ({time.perf_counter() - t:.1f} "
+                  f"s); phase 12 {time.perf_counter() - t12:.1f} s", flush=True)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
     except SmokeFailure as e:

@@ -49,7 +49,10 @@ the runtime plumbing the next slices need):
 - ``parallel`` — the mesh of ranks with named axes, collectives over them,
   the launcher, data-parallel trainers, and sharded training: FSDP×TP
   layouts (``partition``), tensor-parallel rules (``sharding``), and the
-  flagship on a (dp, tp, sp) mesh with ring or Ulysses attention.
+  flagship on a (dp, tp, sp) mesh with ring or Ulysses attention; pipeline
+  parallelism (``pipeline``: GPipe and 1F1B over a ``pipe`` axis,
+  ``PipelineParallelTrainer``) with its cost partitioner
+  (``monitoring.costmodel``).
 
 Entry points that place tensors take ``device`` and default to ``"cuda"``;
 the CPU is used only when asked for (``device="cpu"``).

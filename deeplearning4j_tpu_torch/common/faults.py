@@ -43,7 +43,7 @@ fleet that runs both packages. The port fires three groups of sites:
   the trainer multiplies every parameter by.
 
 The trial fleet's ``corrupt_clone`` waits for the port's trial fleet
-(ROADMAP item 6c).
+(ROADMAP item 6c.4).
 
 A clause without ``rank=`` fires on every rank; the rank comes from
 ``TDL_PROCESS_ID`` and the incarnation from ``TDL_GANG_RESTART_COUNT``.

@@ -119,13 +119,14 @@ def params_to_numpy(module: nn.Module) -> Dict[str, Any]:
     return _tree(module.named_parameters())
 
 
-def updater_state_from_jax(state, module: nn.Module) -> Dict[str, Dict[str, torch.Tensor]]:
+def updater_state_from_jax(state, module) -> Dict[str, Dict[str, torch.Tensor]]:
     """A JAX updater state as the port's: ``{"m": tree, "v": tree}`` (numpy
     leaves, each tree shaped like the parameter pytree; ``{}`` for a
     stateless updater) becomes ``{"m": {name: tensor}, ...}`` keyed like
-    ``module.named_parameters()``, each tensor on its parameter's device and
-    in its dtype."""
-    params = dict(module.named_parameters())
+    ``module.named_parameters()`` (or like ``module``'s keys, a ``{dotted
+    name: tensor}`` dict), each tensor on its parameter's device and in its
+    dtype."""
+    params = dict(module) if isinstance(module, dict) else dict(module.named_parameters())
     out = {}
     for slot, tree in state.items():
         flat = dict(_flatten(tree))
@@ -170,3 +171,80 @@ def _as_lists(node):
     if out and all(k.isdigit() for k in out):
         return [out[str(i)] for i in range(len(out))]
     return out
+
+
+# ------------------------------------------------ the pipeline train state
+
+
+def _virtual_partitioner(layout, rank: int, n_ranks: int):
+    from ..parallel.mesh import Mesh, MeshSpec
+    from ..parallel.partition import PipelinePartitioner
+
+    mesh = Mesh.virtual(MeshSpec(layout.shape()).resolve(n_ranks), rank)
+    return PipelinePartitioner(layout, mesh=mesh)
+
+
+def pipeline_state_from_jax(tree, layout, rank: int, n_ranks: int, updater_state=None, *,
+                            device="cuda"):
+    """Rank ``rank``'s pipeline state (of ``n_ranks``) under
+    ``PipelinePartitioner(layout)`` from the JAX package's canonical pipeline
+    tree (numpy leaves: ``embed``, ``blocks`` stacked ``[L, ...]``, ``mlm``;
+    ``canonical_pp_params`` of ``init_params``) and, if given, its updater
+    state (``{slot: canonical tree}``). Returns ``(params, updater)``:
+    ``{"embed"|"blocks"|"mlm": {name: tensor}}`` with this rank's chunk of
+    the blocks, and ``{slot: {"blocks.qkv_w": tensor, ...}}``, on
+    ``device``."""
+    from ..common.device import resolve_device
+    from ..parallel.sharding import shard_slices
+
+    dev = resolve_device(device)
+    part = _virtual_partitioner(layout, rank, n_ranks)
+    specs = part.spec_tree(tree)
+
+    def cut(t):
+        return {top: {k: _to_tensor(np.asarray(a)[shard_slices(np.shape(a), specs[top][k],
+                                                                  part.mesh)]).to(dev)
+                      for k, a in t[top].items()} for top in ("embed", "blocks", "mlm")}
+
+    params = cut(tree)
+    upd = {}
+    for slot, st in (updater_state or {}).items():
+        upd[slot] = {f"{top}.{k}": t for top, d in cut(st).items() for k, t in d.items()}
+    return params, upd
+
+
+def pipeline_state_to_jax(states, layout, n_layers: int):
+    """The inverse of :func:`pipeline_state_from_jax`: the ranks' ``(params,
+    updater)`` pairs (in rank order) of a model of ``n_layers`` gathered into
+    the JAX canonical tree and updater state, float32 numpy arrays, each
+    chunk put back at the rows its rank's coordinates give it."""
+    from ..parallel.sharding import shard_slices
+
+    n = len(states)
+    parts = [_virtual_partitioner(layout, r, n) for r in range(n)]
+
+    def assemble(trees):
+        out = {}
+        for top, d in trees[0].items():
+            out[top] = {}
+            for k, t in d.items():
+                shape = ((int(n_layers),) if top == "blocks" else tuple(t.shape[:1])) \
+                    + tuple(t.shape[1:])
+                whole = np.zeros(shape, np.float32)
+                for r, part in enumerate(parts):
+                    spec = part.spec_tree({top: {k: whole}})[top][k]
+                    whole[shard_slices(shape, spec, part.mesh)] = \
+                        trees[r][top][k].detach().float().cpu().numpy()
+                out[top][k] = whole
+        return out
+
+    def nested(flat):
+        tree: Dict[str, Dict[str, Any]] = {}
+        for name, t in flat.items():
+            top, k = name.split(".", 1)
+            tree.setdefault(top, {})[k] = t
+        return tree
+
+    params = assemble([p for p, _ in states])
+    slots = {slot: assemble([nested(u[slot]) for _, u in states]) for slot in states[0][1]}
+    return params, slots

@@ -1,11 +1,11 @@
 """Parallelism of the port: training over processes, one device each, on a
 mesh of ranks with named axes (``mesh``, ``collectives``, ``launcher``,
-``trainer``, ``wrapper``, ``compression``): data-parallel, and sharded
+``trainer``, ``wrapper``, ``compression``): data-parallel, sharded
 (FSDP x TP layouts in ``partition``, tensor-parallel rules in
 ``sharding``; sequence parallelism is ``kernels.attention``'s ring and
-Ulysses attention); and batched inference on one card (``inference``).
-Pipelines (a ``pipe`` axis) and the gang supervisor are ROADMAP.md item
-6c.
+Ulysses attention) and pipelined (GPipe and 1F1B over a ``pipe`` axis,
+``pipeline``); and batched inference on one card (``inference``). The gang
+supervisor is ROADMAP.md item 6c.2.
 
 The package's names load lazily (PEP 562): a serving router that imports
 ``parallel.inference`` does not pay for importing torch."""
@@ -17,6 +17,8 @@ _EXPORTS = {
     "mesh_from_shape": "mesh", "data_parallel_mesh": "mesh", "tp_dp_mesh": "mesh",
     "use_mesh": "mesh", "SpecLayout": "partition", "Partitioner": "partition",
     "PartitionReport": "partition", "largest_layout": "partition",
+    "PipelinePartitioner": "partition", "PipelineParallelTrainer": "pipeline",
+    "spmd_pipeline": "pipeline",
     "ShardingRules": "sharding", "alternating_dense_rules": "sharding",
     "PartitionSpec": "sharding",
     "ParallelTrainer": "trainer", "MultiProcessTrainer": "trainer",
@@ -24,10 +26,10 @@ _EXPORTS = {
     "ParallelWrapper": "wrapper", "ParallelInference": "inference",
 }
 _SUBMODULES = ("collectives", "compression", "launcher", "mesh", "trainer", "wrapper",
-               "inference", "partition", "sharding")
+               "inference", "partition", "sharding", "pipeline")
 
 __all__ = sorted(_EXPORTS) + ["collectives", "compression", "launcher", "partition",
-                              "sharding"]
+                              "sharding", "pipeline"]
 
 
 def __getattr__(name):

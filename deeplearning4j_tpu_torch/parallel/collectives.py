@@ -154,29 +154,52 @@ def all_gather(x, axis_name: Axes = AXIS_DATA, axis: int = 0, tiled: bool = True
 def ppermute(x, axis_name: Axes, perm: Sequence[Tuple[int, int]]):
     """``x`` sent along the (source, destination) pairs of ``perm``, in
     axis indices; a rank that receives from none gets zeros, as
-    ``jax.lax.ppermute`` gives."""
+    ``jax.lax.ppermute`` gives. The transfers are :func:`exchange`'s."""
+    import torch
+
+    me = axis_index(axis_name)
+    pairs = [tuple(p) for p in perm]
+    sends = {d: x for s, d in pairs if s == me and d != me}
+    recvs = {s: x for s, d in pairs if d == me and s != me}
+    got = exchange(sends, recvs, axis_name)
+    if (me, me) in pairs:
+        return x.detach().clone()
+    return next(iter(got.values())) if got else torch.zeros_like(x)
+
+
+def exchange(sends: Dict[int, Any], recvs: Dict[int, Any], axis_name: Axes):
+    """Point-to-point transfers over ``axis_name``: ``sends`` maps an axis
+    index to the tensor this rank sends it, ``recvs`` an axis index to a
+    tensor of the shape, dtype and device this rank receives from it (its
+    contents unused). Returns {axis index: received tensor}. The two ranks
+    of a transfer name each other; a rank with nothing to send or receive
+    issues nothing. Counts the bytes this rank sends under ``p2p``.
+
+    Under NCCL a batched p2p among some ranks of a group must not be that
+    group's first operation; :func:`mesh.build_mesh` runs one all-reduce on
+    every group it creates, so it never is."""
     import torch
     import torch.distributed as dist
 
+    if not sends and not recvs:
+        return {}
     group, ranks, me = _axis(axis_name)
     if group is None:
-        return x.detach().clone() if (0, 0) in [tuple(p) for p in perm] \
-            else torch.zeros_like(x)
-    src, staged = _host("p2p", x.contiguous(), group)
-    _count("p2p", src)
-    out = torch.zeros_like(src)
-    ops = []
-    for s, d in perm:
-        if s == me and d == me:
-            out.copy_(src)
-            continue
-        if s == me:
-            ops.append(dist.P2POp(dist.isend, src, ranks[d]))
-        if d == me:
-            ops.append(dist.P2POp(dist.irecv, out, ranks[s]))
-    for work in (dist.batch_isend_irecv(ops) if ops else []):
+        raise ValueError(f"exchange over {axis_name!r}: one rank, no peer")
+    ops, out, staged = [], {}, {}
+    for i in sorted(sends):
+        src, _ = _host("p2p", sends[i].contiguous(), group)
+        _count("p2p", src)
+        ops.append(dist.P2POp(dist.isend, src, ranks[i]))
+    for i in sorted(recvs):
+        like = recvs[i]
+        buf, staged[i] = _host("p2p", torch.empty_like(like, memory_format=torch.contiguous_format),
+                               group)
+        out[i] = buf
+        ops.append(dist.P2POp(dist.irecv, buf, ranks[i]))
+    for work in dist.batch_isend_irecv(ops):
         work.wait()
-    return out.to(x.device) if staged else out
+    return {i: (t.to(recvs[i].device) if staged[i] else t) for i, t in out.items()}
 
 
 def all_to_all(x, axis_name: Axes, split_axis: int, concat_axis: int):

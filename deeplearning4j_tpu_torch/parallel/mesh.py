@@ -16,9 +16,10 @@ of the two packages line up.
 Axis names: the JAX package's vocabulary (``data``, ``model``, ``pipe``,
 ``seq``, ``expert``, ``fsdp``, ``tp``) and any other name (the flagship's
 ``dp``, ``tp``, ``sp``). ``MeshSpec`` resolves sizes as in the JAX package
-(one axis may be -1: the rest of the ranks). A ``pipe`` axis above 1 raises
-``NotImplementedError`` (pipeline parallelism is ROADMAP.md item 6c), and so
-does an ``expert`` axis above 1 (item 8.7). Without a process group the mesh
+(one axis may be -1: the rest of the ranks). A ``pipe`` axis carries the
+stages of ``parallel.pipeline`` (its ring hops are ``collectives.exchange``
+over it); an ``expert`` axis above 1 raises ``NotImplementedError``
+(ROADMAP.md item 8.7). Without a process group the mesh
 spans the one process, every axis of size 1. :meth:`Mesh.virtual` gives rank
 r's view of a mesh without any process group, for placement and checkpoint
 arithmetic in one process.
@@ -202,10 +203,6 @@ class Mesh:
 
 
 def _check_axes(sizes: Dict[str, int]) -> None:
-    if sizes.get(AXIS_PIPE, 1) > 1:
-        raise NotImplementedError(
-            f"a pipe axis of {sizes[AXIS_PIPE]}: pipeline parallelism (GPipe/1F1B, "
-            "PipelinePartitioner) is ROADMAP.md item 6c")
     if sizes.get(AXIS_EXPERT, 1) > 1:
         raise NotImplementedError(
             f"an expert axis of {sizes[AXIS_EXPERT]}: expert parallelism waits for "
@@ -226,8 +223,9 @@ def build_mesh(spec: Optional[MeshSpec] = None, devices: Optional[Sequence] = No
     group.
 
     On every rank, in the same order, this creates one process group for
-    each tuple of axes of size > 1 (each axis alone, each pair, ...): a
-    process group must be created by all ranks together."""
+    each tuple of axes of size > 1 (each axis alone, each pair, ...) and
+    runs one all-reduce on it: a process group must be created by all ranks
+    together, and under NCCL its first operation must involve them all."""
     if spec is None:
         spec = MeshSpec(axes=dict(axes) if axes else {AXIS_DATA: -1})
     world = device_count()
@@ -264,6 +262,15 @@ def build_mesh(spec: Optional[MeshSpec] = None, devices: Optional[Sequence] = No
             if rank in ranks:
                 mine = g
         groups[combo] = mine
+    # NCCL leaves a group's first operation undefined unless all its ranks
+    # join it, and a pipeline's first hop is a batched p2p of two: so every
+    # group runs one all-reduce of all its ranks here, in one order on every
+    # rank
+    import torch
+
+    one = torch.zeros(1, device=device_type)
+    for g in groups.values():
+        dist.all_reduce(one, group=g)
     return Mesh(sizes, rank, device_mesh, groups)
 
 

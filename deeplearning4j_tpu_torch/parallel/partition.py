@@ -1,7 +1,7 @@
-"""Sharded-parameter training: FSDP × tensor-parallel mesh layouts.
+"""Sharded-parameter training: FSDP × tensor-parallel × pipeline mesh layouts.
 
-Counterpart of ``deeplearning4j_tpu/parallel/partition.py`` (up to its
-``PipelinePartitioner``). The data-parallel trainers replicate every
+Counterpart of ``deeplearning4j_tpu/parallel/partition.py``. The
+data-parallel trainers replicate every
 parameter and updater slot on every rank; this module lifts that cap:
 
 - :class:`SpecLayout` — an axis map over a ``data``/``fsdp``/``tp`` mesh
@@ -23,8 +23,12 @@ parameter for the forward and keeps only this rank's slice of its gradient
 ``score()`` and ``params()`` raise (``MultiLayerNetwork._whole_params``),
 and :meth:`NetPartition.gather_state` gives the whole arrays.
 
-``pipe`` > 1 (and ``PipelinePartitioner``) is ROADMAP.md item 6c and
-raises ``NotImplementedError``.
+``pipe`` > 1 puts a ``pipe`` axis outermost in the mesh; the role policy
+leaves it out (a plain :class:`Partitioner` replicates over it), and only
+``parallel.pipeline.PipelineParallelTrainer`` runs the schedule it implies:
+the plain trainers refuse such a layout. :class:`PipelinePartitioner` lays
+out the canonical pipeline state (blocks stacked on a leading layer dim,
+chunked over ``pipe``, or over ``fsdp`` when ``pipe`` is 1).
 """
 
 from __future__ import annotations
@@ -39,17 +43,15 @@ from ..nn.conf import ROLE_BIAS, ROLE_EMBEDDING, ROLE_KERNEL, ROLE_NORM, classif
 from .mesh import AXIS_DATA, AXIS_FSDP, AXIS_PIPE, AXIS_TP, Mesh, mesh_from_shape
 from .sharding import P, PartitionSpec, dim_axes, is_spec, map_with_specs, shard_slices
 
-_ITEM_6C = ("pipeline parallelism (the pipe axis, PipelinePartitioner, "
-            "PipelineParallelTrainer) is ROADMAP.md item 6c")
-
 
 @dataclass(frozen=True)
 class SpecLayout:
-    """Canonical PartitionSpecs over a ``data × fsdp × tp`` mesh.
+    """Canonical PartitionSpecs over a ``[pipe ×] data × fsdp × tp`` mesh.
 
     Axis sizes define the mesh shape (one may be -1 to absorb the remaining
     ranks; size-1 axes are kept so the spec vocabulary stays valid on any
-    topology). Role policy:
+    topology; ``pipe`` joins the mesh, outermost, only above 1, so a
+    pipe-less layout keeps its mesh and checkpoint identity). Role policy:
 
     - ``embedding`` tables: leading (vocab/class) dim over ``fsdp×tp``;
     - ``kernel`` matrices: dim 0 over ``fsdp``, dim 1 over ``tp``;
@@ -74,8 +76,6 @@ class SpecLayout:
         return base
 
     def build_mesh(self, devices: Optional[Sequence] = None) -> Mesh:
-        if self.pipe != 1:
-            raise NotImplementedError(f"SpecLayout(pipe={self.pipe}): {_ITEM_6C}")
         return mesh_from_shape(self.shape(), devices=devices)
 
     def embedding(self, ndim: int = 2) -> PartitionSpec:
@@ -269,12 +269,12 @@ class Partitioner:
     divisibility fallback is reported per path, not an error."""
 
     def __init__(self, layout: SpecLayout, mesh: Optional[Mesh] = None, strict: bool = True):
-        if layout.pipe != 1:
-            raise NotImplementedError(f"SpecLayout(pipe={layout.pipe}): {_ITEM_6C}")
         self.layout = layout
         self.mesh = mesh if mesh is not None else layout.build_mesh()
         self.strict = strict
-        for ax in (layout.data_axis, layout.fsdp_axis, layout.tp_axis):
+        axes = (layout.data_axis, layout.fsdp_axis, layout.tp_axis) + (
+            (layout.pipe_axis,) if layout.pipe != 1 else ())
+        for ax in axes:
             if ax not in self.mesh.shape:
                 raise ValueError(f"mesh {dict(self.mesh.shape)} lacks layout axis {ax!r}")
 
@@ -432,11 +432,45 @@ def partition_with_specs(net, mesh: Mesh, specs) -> "NetPartition":
 
 
 class PipelinePartitioner(Partitioner):
-    """The JAX package's partitioner of the canonical pipeline state: not
-    ported (ROADMAP.md item 6c)."""
+    """Partitioner of the CANONICAL pipeline train state
+    (``parallel.pipeline``): ``{"embed": ..., "blocks": {name: [L, ...]},
+    "mlm": ...}``, every leaf under ``blocks`` stacked on a leading layer
+    dim.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"PipelinePartitioner: {_ITEM_6C}")
+    Storage shards on that layer dim: over ``pipe`` when the layout has one
+    (each stage's rank holds a chunk of the layers and their updater
+    slots), else over ``fsdp``, the same chunks of the same dim, which is
+    why a ``pipe=2`` checkpoint restores onto an ``fsdp=2`` layout bit for
+    bit through the chunk-intersection reshard. A layer count the axis does
+    not divide falls back to whole (``_trim``). ``embed`` and ``mlm``
+    replicate. Roles are not read: the layout is positional (dim 0 = layer).
+    ``describe()`` and ``state_specs`` are :class:`Partitioner`'s, so the
+    checkpoint lineage stamps and reshards this layout as any other."""
+
+    BLOCKS_KEY = "blocks"
+
+    def _depth_axis(self) -> str:
+        return self.layout.pipe_axis if self.layout.pipe != 1 else self.layout.fsdp_axis
+
+    def spec_tree(self, params, roles: Optional[Any] = None,
+                  report: Optional[dict] = None) -> Any:
+        ax = self._depth_axis()
+
+        def walk(p, in_blocks):
+            if isinstance(p, dict):
+                return {k: walk(v, in_blocks or k == self.BLOCKS_KEY) for k, v in p.items()}
+            if isinstance(p, (list, tuple)):
+                return type(p)(walk(v, in_blocks) for v in p)
+            shape = _shape(p)
+            if not in_blocks or not shape:
+                return P()
+            return self._trim(shape, P(ax, *([None] * (len(shape) - 1))))
+
+        specs = walk(params, False)
+        if report is not None:
+            report["uncovered"] = []
+            report["replicated_fallback"] = []
+        return specs
 
 
 # ------------------------------------------------------------ the step's view

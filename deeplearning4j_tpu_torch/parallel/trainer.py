@@ -41,8 +41,9 @@ layer's norm sees the whole layer: every ``GradientNormalization`` mode
 gradients, and the weight constraints on the gathered parameters; the
 port's updaters are elementwise (none has a trust ratio), so updating the
 blocks is exact. ``checkpointer()`` carries the partitioner into
-``serde.checkpoint``. Not ported yet: ``sharded_etl``
-(ROADMAP.md item 8), and a ``pipe`` axis (item 6c).
+``serde.checkpoint``. A layout with a ``pipe`` axis is refused here: only
+``parallel.pipeline.PipelineParallelTrainer`` runs the microbatch schedule
+it implies. Not ported yet: ``sharded_etl`` (ROADMAP.md item 8).
 """
 
 from __future__ import annotations
@@ -94,6 +95,10 @@ class ParallelTrainer:
     ordinary step on every rank (the same inputs, so the replicas stay
     equal), as the JAX trainer does."""
 
+    #: whether this trainer runs the microbatch schedule a SpecLayout pipe
+    #: axis implies; parallel.pipeline.PipelineParallelTrainer flips it
+    _supports_pipe = False
+
     def __init__(self, net, mesh: Optional[Mesh] = None, data_axis: str = AXIS_DATA,
                  sharding_rules=None, mesh_layout=None, bucketing=None):
         from ..common import compile_cache
@@ -111,6 +116,14 @@ class ParallelTrainer:
         if mesh_layout is not None:
             from .partition import Partitioner, SpecLayout
 
+            layout = mesh_layout if isinstance(mesh_layout, SpecLayout) else mesh_layout.layout
+            if layout.pipe != 1 and not self._supports_pipe:
+                # a pipe axis treated as more data or fsdp parallelism would
+                # train wrong: only the pipeline trainer runs its schedule
+                raise ValueError(
+                    f"mesh_layout has a pipe axis (pipe={layout.pipe}) but "
+                    f"{type(self).__name__} runs no pipeline schedule — use "
+                    "parallel.pipeline.PipelineParallelTrainer")
             if isinstance(mesh_layout, SpecLayout):
                 mesh_layout = Partitioner(mesh_layout, mesh=mesh)
             elif mesh is not None and mesh is not mesh_layout.mesh:
@@ -264,6 +277,18 @@ class ParallelTrainer:
         with self._phases.phase("compute"):
             self._fit_core_inner(ds)
         self._step_hist.labels(self._trainer_label).observe(time.perf_counter() - t0)
+        self._count_collectives()
+        self._phases.step_done()
+        if flight_on:
+            loss = None
+            if (it + 1) % flight.loss_every() == 0:
+                loss = self.net.score_  # reading the loss waits for the device
+            flight.record("step_end", iteration=it, loss=loss)
+        aggregate.maybe_spool()
+
+    def _count_collectives(self):
+        """Feed ``tdl_collective_bytes_total`` with the step's logical
+        payloads."""
         if self._grad_bytes is None:  # whole parameter bytes
             part = getattr(self.net, "_partition", None)
             self._grad_bytes = (part.whole_bytes() if part is not None else
@@ -276,13 +301,6 @@ class ParallelTrainer:
             # the blocks' all-gather into whole tensors
             self._coll_bytes.labels(self._trainer_label, "param_allgather").inc(
                 self._grad_bytes)
-        self._phases.step_done()
-        if flight_on:
-            loss = None
-            if (it + 1) % flight.loss_every() == 0:
-                loss = self.net.score_  # reading the loss waits for the device
-            flight.record("step_end", iteration=it, loss=loss)
-        aggregate.maybe_spool()
 
     def _shard(self, ds: DataSet) -> DataSet:
         """This rank's rows of a global batch, on the device."""

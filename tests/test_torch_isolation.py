@@ -73,7 +73,7 @@ def test_importing_the_port_loads_no_jax():
                    "monitoring.trace", "parallel.mesh", "parallel.collectives",
                    "parallel.compression", "parallel.launcher", "parallel.trainer",
                    "parallel.wrapper", "parallel.sharding", "parallel.partition",
-                   "monitoring.partition"):
+                   "monitoring.partition", "parallel.pipeline", "monitoring.costmodel"):
         assert f"deeplearning4j_tpu_torch.{module}" in added
     assert [m for m in added if _forbidden(m)] == []
 
@@ -197,8 +197,9 @@ def test_distributed_and_export_entry_points_default_to_cuda(monkeypatch, tmp_pa
     """``launcher.initialize`` and ``launch`` (platform ``cuda`` and backend
     ``nccl`` unless asked for the CPU), ``load_compiled`` (the card unless
     given ``device``), the trainers, sharded or not (their network's
-    device), and ``place_params`` (the card unless given ``device``) raise
-    on a host with no card before any process starts or any store binds."""
+    device), ``place_params``, ``PipelineParallelTrainer`` and
+    ``pipeline_net`` (the card unless given ``device``) raise on a host with
+    no card before any process starts or any store binds."""
     _no_card()
     from deeplearning4j_tpu_torch.models import LeNet
     from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
@@ -212,8 +213,10 @@ def test_distributed_and_export_entry_points_default_to_cuda(monkeypatch, tmp_pa
     monkeypatch.setenv("TDL_PROCESS_ID", "0")
     path = str(tmp_path / "m.zip")
     export_compiled(lambda w, x: x * w["s"], (torch.ones(2),), {"s": torch.ones(())}, path)
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
     from deeplearning4j_tpu_torch.parallel.mesh import Mesh
-    from deeplearning4j_tpu_torch.parallel.partition import SpecLayout
+    from deeplearning4j_tpu_torch.parallel.partition import PipelinePartitioner, SpecLayout
+    from deeplearning4j_tpu_torch.parallel.pipeline import PipelineParallelTrainer, pipeline_net
 
     kw = dict(vocab_size=32, max_len=8, d_model=8, n_heads=2, n_layers=1, d_ff=16)
     tree = jax.tree.map(np.asarray, J.init_params(jax.random.key(0), J.TransformerConfig(**kw)))
@@ -224,7 +227,12 @@ def test_distributed_and_export_entry_points_default_to_cuda(monkeypatch, tmp_pa
              "ParallelTrainer(mesh_layout=)": lambda: ParallelTrainer(
                  MultiLayerNetwork(LeNet().conf()), mesh_layout=SpecLayout(1, 1, 1)),
              "place_params": lambda: T.place_params(
-                 tree, T.TransformerConfig(**kw), Mesh.virtual({"dp": 1, "tp": 1, "sp": 1}, 0))}
+                 tree, T.TransformerConfig(**kw), Mesh.virtual({"dp": 1, "tp": 1, "sp": 1}, 0)),
+             "PipelineParallelTrainer": lambda: PipelineParallelTrainer(
+                 tree, T.TransformerConfig(**kw, dropout=0.0), Adam(),
+                 PipelinePartitioner(SpecLayout(data=1, fsdp=1, pipe=2), mesh=Mesh.virtual(
+                     {"pipe": 2, "data": 1, "fsdp": 1, "tp": 1}, 0)), n_microbatches=2),
+             "pipeline_net": lambda: pipeline_net(tree, Adam())}
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="cuda"):
             call()

@@ -34,9 +34,9 @@ from deeplearning4j_tpu.parallel.mesh import MeshSpec as JMeshSpec
 from deeplearning4j_tpu_torch.common import faults
 from deeplearning4j_tpu_torch.data import DataSet, ListDataSetIterator
 from deeplearning4j_tpu_torch.monitoring import get_registry
-from deeplearning4j_tpu_torch.parallel import (MeshSpec, ParallelTrainer, ParallelWrapper,
-                                               ParameterAveragingTrainingMaster, build_mesh,
-                                               compression, launcher)
+from deeplearning4j_tpu_torch.parallel import (MeshSpec, MultiProcessTrainer, ParallelTrainer,
+                                               ParallelWrapper, ParameterAveragingTrainingMaster,
+                                               build_mesh, compression, launcher)
 from deeplearning4j_tpu_torch.parallel.collectives import FakeCollectives, TransportError
 from torch_mln_helpers import params_close, port_net, snapshot
 from torch_port_fixtures import _no_leaked_children_or_shm  # noqa: F401  (per-process leak audit)
@@ -271,22 +271,25 @@ def test_mesh_resolves_as_jax_and_refuses_other_axes():
     mesh = build_mesh()
     assert mesh.shape == {"data": 1} and mesh.size == 1 and mesh.group() is None
     assert build_mesh(data=1, model=1).size == 1  # a size-1 axis names nothing
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        build_mesh(MeshSpec({"data": 1, "pipe": 2}), devices=[0, 1])
+    assert build_mesh(data=1, pipe=1).shape == {"data": 1, "pipe": 1}  # a pipe axis is an axis
+    with pytest.raises(NotImplementedError, match="item 8.7"):
+        build_mesh(MeshSpec({"data": 1, "expert": 2}), devices=[0, 1])
     with pytest.raises(NotImplementedError, match="launch"):
         build_mesh(data=2, devices=[0, 1])
 
 
 def test_sharded_options_raise_naming_the_next_slice():
-    """Sharded training is ported (``test_torch_sharded.py``); a ``pipe``
-    axis is the next slice, ROADMAP.md item 6c, and both options at once
-    are refused, as in the JAX package."""
+    """Sharded training is ported (``test_torch_sharded.py``); a plain
+    trainer given a ``pipe`` axis refuses it, naming the trainer that runs
+    the pipeline schedule (``test_torch_pipeline_parallel.py``), as the JAX
+    trainers do; both options at once are refused, as in the JAX package."""
     from deeplearning4j_tpu_torch.parallel.partition import SpecLayout
     from deeplearning4j_tpu_torch.parallel.sharding import alternating_dense_rules
 
     net = port_net(_jmlp())
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        ParallelTrainer(net, mesh_layout=SpecLayout(data=1, fsdp=1, tp=1, pipe=2))
+    for trainer in (ParallelTrainer, MultiProcessTrainer):
+        with pytest.raises(ValueError, match="PipelineParallelTrainer"):
+            trainer(net, mesh_layout=SpecLayout(data=1, fsdp=1, tp=1, pipe=2))
     with pytest.raises(ValueError, match="OR"):
         ParallelTrainer(net, mesh_layout=SpecLayout(1, 1, 1),
                         sharding_rules=alternating_dense_rules())

@@ -262,10 +262,21 @@ def test_layouts_strict_refusal_and_pipe():
     specs = part.spec_tree({"0": {"W": np.zeros((4, 6))}})
     assert _tuples(part.state_spec_tree(state, specs)) == _tuples(
         jpart.state_spec_tree(state, jpart.spec_tree({"0": {"W": np.zeros((4, 6))}})))
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        TPart.Partitioner(TPart.SpecLayout(pipe=2, fsdp=1), mesh=_virtual((1, 1, 1), 0))
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        TPart.PipelinePartitioner(TPart.SpecLayout(1, 1, 1))
+    # a pipe axis joins the mesh outermost; the role policy replicates over it
+    pipe_layout = TPart.SpecLayout(data=2, fsdp=1, pipe=2)
+    pmesh = Mesh.virtual(pipe_layout.shape(), 3)
+    assert tuple(pmesh.shape) == ("pipe", "data", "fsdp", "tp")
+    ppart = TPart.Partitioner(pipe_layout, mesh=pmesh)
+    jppart = JPart.Partitioner(JPart.SpecLayout(data=2, fsdp=1, pipe=2),
+                               mesh=jmesh_from_shape({"pipe": 2, "data": 2, "fsdp": 1, "tp": 1},
+                                                     devices=jax.devices()[:4]))
+    assert ppart.describe() == jppart.describe()
+    assert _tuples(ppart.spec_tree({"0": {"W": np.zeros((4, 6))}})) == _tuples(
+        jppart.spec_tree({"0": {"W": np.zeros((4, 6))}}))
+    assert TPart.PipelinePartitioner(pipe_layout, mesh=pmesh).describe() == ppart.describe()
+    with pytest.raises(NotImplementedError, match="item 8.7"):
+        TPart.Partitioner(TPart.SpecLayout(1, 1, 1), mesh=Mesh.virtual({"expert": 2, "data": 1,
+                                                                         "fsdp": 1, "tp": 1}, 0))
 
 
 def test_sharding_rules_and_alternating_dense_rules_equal_jax():
@@ -299,8 +310,8 @@ def test_mesh_coordinates_follow_jax_device_order():
         assert tuple(m.coords.values()) == tuple(pos)
         assert m.axis_index(("fsdp", "tp")) == pos[1] * 2 + pos[2]
         assert m.axis_ranks("tp") == [m.rank_at({"tp": 0}), m.rank_at({"tp": 1})]
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        Mesh.virtual({"pipe": 2, "data": 1}, 0)
+    pm = Mesh.virtual({"pipe": 2, "data": 2}, 1)  # rank 1: pipe 0, data 1 (JAX's order)
+    assert pm.coords == {"pipe": 0, "data": 1} and pm.axis_ranks("pipe") == [1, 3]
     with pytest.raises(NotImplementedError, match="item 8.7"):
         Mesh.virtual({"expert": 2}, 0)
 
