@@ -219,14 +219,40 @@ Phases:
    1 fetching rows from stage 0's chunk), all four within 10c's limits of
    the one-process fit; saved through ``trainer.checkpointer``, restored
    onto ``PipelinePartitioner(SpecLayout(data=1, fsdp=2))`` in a fresh
-   2-rank gang, refused without ``reshard=True`` and bit for bit with it.
+   2-rank gang, refused without ``reshard=True`` and bit for bit with it;
+13. unattended operation on 9b's network (6c's attention MLN, Adam, dropout
+   0.9) in float32, ranks sharing the card over gloo; (b) runs beside (a)
+   and (c), and (c)'s pool warms during (a): (a) ``GangSupervisor`` of two
+   ``sup_worker`` ranks, global batch 16 (8 rows each), 12 steps, a lineage
+   generation every 3 (``keep_last`` 4), restored at every start, under
+   ``crash@iter=7,rank=1;loss_spike@iter=11,scale=60,restart=1``: one
+   restart classified crash, generations at 3, 6, 9 and 12, gen-9 within
+   10c's limits of the one-process fit of 9 steps, one launch of each
+   kernel per step per rank, the postmortem and the timeline with the
+   crash and the respawn, ``tdl_gang_recovery_seconds`` observed once;
+   (b) an elastic gang of two ranks under ``largest_layout`` (fsdp=2), a
+   generation every 2 steps, ``max_restarts`` 1: rank 1 crashes at
+   iteration 3 and dies at boot after that, the supervisor resizes 2 -> 1
+   (``tdl_gang_resizes_total{direction="down"}`` 1, ``postmortem.json``
+   ``elastic_resize``), the survivor restores iteration 2 with
+   ``reshard=True`` and finishes 8 steps within 10c's limits; (c) (a)'s
+   lineage with gen-6 bit-flipped, a ``ServingPool`` of two
+   ``checkpoint_replica`` with ``latency_inject@value=0.5`` on gen-9, and a
+   ``FleetController`` run once (integrity, eval on a held-out batch
+   through ``Evaluation.to_metrics``, canary under a seeded ``TraceSpec``):
+   gen-6 rejected at integrity, gen-12 (loss-spiked) at eval, gen-9 at the
+   canary, gen-3 promoted through the canary and swapped into both
+   replicas; only 200 and 429 escape the pool, the audit and the
+   ``deploy_rollback`` flight events agree, the canaries and the promoted
+   replicas launch one flash forward per executed batch, and the promoted
+   replicas answer gen-3's output bit for bit.
 
 A line before the last is a JSON object describing each kernel (launch
 counts on the main path, error against the plain version, times and the
 card's bound; the forward also by q-tile instantiation, with the launches
-of the autotune search; phase 10's, 11's and 12's launches are in the counts:
+of the autotune search; phase 10's to 13's launches are in the counts:
 the forward in 10a-d, the backward pair in 10b-d, all three in 11a, 11c,
-12a and 12b),
+12a, 12b, 13a and 13b, the forward in 13c's replicas and eval gate),
 then the card's name and power
 limit; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero and
@@ -3466,9 +3492,10 @@ def phase_torn_and_corrupt(tag, launches, workdir, root):
 
 
 def checkpoint_replica():
-    """``ServingPool`` replica target of phase 9d
+    """``ServingPool`` replica target of phases 9d and 13c
     (``chip_smoke.py:checkpoint_replica``): phase 9b's float32 network,
-    restored from ``TDL_MODEL_CKPT`` when it is set, behind
+    restored from ``TDL_MODEL_CKPT`` when it is set (a lineage, or one
+    generation of it), behind
     ``batch_limit(8)``; ``/stats`` reports the process's flash forward
     launches, the executed batches and the restored iteration."""
     from deeplearning4j_tpu_torch import set_fp32_numerics
@@ -3480,8 +3507,10 @@ def checkpoint_replica():
     set_fp32_numerics()
     net = _preempt_net("float32")
     ckpt = os.environ.get("TDL_MODEL_CKPT")
-    if ckpt:
-        check(TrainingCheckpointer(ckpt).restore(net), f"no checkpoint in {ckpt}")
+    if ckpt:  # a checkpointer's root, or one generation of a lineage (13c)
+        gen = re.fullmatch(r"gen-\d{8,}[a-z]?", os.path.basename(os.path.normpath(ckpt)))
+        check(_restore_generation(net, ckpt) if gen else TrainingCheckpointer(ckpt).restore(net),
+              f"no checkpoint in {ckpt}")
 
     class ReportingServer(JsonModelServer):
         def start(self):
@@ -4775,6 +4804,586 @@ def phase_pipeline_rebalance(tag, launches, workdir):
           f"refused", flush=True)
 
 
+# ----------------------------------------------------------------- phase 13
+
+# Phase 13: unattended operation on 9b's network (6c's attention MLN, Adam,
+# dropout 0.9) in float32: (a) a supervised 2-rank gang trained through a
+# crash and a loss spike, (b) an elastic resize 2 -> 1, (c) a deploy
+# controller gating (a)'s lineage onto a pool of two checkpoint_replica
+SUP_STEPS, SUP_EVERY, SUP_KEEP = 12, 3, 4
+SUP_FAULTS = "crash@iter=7,rank=1;loss_spike@iter=11,scale=60,restart=1"
+EL_STEPS, EL_EVERY = 8, 2
+EL_FAULTS = "crash@iter=3,rank=1"
+SUP_TIMEOUT = 600.0
+# the eval gate: 1 / (1 + held-out cross-entropy) at least DEPLOY_FLOOR, and
+# no more than DEPLOY_BAND below the promoted generation's
+DEPLOY_FLOOR, DEPLOY_BAND = 0.2, 0.15
+DEPLOY_SLO_MS, DEPLOY_LATENCY_S = 1000.0, 0.5
+DEPLOY_TRACE = {"duration_s": 3.0, "base_rate": 8.0, "seed": 18}
+DEPLOY_REPLAY = {"duration_s": 2.0, "base_rate": 12.0, "seed": 7}
+
+
+def _restore_generation(net, gendir):
+    """Load ONE generation of a lineage into ``net`` (``restore`` loads a
+    lineage's newest): through a temporary lineage that holds a link to it,
+    so the restore verifies it as usual. Returns restore's answer."""
+    from deeplearning4j_tpu_torch.serde import TrainingCheckpointer
+
+    gendir = os.path.abspath(os.path.normpath(gendir))
+    name = os.path.basename(gendir)
+    root = tempfile.mkdtemp(prefix="tdl_smoke_gen_")
+    try:
+        os.makedirs(os.path.join(root, "latest"))
+        os.symlink(gendir, os.path.join(root, "latest", name))
+        with open(os.path.join(root, "latest", "LATEST"), "w") as f:
+            f.write(name + "\n")
+        return TrainingCheckpointer(root, async_write=False).restore(net)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def sup_worker():
+    """Phase 13's supervised rank (``chip_smoke.py:sup_worker``, spawned by
+    ``GangSupervisor`` through ``parallel.launcher``, gloo on the card): 9b's
+    float32 network fitted on ``_preempt_data``'s global batches with
+    ``MultiProcessTrainer``, restoring the lineage's newest generation at
+    start and committing one every ``every`` steps. ``elastic``: under
+    ``largest_layout(world)`` (every rank feeds the global batch, fsdp splits
+    it), restored with ``reshard=True``; ``dead_rank`` exits at boot in every
+    incarnation after the first while the world is larger than
+    ``survivors``. Each step appends its score and the kernels' launches to
+    ``steps.rank<r>.inc<i>.jsonl``; the end writes ``result.rank<r>.json``
+    and the parameters."""
+    import torch.distributed as dist
+
+    spec = json.loads(os.environ["TDL_SMOKE_SUP"])
+    incarnation = int(os.environ.get("TDL_GANG_RESTART_COUNT", "0"))
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if (spec.get("dead_rank") == rank and incarnation >= 1
+            and world > spec["survivors"]):
+        os._exit(43)  # the host is gone: it never comes back
+    from deeplearning4j_tpu_torch import set_fp32_numerics
+    from deeplearning4j_tpu_torch.monitoring.partition import elastic_metrics
+    from deeplearning4j_tpu_torch.parallel.partition import Partitioner, largest_layout
+    from deeplearning4j_tpu_torch.parallel.trainer import MultiProcessTrainer
+    from deeplearning4j_tpu_torch.serde import TrainingCheckpointer
+
+    t_boot = time.perf_counter()
+    set_fp32_numerics()
+    data = _preempt_data()
+    out = os.path.join(spec["dir"], f"steps.rank{rank}.inc{incarnation}.jsonl")
+    with float32_policy(), open(out, "a") as log:
+        net = _preempt_net("float32")
+        if spec["elastic"]:
+            part = Partitioner(largest_layout(world))
+            trainer = MultiProcessTrainer(net, mesh_layout=part)
+            ck = trainer.checkpointer(spec["ckpt"], async_write=False, reshard=True,
+                                      keep_last=SUP_KEEP)
+        else:
+            trainer = MultiProcessTrainer(net)
+            ck = TrainingCheckpointer(spec["ckpt"], async_write=False, keep_last=SUP_KEEP)
+        t0 = time.perf_counter()
+        restored = ck.restore(net)
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        start = int(net.iteration) if restored else 0
+        for step in range(start, spec["steps"]):
+            _zero_counts()
+            ds = data[step] if spec["elastic"] else _rows(data[step], rank, world)
+            trainer.fit([ds])
+            log.write(json.dumps({"step": step, "score": float(net.score_),
+                                  "launches": _read_counts()}) + "\n")
+            log.flush()
+            if (step + 1) % spec["every"] == 0:
+                dist.barrier()  # every rank at this iteration before the save
+                ck.save(net)
+                dist.barrier()
+        state = net._partition.gather_state(net) if spec["elastic"] else _state(net)
+    m = elastic_metrics()
+    reshard = m.reshard_seconds.snapshot()["series"]
+    result = {"start": start, "iteration": int(net.iteration), "world": world,
+              "incarnation": incarnation, "restore_ms": restore_ms,
+              "reshard_bytes": m.reshard_bytes.value,
+              "reshard_seconds": reshard[0]["sum"] if reshard else 0.0,
+              "seconds": time.perf_counter() - t_boot}
+    np.savez(os.path.join(spec["dir"], f"state.rank{rank}.npz"), **state)
+    with open(os.path.join(spec["dir"], f"result.rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def _supervisor(workdir, name, faults, ckroot, **kw):
+    """A ``GangSupervisor`` of two ``sup_worker`` ranks sharing the card over
+    gloo, recording the monotonic time of each spawn. The ranks load phase
+    1's kernel build (``TDL_COMPILE_CACHE_DIR``; the supervisor's own cache
+    would run nvcc in the first incarnation)."""
+    from deeplearning4j_tpu_torch.kernels import _build
+    from deeplearning4j_tpu_torch.monitoring import MetricsRegistry
+    from deeplearning4j_tpu_torch.parallel import GangSupervisor
+
+    class Timed(GangSupervisor):
+        def _spawn(self, attempt):
+            self.spawned_at.append(time.monotonic())
+            return super()._spawn(attempt)
+
+    d = os.path.join(workdir, name)
+    os.makedirs(d, exist_ok=True)
+    spec = {"dir": d, "ckpt": ckroot, **kw.pop("spec")}
+    sup = Timed(f"{os.path.abspath(__file__)}:sup_worker", n_processes=2, platform="cuda",
+                backend="gloo", extra_env={
+                    "TDL_SMOKE_SUP": json.dumps(spec), "TDL_FAULT_SPEC": faults,
+                    "TDL_COMPILE_CACHE_DIR": str(_build.build_dir().parent)},
+                workdir=os.path.join(d, "gang"), heartbeat_interval=0.0,
+                hang_timeout=120.0, startup_grace=300.0, backoff_base=0.1,
+                kill_grace=2.0, ckpt_dir=ckroot, registry=MetricsRegistry(), **kw)
+    sup.spawned_at = []
+    return sup, d
+
+
+def _run_gang(sup, what, out):
+    """``sup.run``; ``out`` gets (results, seconds) or the error."""
+    t0 = time.monotonic()
+    try:
+        out["results"] = sup.run(timeout=SUP_TIMEOUT)
+    except Exception as e:  # reported by the caller's check
+        out["error"] = f"{what}: {type(e).__name__}: {e}"
+    out["end"] = time.monotonic()
+    out["seconds"] = out["end"] - t0
+
+
+def _gang_steps(d):
+    """{rank: {step: record}} over every incarnation (a later incarnation's
+    record of a step replaces an earlier one), and every record."""
+    per_rank, records = {}, []
+    for name in sorted(os.listdir(d)):
+        if name.startswith("steps.rank") and name.endswith(".jsonl"):
+            rank = int(name[len("steps.rank"):].split(".")[0])
+            with open(os.path.join(d, name)) as f:
+                for line in f:
+                    rec = json.loads(line)
+                    records.append(rec)
+                    per_rank.setdefault(rank, {})[rec["step"]] = rec
+    return per_rank, records
+
+
+def _gang_launches(what, records, launches):
+    """One launch of each flash kernel per step per rank (10c's count),
+    added to the float32 kernels' counts."""
+    _check_dp_counts(what, [r["launches"] for r in records])
+    for kname in _counters():
+        launches[f"{kname}_f32"].append(sum(r["launches"][kname] for r in records))
+    return len(records)
+
+
+def _reference_fit(steps):
+    """The one-process float32 fit of 9b's network on the first ``steps``
+    global batches: (network, scores, initial parameters)."""
+    with float32_policy():
+        net = _preempt_net("float32")
+        before = _snapshot(net)
+        scores = []
+        for ds in _preempt_data()[:steps]:
+            net.fit(ds)
+            scores.append(net.score_)
+    return net, scores, before
+
+
+def _against_reference(what, state, scores, steps):
+    """Loss within 1e-5 relative and each update within 1e-3 of its norm
+    (10c's limits) of the one-process fit: the errors' text."""
+    ref, ref_scores, before = _reference_fit(steps)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(scores, ref_scores))
+    errs = _dp_errors(state, ref, before)
+    worst = max(errs, key=errs.get)
+    check(len(scores) == steps, f"{what}: {len(scores)} scores for {steps} steps")
+    check(rel <= TRAIN_LOSS_REL, f"{what}: loss differs by {rel:.2e}")
+    check(errs[worst] <= TRAIN_GRAD_REL, f"{what}: update of {worst} differs by "
+                                         f"{errs[worst]:.2e}")
+    del ref
+    return f"worst loss error {rel:.2e}, largest update error {errs[worst]:.2e} ({worst})"
+
+
+def _timeline_kinds(path):
+    with open(path) as f:
+        doc = json.load(f)
+    return Counter(ev.get("name") for ev in doc["traceEvents"] if ev.get("ph") != "M")
+
+
+def check_supervised_gang(tag, launches, sup, d, run):
+    """13a's checks: one restart classified crash, generations at 3, 6, 9
+    and 12, gen-9 within 10c's limits of the one-process fit of 9 steps,
+    one launch of each kernel per step per rank, the postmortem and the
+    timeline with the crash and the respawn, one recovery observed."""
+    from deeplearning4j_tpu_torch.serde.checkpoint import lineage_state
+
+    card = card_line()
+    check("error" not in run, run.get("error", ""))
+    check(all(r.returncode == 0 for r in run["results"]),
+          f"13a: ranks ended with {[r.returncode for r in run['results']]}")
+    check(sup.restarts == 1 and [(e.reason, e.iteration) for e in sup.events] == [("crash", 7)],
+          f"13a: {sup.restarts} restarts after {[(e.reason, e.iteration) for e in sup.events]}")
+    ckroot = sup.ckpt_dir
+    lin = lineage_state(ckroot)
+    iters = [g["iteration"] for g in lin["committed"]]
+    check(iters == [3, 6, 9, 12], f"13a: committed generations at {iters}")
+    gens = {g["iteration"]: os.path.join(lin["dir"], g["generation"]) for g in lin["committed"]}
+    per_rank, records = _gang_steps(d)
+    check(sorted(per_rank) == [0, 1] and all(sorted(s) == list(range(SUP_STEPS))
+                                             for s in per_rank.values()),
+          f"13a: steps recorded {({r: sorted(s) for r, s in per_rank.items()})}")
+    n = _gang_launches("13a", records, launches)
+    with float32_policy():
+        net9 = _preempt_net("float32")
+        check(_restore_generation(net9, gens[9]), "13a: gen-9 did not restore")
+    errors = _against_reference("13a gen-9", _state(net9), [per_rank[0][s]["score"]
+                                                            for s in range(9)], 9)
+    del net9
+    with open(sup.postmortem_path) as f:
+        pm = json.load(f)
+    kinds = Counter(e.get("kind") for e in pm["events"])
+    check(pm["classification"] == "crash" and pm["iteration"] == 7 and kinds["gang_failure"],
+          f"13a: postmortem {pm['classification']} at {pm['iteration']}, {dict(kinds)}")
+    timeline = sup._write_timeline_artifact()  # every incarnation, now the respawn too
+    tk = _timeline_kinds(timeline)
+    # the crashed incarnation and its respawn each ran step 6 on both lanes
+    check(tk["gang_failure"] and tk["restart_decision"] and tk["step 6"] >= 4,
+          f"13a: the timeline holds {dict(tk)}")
+    rec = sup.registry.get("tdl_gang_recovery_seconds").snapshot()["series"][0]
+    check(rec["count"] == 1, f"13a: tdl_gang_recovery_seconds observed {rec['count']} times")
+    walls = [sup.events[0].time - sup.spawned_at[0], run["end"] - sup.spawned_at[1]]
+    res = [json.load(open(os.path.join(d, f"result.rank{r}.json"))) for r in range(2)]
+    print(f"{tag} 13a GangSupervisor, 2 gloo ranks on the card, 9b's network float32, "
+          f"global batch 16 (8 rows per rank), {SUP_STEPS} steps, {SUP_FAULTS!r}: 1 restart "
+          f"(crash at iteration 7, ranks {list(sup.events[0].ranks)}), the respawn restored "
+          f"iteration {res[0]['start']}; generations at {iters}; gen-9 vs the one-process fit "
+          f"of 9 steps: {errors}; {n} rank-steps, 1 launch of each flash kernel per step per "
+          f"rank; failure detection to gang respawned {rec['sum']:.3f} s; incarnation walls "
+          f"{walls[0]:.1f} s and {walls[1]:.1f} s (spawn to the crash's detection, spawn to "
+          f"the end); postmortem {pm['classification']} with {len(pm['events'])} events, "
+          f"timeline {sum(tk.values())} events [{card}]", flush=True)
+    return gens
+
+
+def check_elastic_gang(tag, launches, sup, d, run):
+    """13b's checks: one resize down 2 -> 1 (metric, postmortem), the
+    survivor restored the fsdp=2 generation at iteration 2 with
+    ``reshard=True`` and finished 8 steps within 10c's limits of the
+    one-process fit, one launch of each kernel per step per rank."""
+    card = card_line()
+    check("error" not in run, run.get("error", ""))
+    check(len(run["results"]) == 1 and run["results"][0].returncode == 0,
+          f"13b: final gang {[(r.rank, r.returncode) for r in run['results']]}")
+    rz = sup.resizes
+    check(sup.n_processes == 1 and len(rz) == 1 and rz[0]["from_processes"] == 2
+          and rz[0]["to_processes"] == 1 and rz[0]["suspect_ranks"] == [1],
+          f"13b: resizes {rz}")
+    snap = sup.registry.get("tdl_gang_resizes_total").snapshot()["series"]
+    check([(s["labels"], s["value"]) for s in snap] == [({"direction": "down"}, 1.0)],
+          f"13b: tdl_gang_resizes_total {snap}")
+    with open(sup.postmortem_path) as f:
+        pm = json.load(f)
+    check(pm["classification"] == "elastic_resize" and pm["resizes"] == rz,
+          f"13b: postmortem {pm['classification']}, resizes {pm['resizes']}")
+    res = json.load(open(os.path.join(d, "result.rank0.json")))
+    check(res["world"] == 1 and res["start"] == 2 and res["iteration"] == EL_STEPS,
+          f"13b: the survivor ran {res}")
+    check(res["reshard_bytes"] > 0, f"13b: the survivor's restore resharded nothing: {res}")
+    per_rank, records = _gang_steps(d)
+    n = _gang_launches("13b", records, launches)
+    state = dict(np.load(os.path.join(d, "state.rank0.npz")))
+    errors = _against_reference("13b", state, [per_rank[0][s]["score"]
+                                               for s in range(EL_STEPS)], EL_STEPS)
+    print(f"{tag} 13b elastic GangSupervisor (max_restarts 1, min_processes 1), 2 gloo ranks "
+          f"under {rz[0]['survivor_layout']['axes']} after fsdp=2, {EL_FAULTS!r} then rank 1 "
+          f"dead at boot: {len(sup.events)} failures "
+          f"{[(e.reason, list(e.ranks), e.iteration) for e in sup.events]}, resized 2 -> 1 "
+          f"(suspects {rz[0]['suspect_ranks']}), tdl_gang_resizes_total{{down}} 1; the "
+          f"survivor restored iteration {res['start']} with reshard=True in "
+          f"{res['restore_ms']:.1f} ms (tdl_reshard_bytes_total {res['reshard_bytes']:.0f}, "
+          f"tdl_reshard_seconds {res['reshard_seconds']:.4f}) and finished {EL_STEPS} steps: "
+          f"{errors} vs the one-process fit; {n} rank-steps, 1 launch of each flash kernel per "
+          f"step per rank; supervised run {run['seconds']:.1f} s [{card}]", flush=True)
+
+
+def _gang_logs(sup):
+    for name in sorted(os.listdir(sup.workdir)):
+        if name.startswith("logs_"):
+            for f in sorted(os.listdir(os.path.join(sup.workdir, name))):
+                with open(os.path.join(sup.workdir, name, f)) as fh:
+                    tail = fh.read().splitlines()[-20:]
+                print(f"--- {name}/{f}\n" + "\n".join(tail), flush=True)
+
+
+def start_elastic_gang(workdir):
+    """13b's supervised gang, run on a thread beside 13a and 13c: (the
+    supervisor, its directory, the run's record, the thread)."""
+    sup, d = _supervisor(workdir, "13b", EL_FAULTS, os.path.join(workdir, "ck_b"),
+                         max_restarts=1, elastic=True, min_processes=1, poll_interval=0.05,
+                         spec={"steps": EL_STEPS, "every": EL_EVERY, "elastic": True,
+                               "dead_rank": 1, "survivors": 1})
+    run = {}
+    t = threading.Thread(target=_run_gang, args=(sup, "13b", run))
+    t.start()
+    return sup, d, run, t
+
+
+def phase_elastic_gang(tag, launches, gang):
+    sup, d, run, t = gang
+    t.join()
+    if "error" in run:
+        _gang_logs(sup)
+    check_elastic_gang(tag, launches, sup, d, run)
+
+
+def phase_supervised_gang(tag, launches, workdir):
+    """13a: returns the generations {iteration: directory}."""
+    sup, d = _supervisor(workdir, "13a", SUP_FAULTS, os.path.join(workdir, "ck_a"),
+                         max_restarts=3, spec={"steps": SUP_STEPS, "every": SUP_EVERY,
+                                               "elastic": False})
+    run = {}
+    _run_gang(sup, "13a", run)
+    if "error" in run:
+        _gang_logs(sup)
+    return check_supervised_gang(tag, launches, sup, d, run)
+
+
+def _flip_byte(shard):
+    """Flip one byte in the middle of a committed shard: latent bit rot."""
+    raw = bytearray(open(shard, "rb").read())
+    raw[len(raw) // 2] ^= 0xFF
+    with open(shard, "wb") as f:
+        f.write(bytes(raw))
+
+
+def _held_out():
+    """A held-out seeded batch of 6c's shape with its labels."""
+    rs = np.random.RandomState(901)
+    return (rs.randn(ATTN_B, ATTN_C, ATTN_T).astype(np.float32),
+            np.eye(10, dtype=np.float32)[rs.randint(0, 10, ATTN_B)])
+
+
+def _deploy_eval(registry, seen):
+    """The controller's eval callable: the candidate restored into 9b's
+    network on the card, scored on the held-out batch through
+    ``Evaluation.to_metrics``; the gate's ``score`` is 1 / (1 + cross-entropy)
+    (0 when the cross-entropy is not finite): a spike that keeps the argmax
+    still blows up the cross-entropy."""
+    from deeplearning4j_tpu_torch.eval import Evaluation
+
+    x, y = _held_out()
+
+    def eval_fn(gendir):
+        net = _preempt_net("float32")
+        check(_restore_generation(net, gendir), f"13c: {gendir} did not restore")
+        p = np.asarray(net.output(x).float().cpu().numpy(), np.float64)
+        ev = Evaluation()
+        ev.eval(y, p)
+        metrics = ev.to_metrics(registry, model=os.path.basename(gendir))
+        xent = float(-(y * np.log(np.clip(p, 1e-12, 1.0))).sum(axis=1).mean())
+        metrics["score"] = 1.0 / (1.0 + xent) if math.isfinite(xent) else 0.0
+        seen[os.path.basename(gendir)] = metrics
+        return metrics
+
+    return eval_fn
+
+
+def start_deploy_pool(workdir, target=None):
+    """13c's pool, started ahead of 13a so that its two replicas warm while
+    the gangs train: ``checkpoint_replica`` on the untrained network (the
+    old fleet), every replica serving gen-9 slowed by ``latency_inject``."""
+    from deeplearning4j_tpu_torch.kernels import _build
+    from deeplearning4j_tpu_torch.monitoring import MetricsRegistry
+    from deeplearning4j_tpu_torch.serde.checkpoint import _gen_name
+    from deeplearning4j_tpu_torch.serving import ServingPool
+
+    reg = MetricsRegistry()
+    target = target or f"{os.path.abspath(__file__)}:checkpoint_replica"
+    pool = ServingPool(target, replicas=2,
+                       min_replicas=1, max_replicas=4, workdir=os.path.join(workdir, "pool"),
+                       registry=reg, extra_env={
+                           "TDL_COMPILE_CACHE_DIR": str(_build.build_dir().parent),
+                           "TDL_FAULT_SPEC":
+                               f"latency_inject@value={DEPLOY_LATENCY_S},model={_gen_name(9)}"})
+    t0, ready = time.monotonic(), {}
+    pool.start()
+    # notes when each replica is first seen ready while the gangs train
+    waiter = threading.Thread(target=_await_ready, args=(pool, (0, 1), 300.0, ready),
+                              daemon=True)
+    waiter.start()
+    return pool, reg, t0, ready, waiter
+
+
+def phase_unattended_deploy(tag, launches, workdir, gens, pool, reg, t_pool, ready, waiter):
+    """13c: gen-6 bit-flipped, a ``FleetController`` run once over 13a's
+    lineage with the integrity, eval and canary gates: gen-6 rejected at
+    integrity, gen-12 (loss-spiked) at eval, gen-9 (latency-injected) at the
+    canary, gen-3 promoted through the canary and swapped into both
+    replicas; only 200 and 429 escape the pool; the audit and the
+    ``deploy_rollback`` flight events agree; one flash forward per executed
+    batch in the canaries and the promoted replicas, whose answers equal
+    gen-3's output bit for bit."""
+    from deeplearning4j_tpu_torch.deploy import FleetController
+    from deeplearning4j_tpu_torch.monitoring import flight
+    from deeplearning4j_tpu_torch.parallel.inference import ParallelInference
+    from deeplearning4j_tpu_torch.serde.checkpoint import verify_checkpoint
+    from deeplearning4j_tpu_torch.serving.loadgen import TraceSpec, replay
+
+    card = card_line()
+    g3, g6, g9, g12 = (gens[i] for i in (3, 6, 9, 12))
+    _flip_byte(os.path.join(g6, "shard_0.npz"))
+    check(verify_checkpoint(g6)["reason"] == "shard_crc", "13c: the flipped gen-6 verifies")
+    waiter.join()
+    if sorted(ready) != [0, 1]:
+        _replica_logs(pool)
+        raise SmokeFailure(f"13c: replicas not ready: {pool.replica_states()}")
+    pool_ready_s = max(ready.values()) - t_pool
+    x_seq = np.random.RandomState(13).randn(1, ATTN_C, ATTN_T).astype(np.float32)
+    canaries, canary_ready, swap_s = [], [], []
+    start, stop, swap = pool.start_canary, pool.stop_canary, pool.swap_model
+
+    def timed_start(*a, **k):
+        t0 = time.monotonic()
+        h = start(*a, **k)
+        canary_ready.append(time.monotonic() - t0)
+        h.smoke_stats = pool.replica_stats()[h.id]  # after the warm-up's launches
+        return h
+
+    def stats_then_stop(h):
+        after = pool.replica_stats()[h.id]
+        canaries.append((h.env_overrides.get("TDL_MODEL_CKPT"),
+                         {k: after[k] - h.smoke_stats[k] for k in ("batches",
+                                                                   "flash_fwd_launches")}))
+        stop(h)
+
+    def timed_swap(*a, **k):  # the promote gate: the rolling swap
+        t0 = time.monotonic()
+        try:
+            return swap(*a, **k)
+        finally:
+            swap_s.append(round(time.monotonic() - t0, 3))
+
+    pool.start_canary, pool.stop_canary, pool.swap_model = timed_start, stats_then_stop, timed_swap
+    seen = {}
+    ctl = FleetController(
+        os.path.dirname(os.path.dirname(g3)), pool, workdir=os.path.join(workdir, "deploy"),
+        eval_fn=_deploy_eval(reg, seen), eval_thresholds={"score": DEPLOY_FLOOR},
+        regression_band=DEPLOY_BAND, trace=TraceSpec(**DEPLOY_TRACE),
+        payload=x_seq.tolist(), n_clients=4, slo_threshold_ms=DEPLOY_SLO_MS,
+        burn_window_s=0.5, canary_ready_timeout=300.0, gate_timeout_s=600.0, retries=1,
+        retry_backoff_s=0.1, registry=reg)
+    try:
+        _zero_counts()
+        t0 = time.perf_counter()
+        ctl.run_once()
+        run_s = time.perf_counter() - t0
+        eval_launches = _read_counts()["flash_fwd"]
+        cands = ctl.state["candidates"]
+        names = {i: os.path.basename(g) for i, g in ((3, g3), (6, g6), (9, g9), (12, g12))}
+        verdicts = {i: (cands[n]["status"], (cands[n].get("rejected_by") or {}).get("gate"))
+                    for i, n in names.items()}
+        check(verdicts == {3: ("promoted", None), 6: ("rejected", "integrity"),
+                           9: ("rejected", "canary"), 12: ("rejected", "eval")},
+              f"13c: verdicts {verdicts}; {json.dumps(cands, default=str)[:3000]}")
+        check(cands[names[6]]["rejected_by"]["reason"] == "shard_crc"
+              and cands[names[9]]["rejected_by"]["reason"].startswith("slo:"),
+              f"13c: reasons {[cands[names[i]]['rejected_by'] for i in (6, 9)]}")
+        check([(v["gate"], v["ok"]) for v in cands[names[3]]["verdicts"]] == [
+            ("integrity", True), ("eval", True), ("canary", True), ("promote", True)],
+            f"13c: gen-3's verdicts {cands[names[3]]['verdicts']}")
+        rows = pool.describe()["replicas"]
+        check(len(rows) == 2 and all(r["model"] == g3 and not r["canary"] for r in rows),
+              f"13c: the pool after the swap {rows}")
+        with open(ctl.audit_path) as f:
+            audit = json.load(f)
+        rec = ctl._own_recorder or flight.get_flight_recorder()
+        rolled = {e["generation"]: (e["gate"], e["reason"]) for e in rec.events()
+                  if e["kind"] == "deploy_rollback"}
+        audited = {c["generation"]: (c["rejected_by"]["gate"], c["rejected_by"]["reason"])
+                   for c in audit["candidates"] if c["status"] == "rejected"}
+        check(rolled == audited and len(rolled) == 3,
+              f"13c: deploy_rollback events {rolled} against the audit {audited}")
+        # the promoted replicas: one flash forward per executed batch, gen-3's answers
+        n = CKPT_SERVE_CLIENTS * CKPT_SERVE_REQUESTS
+        seqs = list(np.random.RandomState(12).randn(n, 1, ATTN_C, ATTN_T).astype(np.float32))
+        before = pool.replica_stats()
+        outs, lat, _ = _drive_clients("13c promoted gen-3", pool.port, seqs, CKPT_SERVE_CLIENTS)
+        report = replay(TraceSpec(**DEPLOY_REPLAY), pool.port, n_clients=4,
+                        payload=x_seq.tolist())
+        after = pool.replica_stats()
+    finally:
+        ctl.close()
+        pool.start_canary, pool.stop_canary, pool.swap_model = start, stop, swap
+        with pool._lock:
+            handles = list(pool._replicas.values())
+        pool.stop(drain=True, timeout=60.0)
+    codes = [h.proc.returncode for h in handles]
+    check(codes == [0, 0], f"13c: replica exit codes {codes}")
+    outcomes = report["outcomes"]
+    check(set(outcomes) <= {"200", "429"} and outcomes.get("200", 0) > 0,
+          f"13c: outcomes escaping the pool {outcomes}")
+    check(sorted(before) == sorted(after) and len(after) == 2,
+          f"13c: replica stats {sorted(before)} then {sorted(after)}")
+    served = {rid: (after[rid]["batches"] - before[rid]["batches"],
+                    after[rid]["flash_fwd_launches"] - before[rid]["flash_fwd_launches"])
+              for rid in after}
+    check(all(b == l and s["iteration"] == 3 for (b, l), s in zip(served.values(),
+                                                               after.values())),
+          f"13c: promoted replicas (batches, launches) {served}, iterations "
+          f"{[s['iteration'] for s in after.values()]}")
+    check(len(canaries) == 2 and all(s["batches"] == s["flash_fwd_launches"] > 0
+                                     for _, s in canaries),
+          f"13c: canaries {canaries}")
+    launches["flash_fwd"].append(eval_launches + sum(l for _, l in served.values())
+                                 + sum(s["flash_fwd_launches"] for _, s in canaries))
+    net3 = _preempt_net("float32")  # as checkpoint_replica builds it
+    check(_restore_generation(net3, g3), "13c: gen-3 did not restore")
+    pi = ParallelInference(net3, batch_limit=8)
+    ref = np.stack([pi.output(x) for x in seqs])
+    got = np.asarray(outs, np.float32)
+    check(got.shape == ref.shape, f"13c: responses of shape {got.shape}, expected {ref.shape}")
+    worst = float(np.abs(got - ref).max())
+    gate_s = {f"gen-{i}": [(v["gate"], v.get("seconds", swap_s[0] if swap_s else None))
+                           for v in cands[names[i]]["verdicts"]] for i in (3, 6, 9, 12)}
+    scores = {k: round(v["score"], 4) for k, v in sorted(seen.items())}
+    print(f"{tag} 13c FleetController over 13a's lineage (gen-6 bit-flipped) on a ServingPool "
+          f"of 2 checkpoint_replica (ready {pool_ready_s:.1f} s after start, warming while "
+          f"13a and 13b trained), latency_inject {DEPLOY_LATENCY_S} s on gen-9: gen-6 rejected at "
+          f"integrity (shard_crc), gen-12 at eval (scores {scores}, floor {DEPLOY_FLOOR}, band "
+          f"{DEPLOY_BAND}), gen-9 at the canary ({cands[names[9]]['rejected_by']['reason']}), "
+          f"gen-3 promoted through the canary and swapped into both replicas; run_once "
+          f"{run_s:.1f} s; gate seconds {gate_s}; canary time to ready "
+          f"{[round(s, 3) for s in canary_ready]} s; audit and deploy_rollback events agree "
+          f"({len(rolled)} rollbacks) [{card}]", flush=True)
+    print(f"{tag} 13c promoted fleet: {n} requests from {CKPT_SERVE_CLIENTS} clients all 200, "
+          f"latency {_latency_line(lat)}; replay {DEPLOY_REPLAY} outcomes {outcomes}; "
+          f"(batches, flash forward launches) per promoted replica {served}, per canary "
+          f"{[(os.path.basename(m or ''), s['batches'], s['flash_fwd_launches']) for m, s in canaries]}, "
+          f"{eval_launches} in the eval gate; worst |answer - gen-3's float32 output at the "
+          f"served batch shape| {worst:.2e} (must be 0) [{card}]", flush=True)
+    check(np.array_equal(got, ref), f"13c: an answer differs from gen-3's output by up to "
+                                    f"{worst:.2e}")
+    del net3, pi
+    _free_card()
+
+
+def phase_unattended(tag, launches, workdir, target=None):
+    """Phase 13: 13c's pool and 13b's gang start first and run beside 13a;
+    13c's controller then runs on 13a's lineage while 13b finishes."""
+    t0 = time.perf_counter()
+    pool = start_deploy_pool(workdir, target)
+    gang = start_elastic_gang(workdir)
+    try:
+        gens = phase_supervised_gang(tag, launches, workdir)
+        print(f"phase 13a supervised gang: ok ({time.perf_counter() - t0:.1f} s)", flush=True)
+        t = time.perf_counter()
+        phase_unattended_deploy(tag, launches, workdir, gens, *pool)
+        print(f"phase 13c unattended deploy: ok ({time.perf_counter() - t:.1f} s)", flush=True)
+    finally:
+        pool[0].stop(drain=False)  # idempotent: 13c stops it itself
+        t = time.perf_counter()
+        phase_elastic_gang(tag, launches, gang)
+    print(f"phase 13b elastic gang: ok (waited {time.perf_counter() - t:.1f} s after 13c)",
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -4927,6 +5536,14 @@ def main() -> int:
             phase_pipeline_rebalance(tag, launches, workdir)
             print(f"phase 12b data x pipe, rebalance, reshard: ok ({time.perf_counter() - t:.1f} "
                   f"s); phase 12 {time.perf_counter() - t12:.1f} s", flush=True)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        _free_card()
+        t13 = time.perf_counter()
+        workdir = tempfile.mkdtemp(prefix="tdl_smoke_sup_")
+        try:
+            phase_unattended(tag, launches, workdir)
+            print(f"phase 13 {time.perf_counter() - t13:.1f} s", flush=True)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
     except SmokeFailure as e:

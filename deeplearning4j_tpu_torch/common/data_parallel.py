@@ -22,7 +22,13 @@ reproduces those semantics by hand:
   same buffer and the sums are divided by their total. The port's losses
   are means over the unmasked examples, so ranks with different live
   counts would otherwise weigh their examples differently. The reported
-  loss, ``score_``, is the global one (read from the card only when used);
+  loss, ``score_``, is the global one (read from the card only when used).
+  A ComputationGraph with label masks on several outputs has one live count
+  per output: :meth:`~DataParallelContext.output_weights` all-reduces the
+  vector of counts before the backward and weighs each output's loss by its
+  local count over the global one (the regularisation by 1/W), so each
+  rank's objective is its share of the global loss, and
+  ``reduce_step(..., shares=True)`` only sums;
 - **BatchNormalization** (:meth:`~DataParallelContext.sum_moments`): with
   W > 1 the sums ``x`` and ``x*x`` and the count are all-reduced through
   ``torch.distributed.nn.functional.all_reduce``, so the gradient flows
@@ -87,17 +93,36 @@ class DataParallelContext:
             return None
         return torch.as_tensor(mask).sum().to(torch.float32)
 
+    def output_weights(self, masks) -> Optional[torch.Tensor]:
+        """The weights of a several-output loss, one per output in the
+        order of ``masks`` (a label mask or None each): this rank's live
+        count over the group's (an output without a mask counts 1 per rank,
+        its loss being a mean over equal local batches). One all-reduce of
+        the counts; None without a group."""
+        if self.group is None:
+            return None
+        counts = [torch.as_tensor(m).sum().to(torch.float32) if m is not None
+                  else torch.ones((), dtype=torch.float32) for m in masks]
+        device = next((m.device for m in masks if isinstance(m, torch.Tensor)), None)
+        local = torch.stack([c.to(device) for c in counts])
+        return local / self.all_reduce_sum(local).clamp(min=1.0)
+
     def reduce_step(self, grads: Dict[str, torch.Tensor], loss: torch.Tensor,
-                    weight: Optional[torch.Tensor]) -> Tuple[Dict[str, torch.Tensor],
-                                                             torch.Tensor]:
+                    weight: Optional[torch.Tensor],
+                    shares: bool = False) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
         """Global (gradients, loss) from this rank's gradients of
         ``loss * weight`` and its loss: one all-reduce (sum) per dtype of
         the flattened gradients, the float32 one also carrying
         ``loss * weight`` and ``weight``; everything is then divided by the
         summed weight (clamped at 1, as the losses clamp their
-        denominators). Without a group, returns its arguments."""
+        denominators). With ``shares`` the loss and its gradients are
+        already this rank's share of the global ones
+        (:meth:`output_weights`): they are summed and not divided. Without a
+        group, returns its arguments."""
         if self.group is None:
             return grads, loss
+        if shares:
+            weight = None
         w = (weight if weight is not None
              else torch.ones((), dtype=torch.float32, device=loss.device))
         by_dtype: Dict[torch.dtype, list] = {}
@@ -114,7 +139,8 @@ class DataParallelContext:
             buf = torch.cat(parts)
             self._all_reduce(buf)
             if dtype == torch.float32:
-                total = buf[-1].clamp(min=1.0)
+                total = (torch.ones((), dtype=torch.float32, device=buf.device) if shares
+                         else buf[-1].clamp(min=1.0))
                 loss = buf[-2] / total
                 buf = buf[:-2]
             by_dtype[dtype] = (names, buf)

@@ -1,5 +1,5 @@
 """Evaluation metrics of the port (host numpy, copied from the JAX package)."""
 
-from .evaluation import Evaluation, RegressionEvaluation
+from .evaluation import Evaluation, RegressionEvaluation, eval_metrics
 
-__all__ = ["Evaluation", "RegressionEvaluation"]
+__all__ = ["Evaluation", "RegressionEvaluation", "eval_metrics"]

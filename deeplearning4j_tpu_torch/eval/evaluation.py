@@ -3,14 +3,14 @@
 Copy of ``Evaluation`` and ``RegressionEvaluation`` from
 ``deeplearning4j_tpu/eval/evaluation.py`` (nd4j's ``Evaluation``: confusion
 matrix, accuracy/precision/recall/F1; ``RegressionEvaluation``: per-column
-MSE/MAE/RMSE/R²), host numpy and merge-able across minibatches. Their
-``to_metrics`` export to the monitoring registry waits for the monitoring
-port (ROADMAP.md queue 1 item 8).
+MSE/MAE/RMSE/R²), host numpy and merge-able across minibatches; their
+``to_metrics`` export the ``tdl_eval_*`` gauges (:func:`eval_metrics`) that
+a deploy controller's eval gate judges.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -19,6 +19,35 @@ def _to_np(x):
     if hasattr(x, "detach"):  # a torch tensor, wherever it lives
         return x.detach().cpu().numpy()
     return x.numpy() if hasattr(x, "numpy") else np.asarray(x)
+
+
+def eval_metrics(registry=None):
+    """Get-or-create the offline-eval gauge families.
+
+    One declaration site so eval gates, alert rules and the ``/metrics``
+    scrape all see the same numbers an :class:`Evaluation` computed::
+
+        tdl_eval_accuracy{model}    classification accuracy (only
+                                    classification sets this gauge)
+        tdl_eval_f1{model}          macro-averaged F1 (classification only)
+        tdl_eval_score{model}       the headline gate score: accuracy for
+                                    classification, R² for regression
+    """
+    from ..monitoring.registry import get_registry
+
+    r = registry if registry is not None else get_registry()
+    return (
+        r.gauge("tdl_eval_accuracy",
+                "offline-eval classification accuracy by model/candidate",
+                labels=("model",)),
+        r.gauge("tdl_eval_f1",
+                "offline-eval macro F1 by model/candidate",
+                labels=("model",)),
+        r.gauge("tdl_eval_score",
+                "offline-eval headline score by model/candidate (accuracy "
+                "for classification, R-squared for regression)",
+                labels=("model",)),
+    )
 
 
 class Evaluation:
@@ -89,6 +118,19 @@ class Evaluation:
     def f1(self, cls: Optional[int] = None) -> float:
         p, r = self.precision(cls), self.recall(cls)
         return 2 * p * r / (p + r) if (p + r) > 0 else 0.0
+
+    def to_metrics(self, registry=None, model: str = "default"
+                   ) -> Dict[str, float]:
+        """Export this eval's numbers as ``tdl_eval_*`` gauges and return
+        them: the same values an eval gate judged are on the ``/metrics``
+        scrape, alertable like any other family."""
+        acc_g, f1_g, score_g = eval_metrics(registry)
+        out = {"accuracy": self.accuracy(), "f1": self.f1(),
+               "score": self.accuracy()}
+        acc_g.labels(model).set(out["accuracy"])
+        f1_g.labels(model).set(out["f1"])
+        score_g.labels(model).set(out["score"])
+        return out
 
     def stats(self) -> str:
         lines = [
@@ -163,3 +205,13 @@ class RegressionEvaluation:
     def r_squared(self, col: int = 0) -> float:
         ss_tot = self.sum_y2[col] - self.sum_y[col] ** 2 / self.n
         return float(1.0 - self.sum_err2[col] / ss_tot) if ss_tot > 0 else 0.0
+
+    def to_metrics(self, registry=None, model: str = "default"
+                   ) -> Dict[str, float]:
+        """Export the regression headline as ``tdl_eval_score`` (R² of the
+        first column) — the gauge an eval gate and its alerts judge; the
+        classification-only accuracy/F1 gauges are left untouched."""
+        _, _, score_g = eval_metrics(registry)
+        out = {"score": self.r_squared(0)}
+        score_g.labels(model).set(out["score"])
+        return out

@@ -468,8 +468,25 @@ _DQ_SCHEMA = ("(Tensor q, Tensor k, Tensor v, Tensor out, Tensor do, Tensor lse,
               "-> (Tensor, Tensor)")
 
 
-@torch.library.custom_op("tdl::flash_fwd", mutates_args=(), device_types="cuda",
-                         schema=_FWD_SCHEMA)
+# The operators are defined through ``torch.library.Library`` and their
+# implementations registered with the dispatcher directly:
+# ``torch.library.custom_op`` wraps each implementation in a guard whose
+# first call imports ``torch._dynamo`` (and sympy), seconds that every new
+# worker or replica process would pay at its first launch
+_LIB = torch.library.Library("tdl", "DEF")
+_LIB.define("flash_fwd" + _FWD_SCHEMA)
+_LIB.define("flash_bwd_dkv" + _DKV_SCHEMA)
+_LIB.define("flash_bwd_dq" + _DQ_SCHEMA)
+
+
+def _op_impl(name, device):
+    def register(fn):
+        _LIB.impl(name, fn, device)
+        return fn
+    return register
+
+
+@_op_impl("flash_fwd", "CUDA")
 def _flash_fwd_op(q, k, v, qseg, kseg, causal, scale, q_offset, block_q):
     B, H, Tq, Tk, D = _check_kernel_inputs("flash_forward", q, k, v, qseg, kseg)
     _check_rows_aligned("flash_forward", q=q, k=k, v=v)
@@ -490,20 +507,19 @@ def _flash_fwd_op(q, k, v, qseg, kseg, causal, scale, q_offset, block_q):
     return out, lse
 
 
-@_flash_fwd_op.register_kernel("cpu")
+@_op_impl("flash_fwd", "CPU")
 def _(q, k, v, qseg, kseg, causal, scale, q_offset, block_q):
     out, lse = flash_forward_reference(q, k, v, qseg, kseg, causal, scale, q_offset)
     return out, lse.contiguous()
 
 
-@_flash_fwd_op.register_fake
+@torch.library.register_fake("tdl::flash_fwd", lib=_LIB)
 def _(q, k, v, qseg, kseg, causal, scale, q_offset, block_q):
     B, H, Tq, D = q.shape
     return q.new_empty((B, H, Tq, D)), q.new_empty((B, H, Tq), dtype=torch.float32)
 
 
-@torch.library.custom_op("tdl::flash_bwd_dkv", mutates_args=(), device_types="cuda",
-                         schema=_DKV_SCHEMA)
+@_op_impl("flash_bwd_dkv", "CUDA")
 def _flash_bwd_dkv_op(q, k, v, do, lse, delta, qseg, kseg, causal, scale, q_offset):
     B, H, Tq, Tk, D = _check_kernel_inputs("flash_backward_dkv", q, k, v, qseg, kseg, (do,))
     _check_row_stats(q, B, H, Tq, lse=lse, delta=delta)
@@ -518,20 +534,19 @@ def _flash_bwd_dkv_op(q, k, v, do, lse, delta, qseg, kseg, causal, scale, q_offs
     return dk, dv
 
 
-@_flash_bwd_dkv_op.register_kernel("cpu")
+@_op_impl("flash_bwd_dkv", "CPU")
 def _(q, k, v, do, lse, delta, qseg, kseg, causal, scale, q_offset):
     dk, dv = flash_backward_dkv_reference(q, k, v, do, lse, delta, qseg, kseg, causal, scale,
                                           q_offset)
     return dk.contiguous(), dv.contiguous()
 
 
-@_flash_bwd_dkv_op.register_fake
+@torch.library.register_fake("tdl::flash_bwd_dkv", lib=_LIB)
 def _(q, k, v, do, lse, delta, qseg, kseg, causal, scale, q_offset):
     return k.new_empty(k.shape), v.new_empty(v.shape)
 
 
-@torch.library.custom_op("tdl::flash_bwd_dq", mutates_args=(), device_types="cuda",
-                         schema=_DQ_SCHEMA)
+@_op_impl("flash_bwd_dq", "CUDA")
 def _flash_bwd_dq_op(q, k, v, out, do, lse, qseg, kseg, causal, scale, q_offset):
     B, H, Tq, Tk, D = _check_kernel_inputs("flash_backward_dq", q, k, v, qseg, kseg,
                                            (out, do))
@@ -547,14 +562,14 @@ def _flash_bwd_dq_op(q, k, v, out, do, lse, qseg, kseg, causal, scale, q_offset)
     return dq, delta
 
 
-@_flash_bwd_dq_op.register_kernel("cpu")
+@_op_impl("flash_bwd_dq", "CPU")
 def _(q, k, v, out, do, lse, qseg, kseg, causal, scale, q_offset):
     dq, delta = flash_backward_dq_reference(q, k, v, out, do, lse, qseg, kseg, causal, scale,
                                             q_offset)
     return dq.contiguous(), delta
 
 
-@_flash_bwd_dq_op.register_fake
+@torch.library.register_fake("tdl::flash_bwd_dq", lib=_LIB)
 def _(q, k, v, out, do, lse, qseg, kseg, causal, scale, q_offset):
     B, H, Tq, _ = q.shape
     return q.new_empty(q.shape), q.new_empty((B, H, Tq), dtype=torch.float32)
@@ -583,7 +598,8 @@ def _fwd_backward(ctx, do, _lse_grad):
     return dq, dk, dv, None, None, None, None, None, None
 
 
-_flash_fwd_op.register_autograd(_fwd_backward, setup_context=_fwd_setup_context)
+torch.library.register_autograd("tdl::flash_fwd", _fwd_backward,
+                                setup_context=_fwd_setup_context, lib=_LIB)
 
 
 class FlashAttentionFunction:

@@ -12,7 +12,10 @@
 - :mod:`.alerts` — declarative rules evaluated at scrape time, the engine
   under ``serving.PoolAutoscaler``;
 - :mod:`.heartbeat` — per-rank/replica heartbeat files and the memory gauges;
-- :mod:`.serving` — the serving, decode, client and pool metric families.
+- :mod:`.serving` — the serving, decode, client and pool metric families;
+- :mod:`.partition` — the sharding, pipeline and elasticity families;
+- :mod:`.deploy` — the deploy controller's families and the paired canary
+  judgement (``paired_canary_windows``, ``judge_canary_windows``).
 
 The spools, flight logs and heartbeats read the same to both packages' fleet
 tools. The JAX package's ``costmodel``, ``trace``, ``watchdogs``, ``slo``
@@ -21,6 +24,7 @@ and the rest are not ported yet (ROADMAP item 8).
 
 from .aggregate import MetricsSpooler, maybe_spool, merged_prometheus
 from .alerts import AlertEngine, AlertRule, default_rules
+from .deploy import canary_rules, deploy_metrics
 from .flight import FlightRecorder, get_flight_recorder, set_flight_recorder
 from .heartbeat import HeartbeatWriter, host_rss_bytes, read_heartbeat
 from .history import HistoryRing, HistoryView
@@ -32,6 +36,8 @@ __all__ = [
     "AlertEngine",
     "AlertRule",
     "default_rules",
+    "canary_rules",
+    "deploy_metrics",
     "HistoryRing",
     "HistoryView",
     "Counter",

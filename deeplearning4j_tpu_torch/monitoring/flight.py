@@ -143,10 +143,12 @@ def proc_rank() -> Optional[int]:
 
 
 def atomic_json_write(path: str, payload: dict) -> None:
-    """tmp-then-rename JSON write (pid-suffixed tmp so concurrent writers in
-    one directory never tear each other). Shared by the flight recorder and
-    the metrics spooler so the durability contract lives in one place."""
-    tmp = f"{path}.tmp{os.getpid()}"
+    """tmp-then-rename JSON write (a tmp per process and thread, so
+    concurrent writers in one directory — or two threads of one process
+    flushing one recorder — never tear each other). Shared by the flight
+    recorder and the metrics spooler so the durability contract lives in
+    one place."""
+    tmp = f"{path}.tmp{os.getpid()}.{threading.get_ident()}"
     with open(tmp, "w") as f:
         json.dump(payload, f)
     os.replace(tmp, path)
@@ -332,6 +334,18 @@ def read_spools(directory: str, on_error=None) -> List[dict]:
     ``aggregate.spool_error_counter("flight")`` (or any callable taking the
     skipped filename) as ``on_error`` to count the degradation."""
     return scan_spool_json(directory, SPOOL_PREFIX, on_error=on_error)
+
+
+def merge_events(spools: List[dict], extra_events: List[dict] = ()) -> List[dict]:
+    """One monotonic-clock-ordered timeline from per-process spools plus any
+    in-memory events (the supervisor's own ring)."""
+    events: List[dict] = []
+    for spool in spools:
+        events.extend(spool.get("events") or [])
+    events.extend(extra_events)
+    return sorted(events, key=lambda e: (e.get("t", 0.0),
+                                         str(e.get("proc", "")),
+                                         e.get("seq", 0)))
 
 
 def loss_every() -> int:

@@ -1,9 +1,8 @@
 """Sharded-parameter and pipeline training metric families.
 
-Copy of ``deeplearning4j_tpu/monitoring/partition.py`` (its gang-resize
-counter waits for the gang supervisor, ROADMAP.md item 6c.2): one
-declaration site so ``parallel.partition.Partitioner``,
-``parallel.pipeline``, ``serde.checkpoint`` and the tests agree on names
+Copy of ``deeplearning4j_tpu/monitoring/partition.py``: one declaration
+site so ``parallel.partition.Partitioner``, ``parallel.pipeline``,
+``serde.checkpoint``, ``parallel.supervisor`` and the tests agree on names
 and labels. Families live in the process-wide registry, so
 every gang rank's values ride the metrics spool.
 
@@ -18,6 +17,8 @@ Families::
     tdl_reshard_bytes_total             bytes copied into this rank's blocks
                                         by reshard=True restores
     tdl_reshard_seconds                 wall time of one reshard=True restore
+    tdl_gang_resizes_total{direction}   elastic gang resizes to the surviving
+                                        ranks (``GangSupervisor``)
 
 Pipeline-parallel families (the ``pipe`` axis)::
 
@@ -84,8 +85,8 @@ def pipe_metrics(registry: Optional[MetricsRegistry] = None) -> SimpleNamespace:
 
 
 def elastic_metrics(registry: Optional[MetricsRegistry] = None) -> SimpleNamespace:
-    """Get-or-create the cross-layout restore families: what a
-    ``reshard=True`` restore costs."""
+    """Get-or-create the elasticity families: what a ``reshard=True``
+    restore costs, and the gang resizes that consume it."""
     r = registry if registry is not None else get_registry()
     return SimpleNamespace(
         reshard_bytes=r.counter(
@@ -95,4 +96,8 @@ def elastic_metrics(registry: Optional[MetricsRegistry] = None) -> SimpleNamespa
         reshard_seconds=r.histogram(
             "tdl_reshard_seconds",
             "wall seconds of one cross-topology checkpoint restore"),
+        gang_resizes=r.counter(
+            "tdl_gang_resizes_total",
+            "elastic gang resizes to the surviving healthy ranks, by "
+            "direction", labels=("direction",)),
     )

@@ -140,9 +140,11 @@ class ComputationGraph(_LazyScoreMixin, nn.Module):
 
     def _forward(self, params, bn_state, inputs: Dict[str, torch.Tensor], *, training: bool,
                  rng, labels: Optional[Dict[str, torch.Tensor]] = None, lmasks=None,
-                 fmask=None):
+                 fmask=None, shares=None):
         """Evaluate the DAG. With labels: (total loss with L1/L2, new BN
-        state); without: ({output name: activation}, new BN state)."""
+        state); without: ({output name: activation}, new BN state).
+        ``shares`` ({output name: weight, None: weight of L1/L2}) weighs
+        each term of the loss (a data-parallel step's share of it)."""
         acts: Dict[str, torch.Tensor] = dict(inputs)
         new_bn = dict(bn_state)
         total_loss = 0.0
@@ -168,9 +170,9 @@ class ComputationGraph(_LazyScoreMixin, nn.Module):
             if (labels is not None and name in self.conf.network_outputs
                     and hasattr(layer, "compute_loss")):
                 lm = lmasks.get(name) if lmasks else None
-                total_loss = total_loss + layer.compute_loss(p, xs[0], labels[name], it,
-                                                             training=training, rng=sub,
-                                                             mask=lm)
+                term = layer.compute_loss(p, xs[0], labels[name], it, training=training,
+                                          rng=sub, mask=lm)
+                total_loss = total_loss + (term if shares is None else term * shares[name])
                 continue
             if isinstance(layer, BatchNormalization):
                 out, nb = layer.forward_bn(p, new_bn[name], xs[0], it, training=training)
@@ -195,7 +197,7 @@ class ComputationGraph(_LazyScoreMixin, nn.Module):
             if node.layer.l1 > 0.0:
                 reg = reg + node.layer.l1 * sum(torch.sum(torch.abs(w))
                                                 for k, w in pj.items() if k != "b")
-        return total_loss + reg, new_bn
+        return total_loss + (reg if shares is None else reg * shares[None]), new_bn
 
     # ------------------------------------------------------------- train step
 
@@ -209,18 +211,23 @@ class ComputationGraph(_LazyScoreMixin, nn.Module):
         dp = self._data_parallel
         shards = getattr(dp, "shards", None)  # a partitioned graph: see MultiLayerNetwork._step
         live = shards.gather(params) if shards is not None else params
-        weight = None
-        if dp is not None and lmasks:
-            if len(self.conf.network_outputs) != 1:
-                raise NotImplementedError(
-                    "data-parallel fit of a graph with label masks and several outputs: "
-                    "each output's loss has its own live count")
+        weight = shares = None
+        outs = self.conf.network_outputs
+        if dp is not None and lmasks and len(outs) > 1:
+            # each output's loss is a mean over its own live count: weigh it
+            # by this rank's share of that count, so the ranks' objectives
+            # sum to the global batch's loss
+            w = dp.output_weights([lmasks.get(o) for o in outs])
+            if w is not None:
+                shares = dict(zip(outs, w.unbind(0)))
+                shares[None] = 1.0 / dp.world  # the regularisation
+        elif dp is not None and lmasks:
             weight = dp.loss_weight(next(iter(lmasks.values())))
         with torch.enable_grad(), data_parallel.use(dp):
             pc = cast_floating(live, cdt) if amp else live
             xc = {k: cast_input(v, cdt) for k, v in inputs.items()} if amp else inputs
             loss, new_bn = self._forward(pc, self._bn(), xc, training=True, rng=rng,
-                                         labels=labels, lmasks=lmasks)
+                                         labels=labels, lmasks=lmasks, shares=shares)
             flat = [(name, k, p) for name, pd in live.items() for k, p in pd.items()]
             raw = torch.autograd.grad(loss if weight is None else loss * weight,
                                       [p for _, _, p in flat], allow_unused=True)
@@ -228,7 +235,7 @@ class ComputationGraph(_LazyScoreMixin, nn.Module):
         for (name, k, p), g in zip(flat, raw):
             grads[name][k] = torch.zeros_like(p) if g is None else g
         if dp is not None:
-            grads, loss = reduce_nested(dp, grads, loss, weight)
+            grads, loss = reduce_nested(dp, grads, loss, weight, shares=shares is not None)
         frozen = {name for name, node in self.conf.nodes.items()
                   if node.layer is not None and node.layer.frozen}
         grads = _mask_frozen(grads, frozen)

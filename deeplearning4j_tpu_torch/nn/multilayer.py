@@ -65,11 +65,11 @@ def _mask_frozen(grads, frozen):
             for k, v in grads.items()}
 
 
-def reduce_nested(dp, grads, loss, weight):
+def reduce_nested(dp, grads, loss, weight, shares: bool = False):
     """{layer: {name: gradient}} and the loss of this rank's step as the
     data group's (``DataParallelContext.reduce_step``)."""
     flat, loss = dp.reduce_step({(si, k): g for si, v in grads.items() for k, g in v.items()},
-                                loss, weight)
+                                loss, weight, shares=shares)
     out = {si: {} for si in grads}
     for (si, k), g in flat.items():
         out[si][k] = g

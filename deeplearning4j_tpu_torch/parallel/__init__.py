@@ -4,8 +4,8 @@ mesh of ranks with named axes (``mesh``, ``collectives``, ``launcher``,
 (FSDP x TP layouts in ``partition``, tensor-parallel rules in
 ``sharding``; sequence parallelism is ``kernels.attention``'s ring and
 Ulysses attention) and pipelined (GPipe and 1F1B over a ``pipe`` axis,
-``pipeline``); and batched inference on one card (``inference``). The gang
-supervisor is ROADMAP.md item 6c.2.
+``pipeline``); gangs of ranks supervised, restarted and elastically resized
+(``supervisor``); and batched inference on one card (``inference``).
 
 The package's names load lazily (PEP 562): a serving router that imports
 ``parallel.inference`` does not pay for importing torch."""
@@ -24,12 +24,14 @@ _EXPORTS = {
     "ParallelTrainer": "trainer", "MultiProcessTrainer": "trainer",
     "ParameterAveragingTrainingMaster": "trainer", "SharedTrainingMaster": "trainer",
     "ParallelWrapper": "wrapper", "ParallelInference": "inference",
+    "GangSupervisor": "supervisor", "GangFailedError": "supervisor",
+    "GangEvent": "supervisor",
 }
 _SUBMODULES = ("collectives", "compression", "launcher", "mesh", "trainer", "wrapper",
-               "inference", "partition", "sharding", "pipeline")
+               "inference", "partition", "sharding", "pipeline", "supervisor")
 
 __all__ = sorted(_EXPORTS) + ["collectives", "compression", "launcher", "partition",
-                              "sharding", "pipeline"]
+                              "sharding", "pipeline", "supervisor"]
 
 
 def __getattr__(name):

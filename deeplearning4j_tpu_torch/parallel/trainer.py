@@ -55,7 +55,7 @@ import torch
 
 from ..common import faults
 from ..common.data_parallel import DataParallelContext
-from ..data.dataset import DataSet
+from ..data.dataset import DataSet, MultiDataSet
 from ..monitoring import aggregate, flight, heartbeat
 from ..monitoring.registry import get_registry
 from ..monitoring.trace import StepPhaseRecorder, step_phase_histogram
@@ -193,8 +193,13 @@ class ParallelTrainer:
         with self._phases.phase("h2d"):
             return self.net._put(x, dtype)
 
-    def _staged(self, ds: DataSet) -> DataSet:
+    def _staged(self, ds):
         dt = getattr(self.net, "_dtype", None)
+        if isinstance(ds, MultiDataSet):  # a ComputationGraph's several inputs and outputs
+            many = lambda xs, d=None: None if xs is None else [self._stage(x, d)  # noqa: E731
+                                                              for x in xs]
+            return MultiDataSet(many(ds.features, dt), many(ds.labels),
+                                many(ds.features_masks), many(ds.labels_masks))
         return DataSet(self._stage(ds.features, dt), self._stage(ds.labels),
                        self._stage(ds.features_mask), self._stage(ds.labels_mask))
 
@@ -398,10 +403,14 @@ def _check_lockstep_buckets(b: int) -> None:
             "feeds (the same local batch size on every rank each step)")
 
 
-def _slice_ds(ds: DataSet, a: int, b: int) -> DataSet:
+def _slice_ds(ds, a: int, b: int):
     def s(x):
         return None if x is None else x[a:b]
 
+    if isinstance(ds, MultiDataSet):
+        many = lambda xs: None if xs is None else [s(x) for x in xs]  # noqa: E731
+        return MultiDataSet(many(ds.features), many(ds.labels), many(ds.features_masks),
+                            many(ds.labels_masks))
     return DataSet(s(ds.features), s(ds.labels), s(ds.features_mask), s(ds.labels_mask))
 
 

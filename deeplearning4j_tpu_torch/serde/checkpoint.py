@@ -69,6 +69,11 @@ under another layout than the saved one raises, naming both, unless
 indices make a JAX process's several chunks per leaf in one shard file and
 the port's one chunk per rank interchangeable: a lineage of either package
 restores into the other, under the same layout or resharded, bit for bit.
+A network that is not partitioned but trained by a gang of several ranks
+(a data-parallel ``MultiProcessTrainer``: every rank holds a replica) saves
+collectively too, as the JAX package's replicated arrays do: rank 0 writes
+the whole arrays into ``shard_0.npz``, every other rank an empty shard and
+its manifest, and rank 0 commits once they are all in.
 Without a partitioner a checkpoint of any layout restores by assembling its
 chunks into whole arrays on the host (a deliberate difference: the JAX
 package asks for ``reshard=True`` there). Pre-lineage flat checkpoints
@@ -1007,11 +1012,19 @@ def _chunks(net, arrays: Dict[str, np.ndarray]):
     """(chunks {path: (index ranges, whole shape, array)}, proc,
     process_count) of one save: a partitioned network's blocks that are the
     first copy on the mesh, under its rank; else every whole array under
-    rank 0 of one."""
+    rank 0 — of one process, or of the process group, whose ranks hold
+    replicas of the network (a data-parallel gang: rank 0 writes the
+    arrays, every other rank an empty shard, and rank 0 commits once every
+    manifest is in, as the JAX package's replicated save does)."""
     part = getattr(net, "_partition", None)
     if part is None:
-        return ({p: ([[0, n] for n in a.shape], a.shape, a) for p, a in arrays.items()},
-                0, 1)
+        whole = {p: ([[0, n] for n in a.shape], a.shape, a) for p, a in arrays.items()}
+        import torch.distributed as dist
+
+        if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1:
+            return whole, 0, 1
+        rank = dist.get_rank()
+        return (whole if rank == 0 else {}), rank, dist.get_world_size()
     from ..parallel.sharding import P, is_replica_zero, shard_slices
 
     mesh = part.mesh

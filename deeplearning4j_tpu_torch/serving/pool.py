@@ -43,8 +43,11 @@ windowed p99, burn rate, shed rate — with their ``for_duration`` /
 ``clear_hysteresis`` anti-flap semantics) into ``scale_to`` ACTIONS, with a
 cooldown and an all-clear streak requirement so the pool cannot flap.
 
-Not ported yet: the canary surge (``start_canary``/``stop_canary``), the
-deployment controller's arm, which waits for ``deploy/controller.py``.
+:meth:`ServingPool.start_canary` surges ONE extra replica on a candidate
+model version that the router never dispatches live traffic to — the
+deploy controller's canary arm (``deploy.controller``), whose mirrored
+replay hits the canary's port directly; :meth:`ServingPool.stop_canary`
+kills it when the verdict is in.
 """
 
 from __future__ import annotations
@@ -160,6 +163,7 @@ class ReplicaHandle:
     restarts: int = 0
     retiring: bool = False
     surge: bool = False              # swap-roll extra: not a desired seat
+    canary: bool = False             # never routed live traffic
     signaled: bool = False           # SIGTERM sent (drain complete/forced)
     drain_deadline: float = 0.0      # forced-signal time for a drain
     inflight: int = 0                # router's in-flight count (least-loaded)
@@ -511,6 +515,44 @@ class ServingPool:
             "ready (%d replicas already rolled keep the new version; the "
             "rest keep serving the old one)", surge.id, swapped)
 
+    # -- canary surge ------------------------------------------------------
+
+    def start_canary(self, ckpt: Optional[str] = None, *,
+                     env: Optional[Dict[str, str]] = None,
+                     ready_timeout: Optional[float] = None) -> ReplicaHandle:
+        """Surge ONE extra replica pinned to a candidate model version and
+        wait (bounded) until it probes ready — the deployment controller's
+        canary arm. The replica is marked ``canary``: the router NEVER
+        dispatches live traffic to it (mirrored replay hits its ``.port``
+        directly), the reconciler neither counts nor retires it, and the old
+        fleet keeps serving untouched. A canary that dies or never becomes
+        ready within ``ready_timeout`` (default ``swap_ready_timeout``) is
+        killed and ``TimeoutError`` raised — the wedged-canary bound the
+        gate chain relies on. Callers own the handle: pass it to
+        :meth:`stop_canary` when the verdict is in."""
+        overrides = dict(self._default_overrides)
+        overrides.update(env or {})
+        if ckpt is not None:
+            overrides[ENV_MODEL_CKPT] = str(ckpt)
+        with self._lock:
+            h = self._spawn_replica(env_overrides=overrides, surge=True)
+            h.canary = True
+        timeout = (ready_timeout if ready_timeout is not None
+                   else self.swap_ready_timeout)
+        if not self._await_replica_ready(h, timeout):
+            self._retire_now(h)
+            raise TimeoutError(
+                f"canary replica {h.id} never became ready within "
+                f"{timeout:.1f}s (model "
+                f"{overrides.get(ENV_MODEL_CKPT)!r}) — killed; the serving "
+                "fleet is untouched")
+        return h
+
+    def stop_canary(self, h: ReplicaHandle) -> None:
+        """Kill + reap a canary surge replica (no drain: the router never
+        dispatched to it, only the mirrored replay did)."""
+        self._retire_now(h)
+
     def _await_replica_ready(self, h: ReplicaHandle, timeout: float) -> bool:
         """Wait for ONE replica to probe ready; fail fast when its process
         dies (a crashing new version should not burn the whole timeout)."""
@@ -606,6 +648,7 @@ class ServingPool:
                     "id": h.id, "state": h.state, "port": h.port,
                     "inflight": h.inflight, "restarts": h.restarts,
                     "retiring": h.retiring, "surge": h.surge,
+                    "canary": h.canary,
                     "model": h.env_overrides.get(ENV_MODEL_CKPT),
                     "breaker_open": not h.breaker_closed(time.monotonic()),
                 } for h in self._replicas.values()],
@@ -921,6 +964,7 @@ class ServingPool:
         with self._lock:
             ok = [h for h in self._replicas.values()
                   if h.state == "ready" and not h.retiring and h.alive
+                  and not h.canary  # mirrored replay only, never live load
                   and h.port is not None and h.id not in exclude
                   and h.breaker_closed(now)]
             if not ok:

@@ -73,7 +73,8 @@ def test_importing_the_port_loads_no_jax():
                    "monitoring.trace", "parallel.mesh", "parallel.collectives",
                    "parallel.compression", "parallel.launcher", "parallel.trainer",
                    "parallel.wrapper", "parallel.sharding", "parallel.partition",
-                   "monitoring.partition", "parallel.pipeline", "monitoring.costmodel"):
+                   "monitoring.partition", "parallel.pipeline", "monitoring.costmodel",
+                   "parallel.supervisor", "monitoring.deploy", "deploy", "deploy.controller"):
         assert f"deeplearning4j_tpu_torch.{module}" in added
     assert [m for m in added if _forbidden(m)] == []
 
@@ -266,3 +267,63 @@ def test_cpu_training_never_touches_the_build(monkeypatch):
                                                  torch.Generator().manual_seed(0))
     assert loss.device.type == "cpu" and bool(torch.isfinite(loss))
     assert [f.launches for f in counters] == before
+
+
+def test_supervisor_and_controller_import_without_jax_or_torch():
+    """``parallel.supervisor``, ``deploy.controller`` and ``monitoring.deploy``
+    load in a fresh interpreter without JAX, the JAX package, or torch: a
+    supervisor or a controller process holds no tensor."""
+    script = ("import json, sys\n"
+              "import deeplearning4j_tpu_torch.parallel.supervisor\n"
+              "import deeplearning4j_tpu_torch.deploy.controller\n"
+              "import deeplearning4j_tpu_torch.monitoring.deploy\n"
+              "print(json.dumps(sorted(sys.modules)))\n")
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, check=True)
+    mods = json.loads(out.stdout.strip().splitlines()[-1])
+    assert [m for m in mods if _forbidden(m)] == []
+    assert "torch" not in mods
+    assert "deeplearning4j_tpu_torch.deploy.controller" in mods
+
+
+def test_supervisor_controller_and_canary_replica_default_to_cuda(tmp_path):
+    """The gang supervisor spawns on the card unless asked for the CPU (and
+    raises here before any process starts); the controller's ``main`` takes
+    its eval target's device, the card by default, so the eval gate fails
+    on the card's error instead of scoring on the CPU; a pool's canary
+    replica built on the default device never becomes ready here."""
+    _no_card()
+    from deeplearning4j_tpu_torch.deploy.controller import main
+    from deeplearning4j_tpu_torch.monitoring import MetricsRegistry
+    from deeplearning4j_tpu_torch.parallel import GangSupervisor
+    from deeplearning4j_tpu_torch.serde import TrainingCheckpointer
+    from deeplearning4j_tpu_torch.serving import ServingPool
+    from torch_pool_workers import mln_net
+
+    workers = ROOT / "tests" / "torch_controller_workers.py"
+    sup = GangSupervisor(f"{workers}:eval_sleepy", n_processes=2,
+                         workdir=str(tmp_path / "gang"), registry=MetricsRegistry())
+    assert sup.platform == "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        sup.run(timeout=30.0)
+    ck = tmp_path / "ck"
+    TrainingCheckpointer(str(ck), async_write=False).save(mln_net())
+    cfg = {"ckpt_dir": str(ck), "workdir": str(tmp_path / "deploy"),
+           "gates": ["integrity", "eval"], "retries": 0,
+           "eval_target": f"{workers}:eval_on_default_device"}
+    (tmp_path / "c.json").write_text(json.dumps(cfg))
+    assert main([str(tmp_path / "c.json"), "--once"]) == 0
+    state = json.loads((tmp_path / "deploy" / "controller_state.json").read_text())
+    (cand,) = state["candidates"].values()
+    assert cand["rejected_by"] == {"gate": "eval", "reason": "error:RuntimeError"}
+    assert "cuda" in cand["verdicts"][-1]["evidence"]["error"]
+    pool = ServingPool(f"{workers}:default_device_server", replicas=1,
+                       workdir=str(tmp_path / "pool"), registry=MetricsRegistry(),
+                       restart_backoff_base=5.0).start()
+    try:
+        with pytest.raises(TimeoutError, match="never became ready"):
+            pool.start_canary(str(ck), ready_timeout=60.0)
+    finally:
+        pool.stop()
+    logs = "".join(p.read_text() for p in (tmp_path / "pool").rglob("*.log"))
+    assert "RuntimeError" in logs and "cuda" in logs

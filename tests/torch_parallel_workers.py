@@ -1,4 +1,5 @@
-"""Worker targets of the port's multi-process tests (``test_torch_multiprocess.py``).
+"""Worker targets of the port's multi-process tests (``test_torch_multiprocess.py``,
+``test_torch_graph_multioutput_dp.py``).
 
 Each function runs in a worker process that ``deeplearning4j_tpu_torch.
 parallel.launcher`` started and initialised (gloo, on the CPU). The test
@@ -94,6 +95,37 @@ def run_cases():
         np.savez(os.path.join(_dir(), f"{spec['name']}.rank{rank}.npz"),
                  losses=np.asarray(losses, np.float64), iteration=net.iteration,
                  **_state(net))
+
+
+def run_graph_cases():
+    """Every case of ``graph_cases.json``: a ComputationGraph fit over the
+    global batches with ``MultiProcessTrainer``, each rank feeding its half
+    as a MultiDataSet, or a DataSet for one output (``x<i>``, and for output
+    j ``y<j>_<i>`` and the label mask ``m<j>_<i>``)."""
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.data import DataSet, MultiDataSet
+    from deeplearning4j_tpu_torch.parallel.trainer import MultiProcessTrainer
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    with open(os.path.join(_dir(), "graph_cases.json")) as f:
+        cases = json.load(f)
+    for spec in cases:
+        arrays = _load(spec["name"])
+        net = _build({**spec, "kind": "graph"}, arrays)
+        trainer = MultiProcessTrainer(net)
+        losses = []
+        for step in range(spec["steps"]):
+            b = arrays[f"x{step}"].shape[0] // world
+            rows = slice(rank * b, (rank + 1) * b)
+            x = arrays[f"x{step}"][rows]
+            ys = [arrays[f"y{j}_{step}"][rows] for j in range(spec["outputs"])]
+            ms = [arrays[f"m{j}_{step}"][rows] for j in range(spec["outputs"])]
+            trainer.fit([MultiDataSet([x], ys, labels_masks=ms) if len(ys) > 1
+                         else DataSet(x, ys[0], labels_mask=ms[0])])
+            losses.append(net.score_)
+        np.savez(os.path.join(_dir(), f"{spec['name']}.rank{rank}.npz"),
+                 losses=np.asarray(losses, np.float64), **_state(net))
 
 
 def collectives_and_exchange():
