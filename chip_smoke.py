@@ -245,14 +245,35 @@ Phases:
    replicas; only 200 and 429 escape the pool, the audit and the
    ``deploy_rollback`` flight events agree, the canaries and the promoted
    replicas launch one flash forward per executed batch, and the promoted
-   replicas answer gen-3's output bit for bit.
+   replicas answer gen-3's output bit for bit;
+14. the NLP package (``deeplearning4j_tpu_torch.nlp``): (a) ``Word2Vec``
+   skip-gram with negative sampling at bench.py's accelerator shapes (its
+   corpus: 20,000 Zipf sentences of 8-19 words over 2,000 words, seed 0;
+   layer 100, batch 16384, window 5, 5 negatives, one epoch): a warm fit,
+   then a timed fit, words/s as bench.py computes it, the fit split into its
+   host part and the device loop (run with CUDA's sync debug mode set to
+   error: the loop never waits for the card), the loop's profile, and syn0
+   and syn1neg against the CPU fit on the same seed; then CBOW with
+   hierarchical softmax and negative sampling at the same shapes against
+   its CPU fit; (b) ``Glove`` on (a)'s corpus, ``ParagraphVectors`` (DM)
+   with ``infer_vector`` on a seeded four-topic corpus, ``SequenceVectors``
+   over a ``GraphWalkIterator`` of a 200-node community graph, and
+   ``BarnesHutTsne`` of (a)'s 2,000 word vectors (the affinities, the first
+   10 steps from one start, the final KL of 500), each against its CPU run
+   on the same seed; (c) ``BertIterator`` (masked LM, ``max_length`` 128,
+   batch 16) over WordPiece text from a seeded vocabulary, sentences and
+   pairs of ~10 to past 128 pieces, feeding BERT-base at full width and
+   depth: a float32 step with the iterator's key padding through the
+   kernels against the dense path (phase 5's limits), then 24 bf16 Adam
+   steps, 12 launches of each kernel per step and no dense attention, a
+   falling loss, the median step.
 
 A line before the last is a JSON object describing each kernel (launch
 counts on the main path, error against the plain version, times and the
 card's bound; the forward also by q-tile instantiation, with the launches
-of the autotune search; phase 10's to 13's launches are in the counts:
+of the autotune search; phase 10's to 14's launches are in the counts:
 the forward in 10a-d, the backward pair in 10b-d, all three in 11a, 11c,
-12a, 12b, 13a and 13b, the forward in 13c's replicas and eval gate),
+12a, 12b, 13a, 13b and 14c, the forward in 13c's replicas and eval gate),
 then the card's name and power
 limit; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero and
@@ -5384,6 +5405,376 @@ def phase_unattended(tag, launches, workdir, target=None):
           flush=True)
 
 
+# ------------------------------------------------------------------ phase 14
+
+# bench.py's word2vec corpus and accelerator shapes (bench.py:156, :758-783)
+W2V_SENTENCES = 20000
+W2V_VOCAB = 2000
+W2V_KW = dict(layer_size=100, window=5, negative=5, epochs=1, batch_size=16384)
+# the card against the CPU fit on the same seed, of the table's largest
+# magnitude: float32 reassociation only (index_add_'s atomics add a row's
+# contributions in another order; the gathers and sigmoids agree to a few
+# ulps). Adding the CPU's scatters in shuffled orders moves the tables of
+# phase 14 by at most 1.6e-6 of their scale, GloVe's (AdaGrad divides by the
+# root of summed squares) by 6.6e-6 (tests/torch_nlp_reorder.py)
+TABLE_REL = 1e-4
+TSNE_STEPS_CHECKED = 10
+TSNE_Y_REL = 1e-4    # the first steps' embedding, of its largest magnitude
+TSNE_KL_REL = 1e-5   # the first steps' KL
+TSNE_P_ATOL = 1e-6   # the affinities (float32 bisection)
+TSNE_FINAL_KL_REL = 0.1  # the trajectories part after ~20 steps (gains, exaggeration)
+BI_STEPS = 24        # 14c's bf16 steps (3 passes over 8 batches)
+
+
+def w2v_corpus():
+    """bench.py's corpus: 2,000 words, Zipf, 8-19 words a sentence, seed 0."""
+    rs = np.random.RandomState(0)
+    vocab = [f"w{i}" for i in range(W2V_VOCAB)]
+    zipf = 1.0 / np.arange(1, W2V_VOCAB + 1)
+    zipf /= zipf.sum()
+    return [" ".join(rs.choice(vocab, size=rs.randint(8, 20), p=zipf))
+            for _ in range(W2V_SENTENCES)]
+
+
+def _table_error(tag, what, card, cpu):
+    scale = float(np.abs(cpu).max())
+    err = float(np.abs(card - cpu).max())
+    print(f"{tag} {what}: card vs CPU max |diff| {err:.3e} (table max {scale:.3e}, "
+          f"rel {err / scale:.2e}, bound {TABLE_REL:.0e})", flush=True)
+    check(np.isfinite(card).all(), f"{what}: non-finite values on the card")
+    check(err <= TABLE_REL * scale, f"{what}: card differs from the CPU by {err:.3e}")
+
+
+def phase_word2vec(tag):
+    """14a: Word2Vec at bench.py's shapes; returns the card's fit."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nlp import word2vec as W
+
+    sentences = w2v_corpus()
+    total_words = sum(len(s.split()) for s in sentences)
+    W.Word2Vec(**W2V_KW).fit(sentences)  # warm: allocator, cuBLAS, first launches
+    loops, orig = [], W._w2v_epoch
+
+    def timed_epoch(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # the epoch loop must not wait for the card: any synchronising call
+        # inside it raises here
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = orig(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        loops.append((time.perf_counter() - t0, args, kw))
+        return out
+
+    W._w2v_epoch = timed_epoch
+    try:
+        t0 = time.perf_counter()
+        card = W.Word2Vec(**W2V_KW).fit(sentences)
+        wall = time.perf_counter() - t0
+    finally:
+        W._w2v_epoch = orig
+    (loop_s, args, kw), = loops
+    S, B = args[3].shape[:2]
+    print(f"{tag} word2vec skip-gram NS, {W2V_SENTENCES} sentences ({total_words} words), "
+          f"V={card.vocab.num_words()} layer {W2V_KW['layer_size']} batch {B}: "
+          f"{total_words / wall:.1f} words/s ({wall:.3f} s fit: host {wall - loop_s:.3f} s "
+          f"[tokenize, subsample, pairs, negatives, upload], device loop {loop_s:.3f} s over "
+          f"S={S} batches, {loop_s / S * 1e3:.3f} ms per batch); no host sync in the loop",
+          flush=True)
+    device_profile(tag, f"word2vec epoch (S={S})", lambda: orig(*args, **kw), reps=1, top=8)
+    # the sync debug mode is a prototype that may miss a synchronising call:
+    # the profile of one more epoch must show no copy back to the host
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        orig(*args, **kw)
+        torch.cuda.synchronize()
+    d2h = [e.name for e in prof.events() if "DtoH" in e.name]
+    print(f"{tag} word2vec epoch: {len(d2h)} device-to-host copies in its profile", flush=True)
+    check(not d2h, f"word2vec epoch: device-to-host copies {d2h[:3]}")
+    del args, kw, loops
+    t0 = time.perf_counter()
+    cpu = W.Word2Vec(device="cpu", **W2V_KW).fit(sentences)
+    print(f"{tag} word2vec CPU fit {time.perf_counter() - t0:.3f} s", flush=True)
+    _table_error(tag, "word2vec syn0", card.syn0, cpu.syn0)
+    _table_error(tag, "word2vec syn1neg", card.syn1neg, cpu.syn1neg)
+    check(card.vocab.vocab_words()[0].word == "w0", "word2vec: w0 is not the most frequent word")
+
+    kw = dict(W2V_KW, cbow=True, hs=True)
+    t0 = time.perf_counter()
+    cb = W.Word2Vec(**kw).fit(sentences)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cb_cpu = W.Word2Vec(device="cpu", **kw).fit(sentences)
+    print(f"{tag} word2vec CBOW + HS + NS: card fit {t_card:.3f} s "
+          f"({total_words / t_card:.1f} words/s), CPU fit {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    for name in ("syn0", "syn1neg", "syn1"):
+        _table_error(tag, f"word2vec CBOW+HS+NS {name}", getattr(cb, name), getattr(cb_cpu, name))
+    return card
+
+
+def _topic_docs(n_docs=2000, topics=4, words_per_topic=50, seed=3):
+    rs = np.random.RandomState(seed)
+    vocab = [[f"t{t}w{i}" for i in range(words_per_topic)] for t in range(topics)]
+    return [(f"doc{d}_t{d % topics}", " ".join(rs.choice(vocab[d % topics],
+                                                          size=rs.randint(10, 30))))
+            for d in range(n_docs)]
+
+
+def _community_graph(n=200, communities=4, seed=5):
+    """Nodes in communities: each links to 6 nodes of its own and 1 other."""
+    rs = np.random.RandomState(seed)
+    size = n // communities
+    adj = {}
+    for v in range(n):
+        c = v // size
+        own = rs.choice([u for u in range(c * size, (c + 1) * size) if u != v], 6, replace=False)
+        adj[v] = [int(u) for u in own] + [int(rs.randint(n))]
+    return adj
+
+
+def phase_nlp_rest(tag, w2v):
+    """14b: GloVe, ParagraphVectors, SequenceVectors and t-SNE on the card,
+    each against the port's CPU run on the same seed."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nlp import GraphWalkIterator, SequenceVectors
+    from deeplearning4j_tpu_torch.nlp import tsne as TS
+    from deeplearning4j_tpu_torch.nlp.glove import Glove
+    from deeplearning4j_tpu_torch.nlp.paragraph_vectors import ParagraphVectors
+
+    def both(make, fit):
+        out = []
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            out.append(fit(make(device)))
+            out.append(time.perf_counter() - t0)
+        return out
+
+    sentences = w2v_corpus()
+    g, tg, gc, tgc = both(lambda d: Glove(layer_size=100, window=5, epochs=2, seed=7, device=d),
+                          lambda m: m.fit(sentences))
+    print(f"{tag} GloVe, 14a's corpus (V={g.vocab.num_words()}, layer 100, 2 epochs): card "
+          f"{tg:.3f} s, CPU {tgc:.3f} s; loss {g.loss_curve} (CPU {gc.loss_curve})", flush=True)
+    _table_error(tag, "GloVe w + w~", g.syn0, gc.syn0)
+    lrel = max(abs(a - b) / abs(b) for a, b in zip(g.loss_curve, gc.loss_curve))
+    check(lrel <= TABLE_REL, f"GloVe: loss curve differs from the CPU by {lrel:.2e}")
+    check(g.loss_curve[-1] < g.loss_curve[0], f"GloVe: loss did not fall {g.loss_curve}")
+
+    docs = _topic_docs()
+    text = " ".join(f"t1w{i}" for i in range(0, 40, 3))
+    pv, tp, pvc, tpc = both(
+        lambda d: ParagraphVectors(layer_size=100, window=5, epochs=10, seed=11, device=d),
+        lambda m: m.fit(docs))
+    inf, inf_c = pv.infer_vector(text, steps=50), pvc.infer_vector(text, steps=50)
+    print(f"{tag} ParagraphVectors DM ({len(docs)} documents, 4 topics, layer 100, 10 epochs): "
+          f"card {tp:.3f} s, CPU {tpc:.3f} s", flush=True)
+    for name in ("doc_vectors", "syn0", "syn1neg"):
+        _table_error(tag, f"ParagraphVectors {name}", getattr(pv, name), getattr(pvc, name))
+    _table_error(tag, "ParagraphVectors infer_vector", inf, inf_c)
+    near = pv.nearest_labels(inf, 10)
+    print(f"{tag} infer_vector of a topic-1 text: nearest {near}", flush=True)
+    check(sum(label.endswith("_t1") for label in near) >= 7,
+          f"ParagraphVectors: inferred topic-1 text nearest to {near}")
+
+    adj = _community_graph()
+    walks = lambda: GraphWalkIterator(adj, walk_length=20, walks_per_node=10, seed=2)  # noqa: E731
+    sv, ts, svc, tsc = both(
+        lambda d: SequenceVectors(layer_size=64, window=5, negative=5, epochs=2,
+                                  batch_size=2048, seed=13, device=d),
+        lambda m: m.fit(walks()))
+    print(f"{tag} SequenceVectors over {len(adj)}-node graph walks (2000 walks of 20, layer 64): "
+          f"card {ts:.3f} s, CPU {tsc:.3f} s", flush=True)
+    _table_error(tag, "SequenceVectors elements", sv._w2v.syn0, svc._w2v.syn0)
+
+    # t-SNE of 14a's word vectors: the affinities, the first steps from one
+    # start, then the whole run's final KL
+    x = w2v.syn0
+    n = x.shape[0]
+    tsne = TS.BarnesHutTsne(seed=17)
+    perp = min(tsne.perplexity, max((n - 1) / 3.0, 2.0))
+    ps = []
+    for device in ("cuda", "cpu"):
+        p = TS._cond_probs(TS._pairwise_sq_dists(torch.from_numpy(x).to(device)), perp)
+        ps.append(((p + p.T) / (2.0 * n)))
+    p_err = float((ps[0].cpu() - ps[1]).abs().max())
+    print(f"{tag} t-SNE of {n} word vectors: P card vs CPU max |diff| {p_err:.3e} "
+          f"(max P {float(ps[1].max()):.3e}, bound {TSNE_P_ATOL:.0e})", flush=True)
+    check(p_err <= TSNE_P_ATOL, f"t-SNE: affinities differ by {p_err:.3e}")
+    y0 = tsne._initial_y(n)
+    kw = dict(n_iter=TSNE_STEPS_CHECKED, learning_rate=tsne.learning_rate,
+              momentum_final=tsne.momentum, exaggeration=tsne.exaggeration,
+              exaggeration_iters=min(250, tsne.n_iter // 2))
+    y_card, kl_card = TS._tsne_run(ps[1].cuda(), y0.cuda(), **kw)
+    y_cpu, kl_cpu = TS._tsne_run(ps[1], y0, **kw)
+    y_err = float((y_card.cpu() - y_cpu).abs().max() / y_cpu.abs().max())
+    kl_err = float(((kl_card.cpu() - kl_cpu).abs() / kl_cpu.abs()).max())
+    print(f"{tag} t-SNE first {TSNE_STEPS_CHECKED} steps from one start: y rel {y_err:.2e} "
+          f"(bound {TSNE_Y_REL:.0e}), KL rel {kl_err:.2e} (bound {TSNE_KL_REL:.0e})", flush=True)
+    check(y_err <= TSNE_Y_REL and kl_err <= TSNE_KL_REL, "t-SNE: first steps differ")
+    t_card, t_cpu, kls = [], [], []
+    for device, sink in (("cuda", t_card), ("cpu", t_cpu)):
+        t0 = time.perf_counter()
+        m = TS.BarnesHutTsne(seed=17, device=device)
+        y = m.fit_transform(x)
+        sink.append(time.perf_counter() - t0)
+        check(np.isfinite(y).all() and y.shape == (n, 2), f"t-SNE on {device}: bad embedding")
+        kls.append(m.kl_curve_)
+    rel = abs(kls[0][-1] - kls[1][-1]) / kls[1][-1]
+    print(f"{tag} t-SNE {tsne.n_iter} steps: card {t_card[0]:.3f} s, CPU {t_cpu[0]:.3f} s; "
+          f"final KL {kls[0][-1]:.4f} vs CPU {kls[1][-1]:.4f} (rel {rel:.3f}, bound "
+          f"{TSNE_FINAL_KL_REL}); KL at step 0 {kls[0][0]:.4f}", flush=True)
+    check(rel <= TSNE_FINAL_KL_REL, f"t-SNE: final KL differs from the CPU by {rel:.3f}")
+    check(kls[0][-1] < kls[0][TSNE_STEPS_CHECKED], "t-SNE: KL did not fall")
+
+
+def wordpiece_vocab(seed=21, n_syllables=400, n_words=12000):
+    """A WordPiece vocabulary from a seeded corpus: the five specials, whole
+    words, and every syllable as a first piece and as a ``##`` piece (any
+    word of syllables then tokenizes without [UNK])."""
+    rs = np.random.RandomState(seed)
+    cons, vows = "bcdfghjklmnprstvwz", "aeiou"
+    sylls = sorted({rs.choice(list(cons)) + rs.choice(list(vows)) + rs.choice(["", "n", "r", "s"])
+                    for _ in range(4 * n_syllables)})[:n_syllables]
+    words = ["".join(rs.choice(sylls, rs.randint(1, 4))) for _ in range(n_words)]
+    whole = sorted(set(words[: n_words // 2]))
+    tokens = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + sylls + [f"##{s}" for s in sylls]
+    tokens += [w for w in whole if w not in set(tokens)] + [".", ","]
+    return {t: i for i, t in enumerate(tokens)}, words
+
+
+def bert_sentences(words, seed=22, n=128):
+    """Sentences and sentence pairs of 3 to 90 words: ~10 to past 128 word
+    pieces, so most rows pad and some are cut."""
+    rs = np.random.RandomState(seed)
+
+    def sentence():
+        return " ".join(rs.choice(words, rs.randint(3, 91))) + " ."
+
+    return [(sentence(), sentence()) if i % 4 == 0 else sentence() for i in range(n)]
+
+
+def _bert_batch(mds):
+    """The MultiDataSet as ``loss_fn``'s batch (this mapping is the
+    script's, not a package feature)."""
+    return {"tokens": mds.features[0], "segments": mds.features[1],
+            "pad_mask": mds.features_masks[0], "labels": mds.labels[0],
+            "weights": mds.labels_masks[0]}
+
+
+def phase_bert_iterator(tag, launches):
+    """14c: BertIterator batches train BERT-base through the flash kernels."""
+    import torch
+
+    from deeplearning4j_tpu_torch.kernels import attention as A
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+    from deeplearning4j_tpu_torch.nlp import BertIterator, BertMaskedLMMasker
+    from deeplearning4j_tpu_torch.nlp import BertWordPieceTokenizer
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+
+    vocab, words = wordpiece_vocab()
+    tok = BertWordPieceTokenizer(vocab)
+    sents = bert_sentences(words)
+    it = BertIterator(tokenizer=tok, sentences=sents, max_length=128, batch_size=16,
+                      task="UNSUPERVISED",
+                      masker=BertMaskedLMMasker(mask_token_id=vocab["[MASK]"],
+                                                vocab_size=len(vocab), seed=23))
+    batches = [_bert_batch(m) for m in it]
+    lengths = np.concatenate([b["pad_mask"].sum(1) for b in batches])
+    full = [len(tok.tokenize(s if isinstance(s, str) else s[0]))
+            + (len(tok.tokenize(s[1])) + 1 if isinstance(s, tuple) else 0) + 2 for s in sents]
+    print(f"{tag} BertIterator: WordPiece vocabulary {len(vocab)} ids, {len(sents)} texts "
+          f"({sum(isinstance(s, tuple) for s in sents)} pairs) of {min(full)}-{max(full)} "
+          f"pieces, {len(batches)} batches [16, 128]: {int((lengths < 128).sum())} rows padded, "
+          f"{sum(f > 128 for f in full)} cut; masked positions per batch "
+          f"{[int(b['weights'].sum()) for b in batches]}", flush=True)
+    check(len(vocab) < 30522, "BertIterator: vocabulary past BERT-base's")
+    check((lengths < 128).sum() > len(lengths) // 2 and sum(f > 128 for f in full) > 0,
+          "BertIterator: the texts do not both pad and cut")
+    check(all(int(b["tokens"].max()) < len(vocab) for b in batches), "BertIterator: id range")
+
+    cfg = tfm.TransformerConfig.bert_base(max_len=128, dropout=0.0)
+    dense = []
+    orig = A.mha_reference
+
+    def counted_reference(*a, **k):
+        dense.append(1)
+        return orig(*a, **k)
+
+    # one float32 step with the iterator's key padding: kernels vs dense
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    params = tfm.init_params(31, cfg32, device="cuda")
+    A.mha_reference = counted_reference
+    try:
+        _zero_counts()
+        loss, grads = tfm.loss_and_grads(params, batches[0], cfg32)
+        counts = _read_counts()
+        check(not dense, f"14c float32 step: dense attention ran {len(dense)} times")
+    finally:
+        A.mha_reference = orig
+    _check_step_counts("14c fp32 step", counts, 1, cfg.n_layers)
+    launches["flash_fwd_f32"].append(counts["flash_fwd"])
+    for name in ("flash_bwd_dkv", "flash_bwd_dq"):
+        launches[f"{name}_f32"].append(counts[name])
+    ref_loss, ref_grads = tfm.loss_and_grads(
+        params, batches[0], dataclasses.replace(cfg32, attn_impl="xla"))
+    loss_rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    worst_name, worst = "", 0.0
+    for name, g in grads.items():
+        r = ref_grads[name]
+        check(torch.isfinite(g).all().item(), f"14c fp32 step: non-finite gradient {name}")
+        rel = ((g - r).norm() / r.norm().clamp(min=1e-30)).item() if r.norm() > 0 \
+            else g.norm().item()
+        if rel > worst:
+            worst_name, worst = name, rel
+    print(f"{tag} 14c fp32 step with the iterator's pad_mask, flash kernels vs dense: loss "
+          f"{loss.item():.6f} vs {ref_loss.item():.6f} (rel {loss_rel:.2e}); largest gradient "
+          f"error {worst:.2e} of its norm ({worst_name})", flush=True)
+    check(loss_rel <= TRAIN_LOSS_REL, f"14c fp32 step: loss differs by {loss_rel:.2e}")
+    check(worst <= TRAIN_GRAD_REL, f"14c fp32 step: gradient {worst_name} differs by {worst:.2e}")
+    del params, grads, ref_grads
+
+    # the main path: bf16 compute, Adam, BI_STEPS steps over the batches
+    params = tfm.init_params(31, cfg, device="cuda")
+    updater = Adam(1e-4)
+    state = updater.init(params)
+    step = tfm.make_train_step(cfg, updater)
+    losses, times = [], []
+    A.mha_reference = counted_reference
+    try:
+        _zero_counts()
+        torch.cuda.synchronize()
+        for i in range(BI_STEPS):
+            t0 = time.perf_counter()
+            params, state, loss = step(params, state, batches[i % len(batches)], i)
+            losses.append(loss.item())
+            times.append((time.perf_counter() - t0) * 1e3)
+        counts = _read_counts()
+    finally:
+        A.mha_reference = orig
+    check(not dense, f"14c bf16 steps: dense attention ran {len(dense)} times")
+    _check_step_counts("14c bf16 steps", counts, BI_STEPS, cfg.n_layers)
+    for name, n in counts.items():
+        launches[name].append(n)
+    check(all(math.isfinite(x) for x in losses), f"14c: non-finite loss in {losses}")
+    first, last = np.mean(losses[:len(batches)]), np.mean(losses[-len(batches):])
+    print(f"{tag} 14c BERT-base bf16 Adam from BertIterator batches: loss " + " ".join(
+        f"{x:.4f}" for x in losses), flush=True)
+    print(f"{tag} 14c step after the first pass over the batches: "
+          f"{spread(times[len(batches):])}; "
+          f"{16 * 128 / statistics.median(times[len(batches):]) * 1e3:.0f} "
+          f"tokens/s at the median; launches per step "
+          f"{', '.join(f'{k} {v // BI_STEPS}' for k, v in counts.items())}; dense attention 0",
+          flush=True)
+    check(last < first, f"14c: the last pass's mean loss {last:.4f} is not below the "
+          f"first's {first:.4f}")
+
+
 def main() -> int:
     import torch
 
@@ -5546,6 +5937,19 @@ def main() -> int:
             print(f"phase 13 {time.perf_counter() - t13:.1f} s", flush=True)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
+        _free_card()
+        t14 = time.perf_counter()
+        w2v = phase_word2vec(tag)
+        print(f"phase 14a Word2Vec: ok ({time.perf_counter() - t14:.1f} s)", flush=True)
+        t = time.perf_counter()
+        phase_nlp_rest(tag, w2v)
+        del w2v
+        print(f"phase 14b GloVe, ParagraphVectors, SequenceVectors, t-SNE: ok "
+              f"({time.perf_counter() - t:.1f} s)", flush=True)
+        t = time.perf_counter()
+        phase_bert_iterator(tag, launches)
+        print(f"phase 14c BertIterator into BERT-base: ok ({time.perf_counter() - t:.1f} s); "
+              f"phase 14 {time.perf_counter() - t14:.1f} s", flush=True)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1

@@ -52,7 +52,11 @@ the runtime plumbing the next slices need):
   flagship on a (dp, tp, sp) mesh with ring or Ulysses attention; pipeline
   parallelism (``pipeline``: GPipe and 1F1B over a ``pipe`` axis,
   ``PipelineParallelTrainer``) with its cost partitioner
-  (``monitoring.costmodel``).
+  (``monitoring.costmodel``);
+- ``nlp`` — tokenizers and WordPiece, the vocabulary and Huffman codes,
+  ``Word2Vec`` (its tables' rows optionally in blocks over a mesh axis),
+  ``SequenceVectors``, ``ParagraphVectors``, ``Glove``, tf-idf, t-SNE and
+  ``BertIterator``.
 
 Entry points that place tensors take ``device`` and default to ``"cuda"``;
 the CPU is used only when asked for (``device="cpu"``).

@@ -1084,7 +1084,8 @@ class PipelineParallelTrainer(ParallelTrainer):
         over ``pipe`` and rank 0 runs the stages' forwards in turn,
         ``repeats`` rounds interleaved over the stages (on the card between
         ``torch.cuda.synchronize`` calls), each stage's time the median of
-        its rounds, shared with every rank. A collective: every rank calls
+        its rounds, shared with every rank. On the CPU a stage's time is
+        the process's CPU time, not the wall clock's. A collective: every rank calls
         it. Compared with :meth:`predicted_stage_costs` it drives
         :meth:`maybe_rebalance`."""
         from ..monitoring.partition import pipe_metrics
@@ -1094,7 +1095,14 @@ class PipelineParallelTrainer(ParallelTrainer):
         pipe = self.partitioner.layout.pipe_axis
         T_ = int(seq or min(self.cfg.max_len, 64))
         h = torch.zeros((int(batch_size), T_, self.cfg.d_model), dtype=torch.float32, device=dev)
-        sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+        # on the card, wall time between synchronisations; on the CPU, this
+        # process's CPU seconds: a wall clock also counts the time the
+        # process waits for a core, and under oversubscription that wait
+        # locks onto the stages' alternation and lands on one stage's rounds
+        if dev.type == "cuda":
+            sync, clock = torch.cuda.synchronize, time.perf_counter
+        else:
+            sync, clock = (lambda: None), time.process_time
         stage_fn = _block_stage_fn(self.cfg)
         vec = torch.zeros(self.n_stages, dtype=torch.float64, device=dev)
         with torch.no_grad(), use_mesh(self.mesh):
@@ -1106,11 +1114,11 @@ class PipelineParallelTrainer(ParallelTrainer):
                 for r in range(max(1, repeats) + 1):  # round 0 warms up, off the clock
                     for s, stage in enumerate(stages):
                         sync()
-                        t0 = time.perf_counter()
+                        t0 = clock()
                         stage_fn(stage, h)
                         sync()
                         if r:
-                            times[s].append(time.perf_counter() - t0)
+                            times[s].append(clock() - t0)
                 vec[:] = torch.tensor([float(np.median(t)) for t in times], dtype=vec.dtype)
             del blocks
             out = [float(v) for v in psum(vec, tuple(a for a in self.mesh.shape

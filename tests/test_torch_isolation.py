@@ -74,7 +74,10 @@ def test_importing_the_port_loads_no_jax():
                    "parallel.compression", "parallel.launcher", "parallel.trainer",
                    "parallel.wrapper", "parallel.sharding", "parallel.partition",
                    "monitoring.partition", "parallel.pipeline", "monitoring.costmodel",
-                   "parallel.supervisor", "monitoring.deploy", "deploy", "deploy.controller"):
+                   "parallel.supervisor", "monitoring.deploy", "deploy", "deploy.controller",
+                   "nlp", "nlp.tokenization", "nlp.vocab", "nlp.word2vec", "nlp.word_vectors",
+                   "nlp.sequencevectors", "nlp.paragraph_vectors", "nlp.glove", "nlp.tfidf",
+                   "nlp.tsne", "nlp.bert_iterator"):
         assert f"deeplearning4j_tpu_torch.{module}" in added
     assert [m for m in added if _forbidden(m)] == []
 
@@ -238,6 +241,46 @@ def test_distributed_and_export_entry_points_default_to_cuda(monkeypatch, tmp_pa
         with pytest.raises(RuntimeError, match="cuda"):
             call()
     assert load_compiled(path, device="cpu")(torch.full((2,), 3.0)).tolist() == [3.0, 3.0]
+
+
+def test_nlp_trainers_default_to_cuda():
+    """``Word2Vec``, ``ParagraphVectors``, ``Glove``, ``SequenceVectors`` and
+    ``BarnesHutTsne`` (and their builders) target the card unless given
+    ``device``; on a host with no card their fits and ``infer_vector`` raise
+    before any training."""
+    from deeplearning4j_tpu_torch import nlp
+    from deeplearning4j_tpu_torch.nlp.glove import Glove
+    from deeplearning4j_tpu_torch.nlp.paragraph_vectors import ParagraphVectors
+    from deeplearning4j_tpu_torch.nlp.tsne import BarnesHutTsne
+
+    sents = ["cat dog cat", "car bus car", "dog cat dog"]
+    docs = [("a", sents[0]), ("b", sents[1])]
+    walks = nlp.AbstractSequenceIterator.from_token_lists([s.split() for s in sents])
+    trainers = {
+        "Word2Vec": (nlp.Word2Vec(), lambda m: m.fit(sents)),
+        "Word2Vec.Builder": (nlp.Word2Vec.Builder().iterate(sents).build(), lambda m: m.fit()),
+        "ParagraphVectors": (ParagraphVectors(), lambda m: m.fit(docs)),
+        "ParagraphVectors.Builder": (ParagraphVectors.Builder().iterate(docs).build(),
+                                     lambda m: m.fit()),
+        "Glove": (Glove(), lambda m: m.fit(sents)),
+        "Glove.Builder": (Glove.Builder().iterate(sents).build(), lambda m: m.fit()),
+        "SequenceVectors": (nlp.SequenceVectors(), lambda m: m.fit(walks)),
+        "SequenceVectors.Builder": (nlp.SequenceVectors.Builder().iterate(walks).build(),
+                                    lambda m: m.fit()),
+        "BarnesHutTsne": (BarnesHutTsne(), lambda m: m.fit_transform(np.eye(6, 3))),
+        "BarnesHutTsne.Builder": (BarnesHutTsne.Builder().build(),
+                                  lambda m: m.fit_transform(np.eye(6, 3))),
+    }
+    for name, (model, fit) in trainers.items():
+        assert model.device == "cuda", name
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="cuda"):
+                fit(model)
+    if not torch.cuda.is_available():
+        pv = ParagraphVectors(layer_size=4, epochs=1, device="cpu").fit(docs)
+        pv.device = "cuda"
+        with pytest.raises(RuntimeError, match="cuda"):
+            pv.infer_vector("cat dog")
 
 
 def test_cpu_training_never_touches_the_build(monkeypatch):

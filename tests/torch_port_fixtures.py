@@ -103,3 +103,14 @@ def product(a, b, terms):
     if terms == 1:
         return ah @ bh
     return al @ bh + ah @ bl + ah @ bh
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """Run a module's torch ops on one thread: the NLP trainers' many small
+    ops on the default pool of one thread per core spin against the other
+    busy test processes of a parallel run (minutes instead of seconds)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
