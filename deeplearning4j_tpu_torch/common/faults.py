@@ -26,7 +26,7 @@ the machinery a production failure would. The grammar is the JAX package's,
                                  the training and trial-fleet faults
 
 Every clause parses as in the JAX package, so one spec can be handed to a
-fleet that runs both packages. The port fires three groups of sites:
+fleet that runs both packages. The port fires four groups of sites:
 
 - ``infer``, inside ``serving.executor``'s model calls (a failing model
   call is an HTTP 500, a slow one drives the deadline and shedding paths);
@@ -42,8 +42,13 @@ fleet that runs both packages. The port fires three groups of sites:
   and ``loss_spike`` through :func:`poison_scale`, which returns the factor
   the trainer multiplies every parameter by.
 
-The trial fleet's ``corrupt_clone`` waits for the port's trial fleet
-(ROADMAP item 6c.4).
+- ``trial_clone`` (``iteration=`` the rung index, ``path=`` the clone
+  source's generation), fired by ``arbiter.fleet.TrialFleet`` just before
+  it deep-verifies a PBT clone source: ``corrupt_clone`` bit-flips one
+  shard of that SOURCE (latent damage found only when the winner's
+  checkpoint is read back). It fires once per injector unless ``every=1``:
+  the fleet's fallback clone from an older generation must read healthy
+  bytes, or the fault would prove nothing about recovery.
 
 A clause without ``rank=`` fires on every rank; the rank comes from
 ``TDL_PROCESS_ID`` and the incarnation from ``TDL_GANG_RESTART_COUNT``.
@@ -146,8 +151,8 @@ def parse_fault_spec(spec: str) -> List[Fault]:
 
 class FaultInjector:
     """Evaluates fault clauses at the port's sites (see the module
-    docstring): ``infer``, the checkpoint sites ``ckpt_*`` and
-    ``train_step``."""
+    docstring): ``infer``, the checkpoint sites ``ckpt_*``, ``train_step``
+    and ``trial_clone``."""
 
     def __init__(self, faults: List[Fault], rank: Optional[int] = None,
                  incarnation: Optional[int] = None):
@@ -156,6 +161,9 @@ class FaultInjector:
         self.incarnation = (incarnation if incarnation is not None
                             else int(os.environ.get(ENV_INCARNATION, "0")))
         self._infer_calls = 0  # deterministic fail_infer@n= cadence
+        #: clause indices that already fired at the one-shot ``trial_clone``
+        #: site
+        self._fired_once: set = set()
 
     @classmethod
     def from_env(cls) -> "FaultInjector":
@@ -186,6 +194,21 @@ class FaultInjector:
             self._fire_ckpt(site, iteration, path)
         elif site == "train_step":
             self._fire_train(iteration)
+        elif site == "trial_clone":
+            self._fire_clone(iteration, path)
+
+    def _fire_clone(self, iteration: Optional[int], path: Optional[str]) -> None:
+        for i, f in enumerate(self.faults):
+            if f.kind != "corrupt_clone" or not path or not self._matches(f, iteration):
+                continue
+            if f.params.get("every") not in ("1", "true"):
+                if i in self._fired_once:
+                    continue
+                self._fired_once.add(i)
+            self._flight_note(f, iteration)
+            flipped = _flip_bit_in_shard(path)
+            log.warning("fault injection: corrupt_clone bit-flipped clone source %s "
+                        "(rung %s, incarnation %s)", flipped, iteration, self.incarnation)
 
     def _fire_train(self, iteration: Optional[int]) -> None:
         for f in self.faults:

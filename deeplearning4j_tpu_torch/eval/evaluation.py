@@ -1,11 +1,14 @@
 """Evaluation metrics.
 
-Copy of ``Evaluation`` and ``RegressionEvaluation`` from
-``deeplearning4j_tpu/eval/evaluation.py`` (nd4j's ``Evaluation``: confusion
-matrix, accuracy/precision/recall/F1; ``RegressionEvaluation``: per-column
-MSE/MAE/RMSE/R²), host numpy and merge-able across minibatches; their
-``to_metrics`` export the ``tdl_eval_*`` gauges (:func:`eval_metrics`) that
-a deploy controller's eval gate judges.
+Copy of ``deeplearning4j_tpu/eval/evaluation.py``: nd4j's ``Evaluation``
+(confusion matrix, accuracy/precision/recall/F1), ``EvaluationBinary``
+(per-output thresholded counts), ``ROC`` (thresholded AUC),
+``ROCMultiClass`` (one-vs-all), ``EvaluationCalibration`` (reliability
+diagram, expected calibration error) and ``RegressionEvaluation``
+(per-column MSE/MAE/RMSE/R²). All work in host numpy, take tensors on the
+card or the CPU (:func:`_to_np` copies them to the host) and merge across
+minibatches; ``to_metrics`` exports the ``tdl_eval_*`` gauges
+(:func:`eval_metrics`) that a deploy controller's eval gate judges.
 """
 
 from __future__ import annotations
@@ -145,6 +148,91 @@ class Evaluation:
         return "\n".join(lines)
 
 
+class EvaluationBinary:
+    """Per-output independent binary eval (org.nd4j.evaluation.classification
+    .EvaluationBinary)."""
+
+    def __init__(self, threshold: float = 0.5):
+        self.threshold = threshold
+        self.tp = self.fp = self.tn = self.fn = None
+
+    def eval(self, labels, predictions, mask=None) -> None:
+        y, p = _to_np(labels), _to_np(predictions)
+        pred = (p >= self.threshold).astype(np.int64)
+        yb = (y >= 0.5).astype(np.int64)
+        m = _to_np(mask).astype(bool) if mask is not None else np.ones_like(yb, dtype=bool)
+        axis = 0
+        tp = ((pred == 1) & (yb == 1) & m).sum(axis=axis)
+        fp = ((pred == 1) & (yb == 0) & m).sum(axis=axis)
+        tn = ((pred == 0) & (yb == 0) & m).sum(axis=axis)
+        fn = ((pred == 0) & (yb == 1) & m).sum(axis=axis)
+        if self.tp is None:
+            self.tp, self.fp, self.tn, self.fn = tp, fp, tn, fn
+        else:
+            self.tp += tp
+            self.fp += fp
+            self.tn += tn
+            self.fn += fn
+
+    def merge(self, other: "EvaluationBinary") -> "EvaluationBinary":
+        if other.tp is not None:
+            if self.tp is None:
+                self.tp, self.fp, self.tn, self.fn = other.tp, other.fp, other.tn, other.fn
+            else:
+                self.tp += other.tp
+                self.fp += other.fp
+                self.tn += other.tn
+                self.fn += other.fn
+        return self
+
+    def accuracy(self):
+        tot = self.tp + self.fp + self.tn + self.fn
+        return ((self.tp + self.tn) / np.maximum(tot, 1)).astype(float)
+
+    def precision(self):
+        return (self.tp / np.maximum(self.tp + self.fp, 1)).astype(float)
+
+    def recall(self):
+        return (self.tp / np.maximum(self.tp + self.fn, 1)).astype(float)
+
+
+class ROC:
+    """AUC via thresholded TPR/FPR curve (org.nd4j.evaluation.classification
+    .ROC with thresholdSteps; exact mode approximated by many steps)."""
+
+    def __init__(self, threshold_steps: int = 200):
+        self.steps = threshold_steps
+        self._scores = []
+        self._labels = []
+
+    def eval(self, labels, predictions, mask=None) -> None:
+        y, p = _to_np(labels).reshape(-1), _to_np(predictions).reshape(-1)
+        if mask is not None:
+            m = _to_np(mask).reshape(-1).astype(bool)
+            y, p = y[m], p[m]
+        self._labels.append(y)
+        self._scores.append(p)
+
+    def merge(self, other: "ROC") -> "ROC":
+        self._labels.extend(other._labels)
+        self._scores.extend(other._scores)
+        return self
+
+    def calculate_auc(self) -> float:
+        y = np.concatenate(self._labels)
+        s = np.concatenate(self._scores)
+        thresholds = np.linspace(0.0, 1.0, self.steps + 1)
+        pos = (y >= 0.5).sum()
+        neg = len(y) - pos
+        if pos == 0 or neg == 0:
+            return 0.0
+        tpr = [(s[y >= 0.5] >= t).sum() / pos for t in thresholds]
+        fpr = [(s[y < 0.5] >= t).sum() / neg for t in thresholds]
+        return float(abs(np.trapezoid(tpr, fpr)))
+
+    calculateAUC = calculate_auc
+
+
 class RegressionEvaluation:
     """org.nd4j.evaluation.regression.RegressionEvaluation: per-column
     MSE/MAE/RMSE/R²/correlation, merge-able."""
@@ -215,3 +303,118 @@ class RegressionEvaluation:
         out = {"score": self.r_squared(0)}
         score_g.labels(model).set(out["score"])
         return out
+
+
+class ROCMultiClass:
+    """One-vs-all ROC per class (org.nd4j.evaluation.classification
+    .ROCMultiClass): labels one-hot [N, C], predictions probabilities
+    [N, C]; per-class AUC + macro average, mergeable across workers."""
+
+    def __init__(self, threshold_steps: int = 200):
+        self.steps = threshold_steps
+        self._rocs: Dict[int, ROC] = {}
+
+    def eval(self, labels, predictions, mask=None) -> None:
+        y = _to_np(labels)
+        p = _to_np(predictions)
+        if y.ndim == 3:  # DL4J time-series layout [N, C, T] → class axis LAST
+            y = np.moveaxis(y, 1, -1)
+            p = np.moveaxis(p, 1, -1)
+        C = y.shape[-1]
+        for c in range(C):
+            self._rocs.setdefault(c, ROC(self.steps)).eval(
+                y[..., c], p[..., c], mask=mask)
+
+    def merge(self, other: "ROCMultiClass") -> "ROCMultiClass":
+        for c, roc in other._rocs.items():
+            if c not in self._rocs:
+                # fresh accumulator, then merge: aliasing other's ROC would
+                # double-count when either side keeps evaling after merge
+                self._rocs[c] = ROC(roc.steps)
+            self._rocs[c].merge(roc)
+        return self
+
+    def calculate_auc(self, class_idx: int) -> float:
+        return self._rocs[class_idx].calculate_auc()
+
+    calculateAUC = calculate_auc
+
+    def calculate_average_auc(self) -> float:
+        if not self._rocs:
+            return 0.0
+        return float(np.mean([r.calculate_auc() for r in self._rocs.values()]))
+
+    calculateAverageAUC = calculate_average_auc
+
+    def num_classes(self) -> int:
+        return len(self._rocs)
+
+
+class EvaluationCalibration:
+    """Reliability diagram + residual-plot data (org.nd4j.evaluation
+    .classification.EvaluationCalibration): bins predicted confidence vs
+    observed accuracy; expected calibration error (ECE) summary."""
+
+    def __init__(self, reliability_bins: int = 10):
+        self.bins = reliability_bins
+        self._counts = np.zeros(reliability_bins, np.int64)
+        self._correct = np.zeros(reliability_bins, np.int64)
+        self._conf_sum = np.zeros(reliability_bins, np.float64)
+
+    def eval(self, labels, predictions, mask=None) -> None:
+        y = _to_np(labels)
+        p = _to_np(predictions)
+        if y.ndim == 3:  # DL4J time-series layout [N, C, T] → class axis last
+            y = np.moveaxis(y, 1, -1)
+            p = np.moveaxis(p, 1, -1)
+        if mask is not None:
+            m = _to_np(mask).astype(bool).reshape(-1)
+            y = y.reshape(-1, y.shape[-1])[m]
+            p = p.reshape(-1, p.shape[-1])[m]
+        else:
+            y = y.reshape(-1, y.shape[-1])
+            p = p.reshape(-1, p.shape[-1])
+        conf = p.max(-1)
+        correct = p.argmax(-1) == y.argmax(-1)
+        idx = np.clip((conf * self.bins).astype(int), 0, self.bins - 1)
+        np.add.at(self._counts, idx, 1)
+        np.add.at(self._correct, idx, correct.astype(np.int64))
+        np.add.at(self._conf_sum, idx, conf)
+
+    def merge(self, other: "EvaluationCalibration") -> "EvaluationCalibration":
+        if self.bins != other.bins:
+            raise ValueError(
+                f"cannot merge EvaluationCalibration with reliability_bins="
+                f"{other.bins} into one with reliability_bins={self.bins}")
+        self._counts += other._counts
+        self._correct += other._correct
+        self._conf_sum += other._conf_sum
+        return self
+
+    def reliability_diagram(self):
+        """[(bin_center, mean_confidence, observed_accuracy, count)] rows."""
+        out = []
+        for b in range(self.bins):
+            n = int(self._counts[b])
+            center = (b + 0.5) / self.bins
+            if n == 0:
+                out.append((center, center, float("nan"), 0))
+            else:
+                out.append((center, float(self._conf_sum[b] / n),
+                            float(self._correct[b] / n), n))
+        return out
+
+    getReliabilityInfo = reliability_diagram
+
+    def expected_calibration_error(self) -> float:
+        total = self._counts.sum()
+        if total == 0:
+            return 0.0
+        ece = 0.0
+        for b in range(self.bins):
+            n = self._counts[b]
+            if n:
+                acc = self._correct[b] / n
+                conf = self._conf_sum[b] / n
+                ece += (n / total) * abs(acc - conf)
+        return float(ece)

@@ -15,7 +15,9 @@
 - :mod:`.serving` — the serving, decode, client and pool metric families;
 - :mod:`.partition` — the sharding, pipeline and elasticity families;
 - :mod:`.deploy` — the deploy controller's families and the paired canary
-  judgement (``paired_canary_windows``, ``judge_canary_windows``).
+  judgement (``paired_canary_windows``, ``judge_canary_windows``);
+- :mod:`.trial` — the trial fleet's families (``tdl_trial_*``,
+  ``tdl_fleet_disk_bytes``) and the exclusive trial-state gauge.
 
 The spools, flight logs and heartbeats read the same to both packages' fleet
 tools. The JAX package's ``costmodel``, ``trace``, ``watchdogs``, ``slo``
@@ -31,6 +33,7 @@ from .history import HistoryRing, HistoryView
 from .registry import (Counter, Gauge, Histogram, MetricsRegistry,
                        get_registry)
 from .serving import serving_metrics
+from .trial import TRIAL_STATES, set_trial_state, trial_metrics
 
 __all__ = [
     "AlertEngine",
@@ -46,6 +49,9 @@ __all__ = [
     "MetricsRegistry",
     "get_registry",
     "serving_metrics",
+    "TRIAL_STATES",
+    "set_trial_state",
+    "trial_metrics",
     "MetricsSpooler",
     "maybe_spool",
     "merged_prometheus",

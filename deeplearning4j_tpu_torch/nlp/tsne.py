@@ -59,29 +59,35 @@ def _cond_probs(dists, perplexity: float, tol: float = 1e-5, iters: int = 50):
     return p
 
 
-def _tsne_run(p_sym, y0, *, n_iter: int, learning_rate: float, momentum_final: float,
-              exaggeration: float, exaggeration_iters: int):
+def _tsne_step(p_sym, eye, i: int, y, vel, gains, *, learning_rate: float,
+               momentum_final: float, exaggeration: float, exaggeration_iters: int):
+    """Step ``i`` from the state (y, vel, gains): the next state and the
+    step's KL."""
+    num = 1.0 / (1.0 + _pairwise_sq_dists(y))
+    num = torch.where(eye, 0.0, num)
+    q = torch.clamp(num / num.sum(), min=1e-12)
+    pp = p_sym * exaggeration if i < exaggeration_iters else p_sym
+    pq = (pp - q) * num                                   # [N, N]
+    grad = 4.0 * (torch.diag(pq.sum(1)) - pq) @ y
+    momentum = 0.5 if i < 250 else momentum_final
+    same_sign = torch.sign(grad) == torch.sign(vel)
+    gains = torch.clamp(torch.where(same_sign, gains * 0.8, gains + 0.2), min=0.01)
+    vel = momentum * vel - learning_rate * gains * grad
+    y = y + vel
+    y = y - y.mean(0, keepdim=True)
+    kl = (pp * torch.log(torch.clamp(pp, min=1e-12) / q)).sum()
+    return y, vel, gains, kl
+
+
+def _tsne_run(p_sym, y0, *, n_iter: int, **step):
     """``n_iter`` gradient steps from ``y0``: (y, the KL of each step [n_iter])."""
     N = p_sym.shape[0]
     eye = torch.eye(N, dtype=torch.bool, device=p_sym.device)
-    y = y0.clone()
-    vel = torch.zeros_like(y0)
-    gains = torch.ones_like(y0)
+    y, vel, gains = y0.clone(), torch.zeros_like(y0), torch.ones_like(y0)
     kls = []
     for i in range(n_iter):
-        num = 1.0 / (1.0 + _pairwise_sq_dists(y))
-        num = torch.where(eye, 0.0, num)
-        q = torch.clamp(num / num.sum(), min=1e-12)
-        pp = p_sym * exaggeration if i < exaggeration_iters else p_sym
-        pq = (pp - q) * num                                   # [N, N]
-        grad = 4.0 * (torch.diag(pq.sum(1)) - pq) @ y
-        momentum = 0.5 if i < 250 else momentum_final
-        same_sign = torch.sign(grad) == torch.sign(vel)
-        gains = torch.clamp(torch.where(same_sign, gains * 0.8, gains + 0.2), min=0.01)
-        vel = momentum * vel - learning_rate * gains * grad
-        y = y + vel
-        y = y - y.mean(0, keepdim=True)
-        kls.append((pp * torch.log(torch.clamp(pp, min=1e-12) / q)).sum())
+        y, vel, gains, kl = _tsne_step(p_sym, eye, i, y, vel, gains, **step)
+        kls.append(kl)
     return y, torch.stack(kls) if kls else torch.zeros(0, device=y.device)
 
 

@@ -1,7 +1,7 @@
 """Neural-network building blocks of the port: the MultiLayerNetwork and
 ComputationGraph runtimes, their configuration builders, core layers and
 graph vertices, activations, losses, weight init, dropout, constraints,
-updaters and schedules."""
+updaters and schedules, and transfer learning."""
 
 from .attention_layers import (AttentionVertex, LearnedSelfAttentionLayer,
                                RecurrentAttentionLayer, SelfAttentionLayer)
@@ -42,6 +42,7 @@ from .graph_conf import (
     UnstackVertex,
 )
 from .multilayer import MultiLayerNetwork
+from .transfer import FineTuneConfiguration, TransferLearning, TransferLearningHelper
 from .updaters import (
     AdaDelta,
     AdaGrad,
@@ -66,13 +67,14 @@ from .updaters import (
 
 __all__ = ["ActivationLayer", "AttentionVertex", "BatchNormalization", "ComputationGraph",
            "ComputationGraphConfiguration", "ConvolutionLayer", "DenseLayer", "DropoutLayer",
-           "ElementWiseVertex", "FlattenVertex", "GlobalPoolingLayer", "GraphBuilder",
-           "GraphVertex", "GravesLSTM", "InputType", "L2NormalizeVertex", "LastTimeStep",
+           "ElementWiseVertex", "FineTuneConfiguration", "FlattenVertex",
+           "GlobalPoolingLayer", "GraphBuilder", "GraphVertex", "GravesLSTM", "InputType", "L2NormalizeVertex", "LastTimeStep",
            "Layer", "LearnedSelfAttentionLayer", "LossLayer", "LSTM", "MergeVertex",
            "MultiLayerConfiguration", "MultiLayerNetwork", "NeuralNetConfiguration",
            "OutputLayer", "PreprocessorVertex", "RecurrentAttentionLayer", "ReshapeVertex",
            "RnnOutputLayer", "ScaleVertex", "SelfAttentionLayer", "ShiftVertex",
-           "StackVertex", "SubsamplingLayer", "SubsetVertex", "UnstackVertex",
+           "StackVertex", "SubsamplingLayer", "SubsetVertex", "TransferLearning",
+           "TransferLearningHelper", "UnstackVertex",
            "AdaDelta", "AdaGrad", "AdaMax", "Adam", "AMSGrad", "ExponentialSchedule",
            "FixedSchedule", "InverseSchedule", "IUpdater", "Nadam", "Nesterovs", "NoOp",
            "PolySchedule", "RmsProp", "Schedule", "Sgd", "SigmoidSchedule", "StepSchedule",

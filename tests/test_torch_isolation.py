@@ -77,7 +77,9 @@ def test_importing_the_port_loads_no_jax():
                    "parallel.supervisor", "monitoring.deploy", "deploy", "deploy.controller",
                    "nlp", "nlp.tokenization", "nlp.vocab", "nlp.word2vec", "nlp.word_vectors",
                    "nlp.sequencevectors", "nlp.paragraph_vectors", "nlp.glove", "nlp.tfidf",
-                   "nlp.tsne", "nlp.bert_iterator"):
+                   "nlp.tsne", "nlp.bert_iterator", "arbiter", "arbiter.optimize",
+                   "arbiter.spaces", "arbiter.trial_worker", "arbiter.fleet", "monitoring.trial",
+                   "nn.transfer"):
         assert f"deeplearning4j_tpu_torch.{module}" in added
     assert [m for m in added if _forbidden(m)] == []
 
@@ -370,3 +372,58 @@ def test_supervisor_controller_and_canary_replica_default_to_cuda(tmp_path):
         pool.stop()
     logs = "".join(p.read_text() for p in (tmp_path / "pool").rglob("*.log"))
     assert "RuntimeError" in logs and "cuda" in logs
+
+
+def test_fleet_cli_loads_no_jax():
+    """``python -m deeplearning4j_tpu_torch.arbiter.fleet`` (here asked for
+    its usage) runs in an interpreter that never loads JAX or the JAX
+    package, and neither does a trial gang's worker module."""
+    script = ("import json, runpy, sys\n"
+              "sys.argv = ['fleet', '--help']\n"
+              "try:\n"
+              "    runpy.run_module('deeplearning4j_tpu_torch.arbiter.fleet', "
+              "run_name='__main__')\n"
+              "except SystemExit as e:\n"
+              "    assert e.code == 0, e.code\n"
+              "import deeplearning4j_tpu_torch.arbiter.trial_worker\n"
+              "print(json.dumps(sorted(sys.modules)))\n")
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert "PBT/ASHA trial fleet" in out.stdout
+    mods = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "deeplearning4j_tpu_torch.arbiter.fleet" in mods
+    assert [m for m in mods if _forbidden(m)] == []
+
+
+def test_trial_gangs_default_to_cuda_and_raise_without_a_card(tmp_path):
+    """``GangTrialRunner`` and ``from_config`` run their gangs on the card
+    unless asked for the CPU; on a host with no card a gang raises before
+    any process starts (a sweep of such gangs quarantines every trial and
+    names no winner). ``lenet_images`` waits for the ETL service."""
+    _no_card()
+    from deeplearning4j_tpu_torch.arbiter import fleet as F
+    from deeplearning4j_tpu_torch.arbiter.trial_worker import build_task
+    from deeplearning4j_tpu_torch.monitoring import MetricsRegistry
+
+    runner = F.GangTrialRunner(str(tmp_path / "sweep"))
+    assert runner.platform == "cuda"
+    slot = F.TrialSlot("t00", {"learning_rate": 0.01, "hidden": 8}, str(tmp_path / "t00"),
+                       str(tmp_path / "t00" / "ckpt"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        runner(slot, 1, 30.0)
+    assert not list(tmp_path.rglob("rank0.err"))  # no worker was started
+    cfg = {"workdir": str(tmp_path / "cfg"), "n_trials": 2, "rungs": [1],
+           "trial_max_restarts": 0, "backoff_base_s": 0.01,
+           "spaces": {"learning_rate": {"kind": "continuous", "lo": 1e-3, "hi": 1e-1}}}
+    (tmp_path / "c.json").write_text(json.dumps(cfg))
+    fleet = F.from_config(str(tmp_path / "c.json"))
+    fleet.registry = MetricsRegistry()
+    try:
+        assert fleet.runner.platform == "cuda"
+        with pytest.raises(RuntimeError, match="no surviving"):
+            fleet.run()
+    finally:
+        fleet.close()
+    assert {t.quarantine_reason for t in fleet.trials.values()} == {"crash_budget"}
+    with pytest.raises(NotImplementedError, match="8.5"):
+        build_task({"kind": "lenet_images", "data_dir": str(tmp_path)})
