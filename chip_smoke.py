@@ -81,7 +81,7 @@ Phases:
    accuracy reaches 0.90 (at most 6 epochs of 1280 examples), fit step time
    and images/s, ``output()`` latency, a profile and the share of the bf16
    peak; (b) the GravesLSTM char-RNN (vocab 77, hidden 256, 2 layers, tbptt
-   50) at B=64, T=200: a float32 fit against the CPU's, 10 bf16 fits with a
+   50) at B=64, T=200: a float32 fit against the CPU's, 6 bf16 fits with a
    falling score, chars/s, a profile, and ``rnn_time_step`` over 20 steps
    against ``output()``; (c) SelfAttentionLayer (4 heads of 64) →
    GlobalPooling → Output on [16, 256, 128] with a ragged features mask: a
@@ -94,7 +94,7 @@ Phases:
    parameters, Nesterovs(0.1, 0.9)) at bench.py's shape, 3x224x224, 1000
    classes: a float32 fit at batch 4 against the same fit on the CPU (score,
    every update and the BN running statistics), then bf16 training at batch
-   256 on a batch staged on the card: step time (median and p75 of 40 after
+   256 on a batch staged on the card: step time (median and p50+ of 20 after
    3 warm-up steps), images/s, peak memory, a profile (busy share, top
    kernels), the share of the bf16 peak, ``output()`` latency at batch 256,
    and the step with ``cudnn.benchmark`` off and on in turns; (b)
@@ -184,7 +184,7 @@ Phases:
    16, T 128, 19 MLM positions, Adam) placed on a 4-rank (dp, tp, sp) =
    (1, 2, 2) mesh (``place_params``), Ulysses attention through the flash
    kernels: one float32 step against the one-process float32 step (loss
-   1e-5, each gathered gradient 1e-3 of its norm), then 5 + 10 bf16 steps
+   1e-5, each gathered gradient 1e-3 of its norm), then 5 + 5 bf16 steps
    (median ms on rank 0), exactly 12 launches of each flash kernel per rank
    per step, each rank's resident bytes of parameters and Adam state
    against the one-process total and the spec-derived expectation, and the
@@ -208,7 +208,7 @@ Phases:
    float32 step (loss 1e-5, each gathered gradient 1e-3 of its norm), their
    losses bitwise equal, launches per rank per step (1F1B: 36 forward, 12
    of each backward kernel; GPipe 12 each); ``PipelineParallelTrainer``
-   bf16 1F1B steps (5 + 10 timed, rank 0's median), each rank's resident
+   bf16 1F1B steps (5 + 5 timed, rank 0's median), each rank's resident
    parameters + Adam state against the spec-derived count, the bytes of the
    rings and the broadcasts over ``pipe``, and the peak memory above
    resident of one bf16 step at M=8 (mb 2), GPipe against 1F1B in turns;
@@ -295,8 +295,22 @@ Phases:
    head trained on the features; the fine-tune, full LeNet and head-only
    steps in turns (median of 40 after 5); ``Evaluation``,
    ``EvaluationBinary``, ``ROCMultiClass`` and ``EvaluationCalibration`` of
-   held-out outputs as CUDA tensors equal to the same of their host copies.
-   Phases 15 and 16 launch none of the three kernels.
+   held-out outputs as CUDA tensors equal to the same of their host copies;
+17. the image zoo at its published widths (``deeplearning4j_tpu_torch.models``:
+   VGG16, VGG19, AlexNet, Darknet19 as MultiLayerNetworks; SqueezeNet, UNet,
+   Xception, NASNet as graphs; the depthwise, separable, LRN and upsampling
+   layers on the card): each model's parameter count against the JAX
+   package's, a float32 fit on the card against the CPU's from the same
+   weights and batch with dropout off (batch 4 for the BN models, 2 for the
+   others; the score, each update, the update of all parameters and the BN
+   running statistics within bounds measured against a float64 step,
+   ``tests/torch_float64_step.py``), then bf16 training at a real batch
+   (VGG 64, AlexNet, Darknet19 and SqueezeNet 128, UNet 16, Xception 32,
+   NASNet 64): the median step of 10 after 3 warm-up steps (VGG19 5),
+   images/s, peak memory above the resident state, the share of the dense
+   bf16 peak, and the device time by kind of kernel of VGG16 (the
+   device-bound end) and NASNet (399 nodes, the host-bound end).
+   Phases 15, 16 and 17 launch none of the three kernels.
 
 A line before the last is a JSON object describing each kernel (launch
 counts on the main path, error against the plain version, times and the
@@ -2038,7 +2052,7 @@ def print_peak_share(tag, step_ms):
 
 # The MultiLayerNetwork models at bench.py's CUDA shapes, their published widths
 LENET_BATCH, LENET_EXAMPLES, LENET_MAX_EPOCHS, LENET_TARGET = 128, 1280, 6, 0.90
-LSTM_B, LSTM_T, LSTM_FITS = 64, 200, 10
+LSTM_B, LSTM_T, LSTM_FITS = 64, 200, 6
 ATTN_B, ATTN_C, ATTN_T, ATTN_HEADS, ATTN_STEPS = 16, 256, 128, 4, 20
 # the card's float32 fit against the CPU's, same weights and batch: the score
 # within 1e-5 relative, each parameter's update within 1e-4 of its norm
@@ -2090,15 +2104,21 @@ def _snapshot(net):
 
 
 def check_fit_on_cpu(tag, what, make_net, ds, loss_rel=MLN_LOSS_REL,
-                     update_rel=MLN_UPDATE_REL, all_rel=None, bn_rel=None):
+                     update_rel=MLN_UPDATE_REL, all_rel=None, bn_rel=None,
+                     skip_null=False):
     """One float32 fit of the same network on the card and on the CPU (the
     explicit reference), from the same weights and batch: the score and
     every parameter's update (and, where given, the update of all parameters
     as one vector and each BN layer's running statistics, as a share of
-    their norms). Returns the kernels' launches in the card's fit."""
+    their norms). With ``skip_null``, the parameters whose gradient is
+    zero up to rounding (:func:`null_updates`) count only in the
+    update of all parameters, and a BN mean of a zero-mean input is taken
+    as a share of its variance's norm. Returns the kernels' launches in the
+    card's fit."""
     with float32_policy():
         card, cpu = make_net("cuda"), make_net("cpu")
         cpu.set_params(card.params().cpu())
+        null = null_updates(card, ds) if skip_null else set()
         before, cpu_before = _snapshot(card), _snapshot(cpu)
         _zero_counts()
         t0 = time.perf_counter()
@@ -2111,18 +2131,24 @@ def check_fit_on_cpu(tag, what, make_net, ds, loss_rel=MLN_LOSS_REL,
         cpu_s = time.perf_counter() - t0
         rel = abs(card_score - cpu.score_) / abs(cpu.score_)
         errs = _update_errors(card, cpu, before, cpu_before)
+        errs = {k: v for k, v in errs.items() if k not in null}
         whole = _whole_update_error(card, cpu, before, cpu_before)
         bn_errs = {}
         for k, st in card.bn_state.items():
             for stat in ("mean", "var"):
                 want = getattr(cpu.bn_state[k], stat).double()
                 got = getattr(st, stat).double().cpu()
-                bn_errs[f"{k}.{stat}"] = ((got - want).norm() / want.norm()).item()
+                scale = want.norm()
+                var = cpu.bn_state[k].var.double().norm()
+                if skip_null and stat == "mean" and scale <= NULL_GRAD_REL * var:
+                    scale = var  # the mean of a zero-mean input
+                bn_errs[f"{k}.{stat}"] = ((got - want).norm() / scale).item()
     worst = max(errs, key=errs.get)
     median = statistics.median(errs.values())
     print(f"{tag} {what} float32 fit, card vs CPU: score {card_score:.7f} vs {cpu.score_:.7f} "
           f"(rel {rel:.2e}); largest update error {errs[worst]:.2e} of its norm ({worst}, "
-          f"{len(errs)} tensors), median {median:.2e}, all parameters as one vector {whole:.2e}; "
+          f"{len(errs)} tensors{f', {len(null)} null updates aside' if null else ''}), median "
+          f"{median:.2e}, all parameters as one vector {whole:.2e}; "
           f"card {card_s:.3f} s, CPU {cpu_s:.3f} s", flush=True)
     check(rel <= loss_rel, f"{what}: float32 score differs from the CPU's by {rel:.2e}")
     check(errs[worst] <= update_rel,
@@ -2397,7 +2423,7 @@ def phase_attention_mln(tag, launches):
 # bench.py's shape (batch 256, 3x224x224, 1000 classes), InceptionResNetV1
 # at its defaults (3x160x160, blocks (5, 10, 5), embedding 128, 1001
 # classes) at batch 128, and phase 7c's attention graph
-RESNET_BATCH, RESNET_STEPS, RESNET_CHECK_BATCH = 256, 40, 4
+RESNET_BATCH, RESNET_STEPS, RESNET_CHECK_BATCH = 256, 20, 4
 RESNET_PARAMS = 25_557_032
 FACENET_BATCH, FACENET_STEPS, FACENET_CHECK_BATCH = 128, 10, 4
 AG_B, AG_C, AG_TQ, AG_TK, AG_HEADS, AG_STEPS = 16, 256, 96, 200, 4, 10
@@ -2514,7 +2540,7 @@ def phase_resnet(tag):
     # cudnn.benchmark off (the library's default) and on, in turns
     by_mode = {False: [], True: []}
     try:
-        for mode in (True, False, True, True, False, False, True):
+        for mode in (True, False, False, True):
             torch.backends.cudnn.benchmark = mode
             t, _ = _train_steps(net, ds, 4, warmup=1)
             by_mode[mode] += t
@@ -3246,7 +3272,7 @@ def phase_checkpoint_resnet(tag, net, ds, workdir):
         return dt
 
     runs = {False: [], True: []}
-    for save in (False, True, True, False, False, True):
+    for save in (False, True, True, False):
         runs[save].append(steps(save))
     plain, saving = statistics.median(runs[False]), statistics.median(runs[True])
     print(f"{tag} 9a ResNet-50 {CKPT_TIMED_STEPS} bf16 steps [{RESNET_BATCH},3,224,224]: "
@@ -4077,7 +4103,7 @@ def phase_master(tag, launches):
 # ------------------------------------------------------------- phase 11
 
 SP_B, SP_T, SP_P = 16, 128, 19
-SP_WARMUP, SP_TIMED = 5, 10
+SP_WARMUP, SP_TIMED = 5, 5
 SP_TIMEOUT = 600.0
 SHARD_SAVE_AFTER = 3  # 11c: steps before the checkpoint
 
@@ -4402,7 +4428,7 @@ def phase_sharded_mln(tag, launches, workdir):
 # ------------------------------------------------------------- phase 12
 
 PP_M, PP_MEM_M = 4, 8      # microbatches: the steps (mb 4) and the memory steps (mb 2)
-PP_WARMUP, PP_TIMED = 5, 10
+PP_WARMUP, PP_TIMED = 5, 5
 PP_LR = 1e-4
 
 
@@ -6272,6 +6298,161 @@ def phase_transfer(tag):
               f"{card_res['average_auc']:.4f}, ECE {card_res['ece']:.4f}", flush=True)
 
 
+# ------------------------------------------------------------------ phase 17
+
+# The image zoo at its published widths: (model, float32 check batch, bf16
+# batch, profile by kind, timed bf16 steps). The float32 batch is ResNet-50's
+# 4 for the BN models and 2 for the others; the bf16 batches: VGG's 256 over
+# 4 cards (64), 128 for AlexNet, Darknet19 and SqueezeNet, UNet 16, Xception
+# 32, NASNet 64. VGG16 is the device-bound end (no BN), NASNet (399 nodes)
+# the host-bound one.
+ZOO = (("VGG16", 2, 64, True, 10), ("VGG19", 2, 64, False, 5),
+       ("AlexNet", 2, 128, False, 10), ("Darknet19", 4, 128, False, 10),
+       ("SqueezeNet", 2, 128, False, 10), ("UNet", 2, 16, False, 10),
+       ("Xception", 4, 32, False, 10), ("NASNet", 4, 64, True, 10))
+ZOO_BN = ("Darknet19", "Xception", "NASNet")
+ZOO_PARAMS = {"VGG16": 138_357_544, "VGG19": 143_667_240, "AlexNet": 62_378_344,
+              "Darknet19": 21_843_376, "SqueezeNet": 1_722_320, "UNet": 449_777,
+              "Xception": 488_296, "NASNet": 3_666_688}
+# The float32 fit on the card against the CPU's, from the same weights and
+# batch, dropout off in both: (score, each tensor's update, all parameters'
+# update, BN running statistics), each the sum of the card's and the CPU's
+# distance from a float64 step of the same network and batch (`python3
+# tests/torch_float64_step.py --device cuda --only vgg16_224,vgg19_224,
+# alexnet_227,darknet19_224,squeezenet_227,unet_128,xception_299,nasnet_224`
+# on the H100, 700 W), rounded up (the score to a power of ten, at least one
+# float32 rounding, 1e-7). Measured (card; CPU), score, worst tensor, all
+# parameters, BN:
+# VGG16 1.3e-7; 0, 8.4e-3; 2.1e-3, 2.2e-3; 5.6e-4. VGG19 0; 0, 8.9e-4;
+# 7.8e-4, 5.1e-4; 3.5e-4. AlexNet 0; 0, 1.4e-4; 9.9e-3, 6.5e-5; 3.6e-3.
+# Darknet19 2.0e-7; 1.3e-7, 2.3e-2; 1.5e-2, 1.6e-2; 1.1e-2, 2.1e-6; 1.4e-6.
+# SqueezeNet 0; 0, 5.5e-6; 8.2e-6, 1.8e-6; 2.0e-6. UNet 0; 0, 5.6e-3;
+# 7.8e-5, 2.8e-3; 3.0e-5. Xception 0; 0, 0.15; 0.16, 2.1e-2; 2.3e-2,
+# 3.4e-7; 3.1e-7. NASNet 0; 6.8e-8, 0.29; 0.37, 2.9e-2; 3.8e-2, 2.6e-5;
+# 2.7e-5 (its 62 null updates and 3 zero-mean BN means aside). Float32
+# rounding grows into the percent range through a ReLU whose
+# pre-activation lies within rounding of zero (one such unit is 0.6% of
+# VGG16's gradient at 32x32, tests/test_torch_zoo_ext.py) and through BN
+# over few values per channel at batch 4.
+ZOO_BOUNDS = {
+    "VGG16": (1e-6, 2e-2, 3e-3, None),
+    "VGG19": (1e-7, 2e-3, 9e-4, None),
+    "AlexNet": (1e-7, 2e-2, 4e-3, None),
+    "Darknet19": (1e-6, 4e-2, 3e-2, 4e-6),
+    "SqueezeNet": (1e-7, 2e-5, 4e-6, None),
+    "UNet": (1e-7, 6e-3, 3e-3, None),
+    "Xception": (1e-7, 0.4, 5e-2, 7e-7),
+    "NASNet": (1e-7, 0.7, 7e-2, 6e-5),
+}
+# a gradient below this share of the largest is zero in exact arithmetic (a
+# per-channel shift a later BatchNormalization removes: NASNet's BN betas
+# ahead of a 1x1 convolution and BN): its update is rounding noise scaled by
+# Adam, held only within the update of all parameters
+NULL_GRAD_REL = 1e-5
+
+
+def _zoo_batch(name, batch, shape, classes, seed=0):
+    """Uniform images and one-hot labels (UNet: a binary [B, 1, H, W] mask),
+    as ``tests/torch_float64_step.py`` draws them."""
+    rs = np.random.RandomState(seed)
+    x = rs.rand(batch, *shape).astype(np.float32)
+    if name == "UNet":
+        return x, (rs.rand(batch, 1, *shape[1:]) > 0.5).astype(np.float32)
+    return x, np.eye(classes, dtype=np.float32)[rs.randint(0, classes, batch)]
+
+
+def _zoo_net(name, device, dropout=True):
+    """The zoo model ``name`` at its published defaults on ``device``; with
+    ``dropout`` False every layer's dropout is off."""
+    from deeplearning4j_tpu_torch import models
+    from deeplearning4j_tpu_torch.nn import ComputationGraph, MultiLayerNetwork
+
+    conf = getattr(models, name)().conf()
+    if not dropout:
+        layers = (conf.layers if hasattr(conf, "layers")
+                  else [n.layer for n in conf.nodes.values() if n.layer is not None])
+        for layer in layers:
+            layer.dropout = 0.0
+    cls = MultiLayerNetwork if hasattr(conf, "layers") else ComputationGraph
+    return cls(conf, device=device).init()
+
+
+def null_updates(net, ds):
+    """Names ("<layer>.<param>") of the parameters whose float32 loss
+    gradient on ``ds`` is below ``NULL_GRAD_REL`` of the largest one's."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn import ComputationGraph
+
+    x, y = (torch.as_tensor(a, device=net.device) for a in (ds.features, ds.labels))
+    params = net._params()
+    with torch.enable_grad():
+        if isinstance(net, ComputationGraph):
+            loss, _ = net._forward(params, net._bn(), {net.conf.network_inputs[0]: x},
+                                   training=True, rng=None,
+                                   labels={net.conf.network_outputs[0]: y})
+        else:
+            loss, _ = net._loss_fn(params, net._bn(), x, y, None, None, None, True)
+        flat = [(k, n, p) for k, d in params.items() for n, p in d.items()]
+        grads = torch.autograd.grad(loss, [p for *_, p in flat], allow_unused=True)
+    norms = {f"{k}.{n}": 0.0 if g is None else float(g.norm())
+             for (k, n, _), g in zip(flat, grads)}
+    top = max(norms.values())
+    return {k for k, v in norms.items() if v <= NULL_GRAD_REL * top}
+
+
+def phase_zoo(tag):
+    """17: the image zoo at published widths: each model's parameter count,
+    a float32 fit on the card against the CPU's (dropout off), then bf16
+    training at a real batch: step time, images/s, peak memory above the
+    resident state, the share of the dense bf16 peak; VGG16's and NASNet's
+    device time by kind of kernel."""
+    import torch
+
+    from deeplearning4j_tpu_torch import models
+    from deeplearning4j_tpu_torch.data import DataSet
+
+    for name, check_batch, batch, profile, steps in ZOO:
+        t0 = time.perf_counter()
+        model = getattr(models, name)()
+        shape = model.input_shape
+        classes = getattr(model, "num_classes", None)
+        dims = ",".join(map(str, shape))
+        loss_rel, update_rel, all_rel, bn_rel = ZOO_BOUNDS[name]
+        ds = DataSet(*_zoo_batch(name, check_batch, shape, classes))
+        updater = type(model.conf().updater).__name__
+        check_fit_on_cpu(tag, f"17 {name} [{check_batch},{dims}] {updater}",
+                         lambda dev: _zoo_net(name, dev, dropout=False), ds,
+                         loss_rel=loss_rel, update_rel=update_rel, all_rel=all_rel,
+                         bn_rel=bn_rel, skip_null=name in ZOO_BN)
+        _free_card()
+
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        net = model.init(device="cuda")
+        check(net.num_params() == ZOO_PARAMS[name],
+              f"17 {name} has {net.num_params()} parameters, expected {ZOO_PARAMS[name]}")
+        staged = _staged(*_zoo_batch(name, batch, shape, classes))
+        times, scores = _train_steps(net, staged, steps)
+        check(all(math.isfinite(v) for v in scores), f"17 {name}: non-finite score in {scores}")
+        step_ms = statistics.median(times)
+        peak = (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
+        print(f"{tag} 17 {name} ({net.num_params():,} parameters) fit step [{batch},{dims}] "
+              f"bf16: {spread(times)}, {batch / step_ms * 1e3:.1f} images/s at the median; "
+              f"peak memory {peak:.2f} GiB above the resident state; score {scores[0]:.4f} -> "
+              f"{scores[-1]:.4f} over {len(scores)} steps", flush=True)
+        if profile:
+            device_profile(tag, f"17 {name} fit step [{batch},{dims}] bf16",
+                           lambda: net.fit(staged), reps=2, top=8, by_kind=True)
+        if hasattr(net.conf, "layers"):
+            print_mln_peak_share(tag, f"17 {name} fit step", net.conf, batch, step_ms)
+        else:
+            print_graph_peak_share(tag, f"17 {name} fit step", net, batch, step_ms)
+        del net, staged
+        _free_card()
+        print(f"{tag} 17 {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -6455,6 +6636,9 @@ def main() -> int:
         phase_transfer(tag)
         print(f"phase 16 transfer learning and evaluations: ok "
               f"({time.perf_counter() - t16:.1f} s)", flush=True)
+        t17 = time.perf_counter()
+        phase_zoo(tag)
+        print(f"phase 17 image zoo: ok ({time.perf_counter() - t17:.1f} s)", flush=True)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1

@@ -1,8 +1,11 @@
 """Models of the port: the flagship BERT-base transformer (serving and
-training), LeNet and SimpleCNN, the GravesLSTM char-RNN, and the
-ComputationGraph models ResNet-50 and InceptionResNetV1."""
+training), the GravesLSTM char-RNN, and the image zoo: LeNet, SimpleCNN,
+VGG16, VGG19, AlexNet and Darknet19 (MultiLayerNetworks), ResNet-50,
+InceptionResNetV1, SqueezeNet, UNet, Xception and NASNet
+(ComputationGraphs)."""
 
 from .facenet import InceptionResNetV1
+from .nasnet import NASNet
 from .paged_decode import BlockAllocator, NoFreeBlocksError, PagedDecodeSlotPool
 from .resnet import ResNet50
 from .text_lstm import TextGenerationLSTM
@@ -32,11 +35,15 @@ from .weights import (
     updater_state_from_jax,
     updater_state_to_numpy,
 )
+from .vgg import VGG16, VGG19
 from .zoo import LeNet, SimpleCNN, ZooModel
+from .zoo_ext import AlexNet, Darknet19, SqueezeNet, UNet, Xception
 
 __all__ = [
+    "AlexNet",
     "BlockAllocator",
     "cg_params_from_jax",
+    "Darknet19",
     "DecodeSlotPool",
     "InceptionResNetV1",
     "KvCacheLostError",
@@ -46,6 +53,7 @@ __all__ = [
     "QaHead",
     "ResNet50",
     "SimpleCNN",
+    "SqueezeNet",
     "TextGenerationLSTM",
     "Transformer",
     "TransformerConfig",
@@ -58,12 +66,17 @@ __all__ = [
     "make_qa_train_step",
     "make_train_step",
     "mln_params_from_jax",
+    "NASNet",
     "params_from_jax",
     "params_to_numpy",
     "qa_loss_fn",
     "qa_params_from_jax",
     "token_ce_loss",
+    "UNet",
     "updater_state_from_jax",
     "updater_state_to_numpy",
+    "VGG16",
+    "VGG19",
+    "Xception",
     "ZooModel",
 ]

@@ -9,9 +9,11 @@ The JAX transformer keeps its parameters as nested dicts and lists
 
 A MultiLayerNetwork keeps the JAX package's per-layer dicts
 (``params_["0"]["W"]``) as ``params_["0"]["W"]`` of its ``nn.ModuleDict``
-(:func:`mln_params_from_jax`); its OIHW convolution and [in, out] dense
-weights are the JAX package's layouts too. A ComputationGraph's per-node
-dicts load the same way (:func:`cg_params_from_jax`).
+(:func:`mln_params_from_jax`), a layer's nested tree as one flat dict
+(``params_["1"]["fwd"]["W"]`` as ``params_["1"]["fwd/W"]``); its OIHW
+convolution and [in, out] dense weights are the JAX package's layouts too.
+A ComputationGraph's per-node dicts load the same way
+(:func:`cg_params_from_jax`).
 
 The tree is given as numpy arrays (``jax.tree.map(np.asarray, params)``), so
 this module needs nothing of JAX.
@@ -75,10 +77,29 @@ def qa_params_from_jax(tree, cfg: TransformerConfig, *, device="cuda") -> QaHead
     return head
 
 
+def _per_layer(tree):
+    """{layer: subtree} as {layer: {path: leaf}}: a layer whose parameters
+    nest (``Bidirectional``'s ``{"fwd": {...}, "bwd": {...}}``) keyed by
+    the path joined with ``/``, as the port's one flat dict per layer keys
+    them (``"fwd/W"``)."""
+    def flat(sub, prefix=""):
+        if not isinstance(sub, dict):
+            return {prefix[:-1]: sub}
+        out = {}
+        for k, v in sub.items():
+            out.update(flat(v, f"{prefix}{k}/"))
+        return out
+
+    return {layer: flat(sub) for layer, sub in tree.items()}
+
+
 def mln_params_from_jax(net, params_, bn_state=None, updater_state=None):
     """Load a JAX ``MultiLayerNetwork``'s ``params_`` (and, if given, its
     ``bn_state`` and updater state) as numpy trees into ``net``, a port
     network of the same configuration after ``init()``; returns ``net``."""
+    params_ = _per_layer(params_)
+    updater_state = (None if updater_state is None else
+                     {slot: _per_layer(tree) for slot, tree in updater_state.items()})
     _load(net.params_, params_)
     with torch.no_grad():
         for si, st in (bn_state or {}).items():
@@ -99,7 +120,7 @@ def cg_params_from_jax(net, params_, bn_state=None, updater_state=None):
     from ..nn.graph import module_key
 
     def rekey(tree):
-        return {module_key(name): sub for name, sub in tree.items()}
+        return {module_key(name): sub for name, sub in _per_layer(tree).items()}
 
     _load(net.params_, rekey(params_))
     with torch.no_grad():

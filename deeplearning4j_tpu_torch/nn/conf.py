@@ -9,13 +9,17 @@ of a {name: tensor} dict and the input. The public layouts are DL4J's: NCHW
 images, OIHW convolution weights, [B, C, T] sequences, [in, out] dense
 weights, so the JAX weights load as they are.
 
-Ported layers: Dense, Output, Loss, Activation, Dropout, Convolution,
-Subsampling, BatchNormalization, LSTM, GravesLSTM, LastTimeStep,
-RnnOutputLayer, GlobalPooling, and (``nn.attention_layers``) the two
-self-attention layers and RecurrentAttentionLayer. A layer of the JAX
-package that is not ported yet, found in a configuration's JSON, raises
-``NotImplementedError`` naming it and its ROADMAP.md item; it is never
-dropped. ``NeuralNetConfiguration.Builder.graph_builder`` gives the
+Ported layers: every layer of the JAX package's ``nn/conf.py`` — Dense,
+Output, Loss, Activation, Dropout, Convolution, Deconvolution2D,
+Depthwise- and SeparableConvolution2D, Subsampling, Upsampling2D,
+ZeroPadding, BatchNormalization, LocalResponseNormalization, Embedding,
+EmbeddingSequence, LSTM, GravesLSTM, SimpleRnn, Bidirectional,
+LastTimeStep, RnnOutputLayer, GlobalPooling — and (``nn.attention_layers``)
+the two self-attention layers and RecurrentAttentionLayer. A layer of the
+JAX package that is not ported yet (those of its ``nn/layers_ext.py``,
+``nn/layers_tail.py`` and ``nn/capsules.py``), found in a configuration's
+JSON, raises ``NotImplementedError`` naming it and its ROADMAP.md item; it
+is never dropped. ``NeuralNetConfiguration.Builder.graph_builder`` gives the
 ``nn.graph_conf.GraphBuilder`` of a ComputationGraph.
 
 Dtypes follow the JAX package's promotion: a product of a bf16 and a float32
@@ -280,7 +284,7 @@ class Layer:
             dd = dict(d["dropout"])
             d["dropout"] = getattr(dropout_mod, dd.pop("@dropout"))(**dd)
         for k, v in list(d.items()):
-            if isinstance(v, dict) and "@class" in v:  # nested layer (LastTimeStep)
+            if isinstance(v, dict) and "@class" in v:  # nested layer (LastTimeStep, Bidirectional)
                 d[k] = Layer.from_json(v)
         flds = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in flds})
@@ -460,6 +464,156 @@ class ConvolutionLayer(Layer):
         return 2.0 * self._spatial_taps(it) * self.n_out * c_in
 
 
+def _transpose_same_pads(k, s):
+    """The (lo, hi) padding of the stride-dilated input that
+    ``jax.lax.conv_transpose(padding="SAME")`` uses along one dim."""
+    pad_len = k + s - 2
+    lo = k - 1 if s > k - 1 else -(-pad_len // 2)
+    return lo, pad_len - lo
+
+
+@dataclass
+class Deconvolution2D(ConvolutionLayer):
+    """conf.layers.Deconvolution2D (transposed convolution), weights
+    [c_in, n_out, kH, kW]. The JAX package applies the kernel as stored to
+    the stride-dilated input (``conv_transpose`` without
+    ``transpose_kernel``); ``F.conv_transpose2d`` applies it flipped, so the
+    port flips it. "same": the output is ``in · stride``, the full
+    transposed output cut (or zero-extended) to XLA's SAME window.
+    "truncate": DL4J's ``(in − 1) · stride + k − 2 · padding``, which is
+    ``output_type``'s; the JAX forward pads the dilated input by
+    ``padding`` instead and agrees only where 2 · padding = k − 1 (a
+    reference bug the port does not copy). Dilation is not applied, as in
+    the JAX package."""
+
+    def output_type(self, it: InputType) -> InputType:
+        same = self.convolution_mode == "same"
+        if same:
+            h, w = it.height * self.stride[0], it.width * self.stride[1]
+        else:
+            h = (it.height - 1) * self.stride[0] + self.kernel_size[0] - 2 * self.padding[0]
+            w = (it.width - 1) * self.stride[1] + self.kernel_size[1] - 2 * self.padding[1]
+        return InputType.convolutional(h, w, self.n_out)
+
+    def init_params(self, generator, it: InputType, dtype=torch.float32):
+        c_in = self.n_in or it.channels
+        kh, kw = self.kernel_size
+        p = {"W": init_weights(generator, (c_in, self.n_out, kh, kw), c_in * kh * kw,
+                               self.n_out * kh * kw, self.weight_init, dtype)}
+        if self.has_bias:
+            p["b"] = torch.zeros((self.n_out,), dtype=dtype, device=generator.device)
+        return p
+
+    def forward(self, params, x, it, *, training, rng=None):
+        x = self._apply_dropout(x, training, rng)
+        W = params["W"]
+        dt = torch.promote_types(x.dtype, W.dtype)
+        Wf = W.to(dt).flip(-2, -1)
+        b = params["b"].to(dt) if self.has_bias else None
+        if self.convolution_mode != "same":
+            z = F.conv_transpose2d(x.to(dt), Wf, b, stride=tuple(self.stride),
+                                   padding=tuple(self.padding))
+            return act.get(self.activation)(z)
+        # the full transposed output pads the dilated input by k - 1 on each
+        # side; SAME pads it by (lo, hi): crop or extend by the difference
+        z = F.conv_transpose2d(x.to(dt), Wf, stride=tuple(self.stride))
+        (th, bh), (lw, rw) = (_transpose_same_pads(k, s)
+                              for k, s in zip(self.kernel_size, self.stride))
+        kh, kw = self.kernel_size
+        z = F.pad(z, (lw - kw + 1, rw - kw + 1, th - kh + 1, bh - kh + 1))
+        if b is not None:
+            z = z + b.reshape(1, -1, 1, 1)
+        return act.get(self.activation)(z)
+
+    def flops_per_example(self, it: InputType) -> float:
+        # each input pixel scatters through the kernel into n_out outputs
+        c_in = self.n_in or it.channels
+        kh, kw = self.kernel_size
+        return 2.0 * it.height * it.width * c_in * kh * kw * self.n_out
+
+
+def _depthwise(x, W, stride, padding, dilation, same):
+    """Per-channel convolution with the [c_in · m, 1, kH, kW] kernel (output
+    channel o reads input channel o // m, as XLA's feature groups order
+    them), after the layer's SAME or explicit padding."""
+    pads = _spatial_pads(x, W.shape[2:], stride, padding, dilation, same)
+    if any(pads):
+        x = F.pad(x, pads)
+    return F.conv2d(x, W, stride=tuple(stride), dilation=tuple(dilation), groups=x.shape[1])
+
+
+@dataclass
+class DepthwiseConvolution2D(ConvolutionLayer):
+    """conf.layers.DepthwiseConvolution2D: ``depth_multiplier`` filters per
+    input channel, weights [c_in · m, 1, kH, kW]; c_in · m channels out."""
+
+    depth_multiplier: int = 1
+
+    def output_type(self, it: InputType) -> InputType:
+        base = super().output_type(it)
+        c = (self.n_in or it.channels) * self.depth_multiplier
+        return InputType.convolutional(base.height, base.width, c)
+
+    def init_params(self, generator, it: InputType, dtype=torch.float32):
+        c = (self.n_in or it.channels) * self.depth_multiplier
+        kh, kw = self.kernel_size
+        p = {"W": init_weights(generator, (c, 1, kh, kw), kh * kw, kh * kw, self.weight_init,
+                               dtype)}
+        if self.has_bias:
+            p["b"] = torch.zeros((c,), dtype=dtype, device=generator.device)
+        return p
+
+    def forward(self, params, x, it, *, training, rng=None):
+        x = self._apply_dropout(x, training, rng)
+        W = params["W"]
+        dt = torch.promote_types(x.dtype, W.dtype)
+        z = _depthwise(x.to(dt), W.to(dt), self.stride, self.padding, self.dilation,
+                       self.convolution_mode == "same")
+        if self.has_bias:
+            z = z + params["b"].to(dt).reshape(1, -1, 1, 1)
+        return act.get(self.activation)(z)
+
+    def flops_per_example(self, it: InputType) -> float:
+        c_in = self.n_in or it.channels
+        return 2.0 * self._spatial_taps(it) * c_in * self.depth_multiplier
+
+
+@dataclass
+class SeparableConvolution2D(ConvolutionLayer):
+    """conf.layers.SeparableConvolution2D: the depthwise product on ``dW``
+    [c_in · m, 1, kH, kW], then a 1x1 product on ``pW`` [n_out, c_in · m, 1,
+    1]; the bias after both."""
+
+    depth_multiplier: int = 1
+
+    def init_params(self, generator, it: InputType, dtype=torch.float32):
+        mid = (self.n_in or it.channels) * self.depth_multiplier
+        kh, kw = self.kernel_size
+        p = {"dW": init_weights(generator, (mid, 1, kh, kw), kh * kw, kh * kw,
+                                self.weight_init, dtype),
+             "pW": init_weights(generator, (self.n_out, mid, 1, 1), mid, self.n_out,
+                                self.weight_init, dtype)}
+        if self.has_bias:
+            p["b"] = torch.zeros((self.n_out,), dtype=dtype, device=generator.device)
+        return p
+
+    def forward(self, params, x, it, *, training, rng=None):
+        x = self._apply_dropout(x, training, rng)
+        dW, pW = params["dW"], params["pW"]
+        dt = torch.promote_types(x.dtype, dW.dtype)
+        z = _depthwise(x.to(dt), dW.to(dt), self.stride, self.padding, self.dilation,
+                       self.convolution_mode == "same")
+        z = F.conv2d(z, pW.to(dt), params["b"].to(dt) if self.has_bias else None)
+        return act.get(self.activation)(z)
+
+    def flops_per_example(self, it: InputType) -> float:
+        out = self.output_type(it)
+        mid = (self.n_in or it.channels) * self.depth_multiplier
+        depthwise = 2.0 * self._spatial_taps(it) * mid
+        pointwise = 2.0 * out.height * out.width * mid * self.n_out
+        return depthwise + pointwise
+
+
 def _window_sum(x, kernel, stride):
     """Sum over each pooling window (no padding: the caller pads)."""
     return F.avg_pool2d(x, tuple(kernel), tuple(stride), divisor_override=1)
@@ -512,6 +666,43 @@ class SubsamplingLayer(Layer):
         out = self.output_type(it)
         return (float(out.height * out.width * out.channels)
                 * self.kernel_size[0] * self.kernel_size[1])
+
+
+@dataclass
+class Upsampling2D(Layer):
+    """conf.layers.Upsampling2D: nearest-neighbour repetition of each pixel
+    ``size`` times along H and W."""
+
+    size: Tuple[int, int] = (2, 2)
+
+    def has_params(self):
+        return False
+
+    def output_type(self, it: InputType) -> InputType:
+        return InputType.convolutional(it.height * self.size[0], it.width * self.size[1],
+                                       it.channels)
+
+    def forward(self, params, x, it, *, training, rng=None):
+        return x.repeat_interleave(self.size[0], dim=2).repeat_interleave(self.size[1], dim=3)
+
+
+@dataclass
+class ZeroPaddingLayer(Layer):
+    """conf.layers.ZeroPaddingLayer: zeros around the image, (top, bottom,
+    left, right)."""
+
+    padding: Tuple[int, int, int, int] = (0, 0, 0, 0)
+
+    def has_params(self):
+        return False
+
+    def output_type(self, it: InputType) -> InputType:
+        t, b, l, r = self.padding
+        return InputType.convolutional(it.height + t + b, it.width + l + r, it.channels)
+
+    def forward(self, params, x, it, *, training, rng=None):
+        t, b, l, r = self.padding
+        return F.pad(x, (l, r, t, b))
 
 
 @dataclass
@@ -596,6 +787,107 @@ class BatchNormalization(Layer):
         # one-pass moments (sum + sum-of-squares) + scale/offset apply
         T = (it.timeseries_length or 1) if it.kind == "rnn" else 1
         return 8.0 * it.flat_size() * float(T)
+
+
+@dataclass
+class LocalResponseNormalization(Layer):
+    """conf.layers.LocalResponseNormalization across channels (NCHW axis 1):
+    ``x / (k + alpha · Σ x²)^beta``, the sum over a window of ``n``
+    channels with ``n // 2`` zero channels padded on each side. ``alpha``
+    is not divided by ``n`` (``F.local_response_norm`` divides it, so it is
+    not used)."""
+
+    k: float = 2.0
+    n: int = 5
+    alpha: float = 1e-4
+    beta: float = 0.75
+
+    def has_params(self):
+        return False
+
+    def forward(self, params, x, it, *, training, rng=None):
+        half, C = self.n // 2, x.shape[1]
+        padded = F.pad(x * x, (0, 0, 0, 0, half, half))
+        windows = padded[:, :C]
+        for i in range(1, self.n):
+            windows = windows + padded[:, i:i + C]
+        return x / (self.k + self.alpha * windows) ** self.beta
+
+
+# ----------------------------------------------------------------- embedding
+
+
+def _embedding_ids(ix, rows: int) -> torch.Tensor:
+    """``ix`` as long ids, each checked to lie in [0, rows). JAX clamps an
+    out-of-range gather; a CUDA gather would hit a device-side assert that
+    poisons the context, so the port raises first."""
+    ix = ix.to(torch.long)
+    if ix.numel() and (bool((ix < 0).any()) or bool((ix >= rows).any())):
+        raise ValueError(f"embedding ids must lie in [0, {rows})")
+    return ix
+
+
+@dataclass
+class EmbeddingLayer(Layer):
+    """conf.layers.EmbeddingLayer: an integer index [B] (or [B, 1]), a
+    one-hot [B, V] float matrix (as ``x @ W``) or float indices → [B,
+    n_out], a row of the [V, n_out] table ``W``."""
+
+    n_in: int = 0
+    n_out: int = 0
+    has_bias: bool = False
+
+    def output_type(self, it: InputType) -> InputType:
+        return InputType.feed_forward(self.n_out)
+
+    def init_params(self, generator, it: InputType, dtype=torch.float32):
+        n_in = self.n_in or it.flat_size()
+        p = {"W": init_weights(generator, (n_in, self.n_out), n_in, self.n_out,
+                               self.weight_init, dtype)}
+        if self.has_bias:
+            p["b"] = torch.zeros((self.n_out,), dtype=dtype, device=generator.device)
+        return p
+
+    def forward(self, params, x, it, *, training, rng=None):
+        W = params["W"]
+        if not x.is_floating_point():
+            z = W[_embedding_ids(x.reshape(-1), W.shape[0])]
+        elif x.dim() == 2 and x.shape[-1] == W.shape[0]:
+            z = _mm(x, W)  # one-hot rows
+        else:
+            z = W[_embedding_ids(x.reshape(-1), W.shape[0])]
+        if self.has_bias:
+            z = z + params["b"]
+        return act.get(self.activation)(z)
+
+    def param_roles(self, params) -> Any:
+        # W is the [vocab, n_out] lookup TABLE here, not a projection kernel
+        return {k: (ROLE_EMBEDDING if k == "W" else param_role(k, v))
+                for k, v in params.items()}
+
+    def flops_per_example(self, it: InputType) -> float:
+        # a gather moves bytes, not flops — count only the bias/activation
+        return float(self.n_out)
+
+
+@dataclass
+class EmbeddingSequenceLayer(EmbeddingLayer):
+    """conf.layers.EmbeddingSequenceLayer: ids [B, T] or [B, 1, T] → [B,
+    n_out, T] (DL4J's NCT layout)."""
+
+    def output_type(self, it: InputType) -> InputType:
+        # an int-sequence input may be declared feed-forward([T]) (Keras
+        # Embedding inputs have shape [B,T]); its length is the timeline
+        T = it.timeseries_length if it.kind == "rnn" else (it.flat_size() or None)
+        return InputType.recurrent(self.n_out, T)
+
+    def forward(self, params, x, it, *, training, rng=None):
+        W = params["W"]
+        ix = x[:, 0, :] if x.dim() == 3 else x
+        z = W[_embedding_ids(ix, W.shape[0])]  # [B, T, n_out]
+        if self.has_bias:
+            z = z + params["b"]
+        return act.get(self.activation)(z).transpose(1, 2)
 
 
 # ----------------------------------------------------------------- recurrent
@@ -687,6 +979,105 @@ class GravesLSTM(LSTM):
     """conf.layers.GravesLSTM — peephole LSTM (Graves 2013)."""
 
     peephole: bool = True
+
+
+@dataclass
+class SimpleRnn(Layer):
+    """conf.layers.recurrent.SimpleRnn: h_t = act(x_t W + b + h_{t-1} RW)
+    from h_0 = 0, [B, nIn, T] → [B, nOut, T]. The input projections of all
+    steps are one product before the loop, as in ``_lstm_scan``."""
+
+    n_in: int = 0
+    n_out: int = 0
+    activation: str = "tanh"
+
+    def output_type(self, it: InputType) -> InputType:
+        return InputType.recurrent(self.n_out, it.timeseries_length)
+
+    def init_params(self, generator, it: InputType, dtype=torch.float32):
+        n_in = self.n_in or it.size
+        H = self.n_out
+        return {"W": init_weights(generator, (n_in, H), n_in, H, self.weight_init, dtype),
+                "RW": init_weights(generator, (H, H), H, H, self.weight_init, dtype),
+                "b": torch.zeros((H,), dtype=dtype, device=generator.device)}
+
+    def forward(self, params, x, it, *, training, rng=None):
+        x = self._apply_dropout(x, training, rng)
+        xz = _mm(x.permute(2, 0, 1), params["W"]) + params["b"]  # [T, B, H]
+        RW = params["RW"]
+        dt = torch.promote_types(xz.dtype, torch.promote_types(x.dtype, RW.dtype))
+        xz, RW = xz.to(dt), RW.to(dt)
+        a = act.get(self.activation)
+        h = torch.zeros((x.shape[0], self.n_out), dtype=dt, device=x.device)
+        outs = []
+        for t in range(xz.shape[0]):
+            h = a(torch.addmm(xz[t], h, RW))
+            outs.append(h)
+        return torch.stack(outs).permute(1, 2, 0)  # [T,B,H] -> [B,H,T]
+
+    def flops_per_example(self, it: InputType) -> float:
+        n_in = self.n_in or it.size
+        H = self.n_out
+        T = float(it.timeseries_length or 1)
+        return T * (2.0 * n_in * H + 2.0 * H * H + 2.0 * H)
+
+
+_DIRECTIONS = ("fwd", "bwd")
+
+
+@dataclass
+class Bidirectional(Layer):
+    """conf.layers.recurrent.Bidirectional: the wrapped recurrent layer
+    ``fwd`` run forward and over the time-reversed input with parameters of
+    its own, the second output reversed back, then combined by ``mode``
+    (concat | add | mul | average). Both directions get the same random key,
+    as in the JAX package, so their dropout masks are equal.
+
+    The JAX package's parameters are the tree ``{"fwd": {...}, "bwd":
+    {...}}``; the port keeps one flat dict per layer, keyed by the tree's
+    path (``"fwd/W"``), which is also the path of the array in a checkpoint
+    or zip. L1/L2, constraints and weight noise skip each direction's bias
+    (``"fwd/b"``) as they skip a layer's ``"b"``."""
+
+    fwd: Optional[Layer] = None
+    mode: str = "concat"
+
+    def output_type(self, it: InputType) -> InputType:
+        inner = self.fwd.output_type(it)
+        if self.mode == "concat":
+            return InputType.recurrent(inner.size * 2, inner.timeseries_length)
+        return inner
+
+    def init_params(self, generator, it: InputType, dtype=torch.float32):
+        return {f"{d}/{k}": v for d in _DIRECTIONS
+                for k, v in self.fwd.init_params(generator, it, dtype).items()}
+
+    @staticmethod
+    def direction(params, d: str) -> Dict[str, torch.Tensor]:
+        """One direction's parameters, by the wrapped layer's names."""
+        return {k[len(d) + 1:]: v for k, v in params.items() if k.startswith(d + "/")}
+
+    def forward(self, params, x, it, *, training, rng=None):
+        out_f = self.fwd.forward(self.direction(params, "fwd"), x, it, training=training,
+                                 rng=rng)
+        out_b = self.fwd.forward(self.direction(params, "bwd"), x.flip(2), it,
+                                 training=training, rng=rng).flip(2)
+        if self.mode == "concat":
+            return torch.cat([out_f, out_b], dim=1)
+        if self.mode == "add":
+            return out_f + out_b
+        if self.mode == "mul":
+            return out_f * out_b
+        if self.mode == "average":
+            return 0.5 * (out_f + out_b)
+        raise ValueError(self.mode)
+
+    def param_roles(self, params) -> Any:
+        return {f"{d}/{k}": role for d in _DIRECTIONS
+                for k, role in self.fwd.param_roles(self.direction(params, d)).items()}
+
+    def flops_per_example(self, it: InputType) -> float:
+        return 2.0 * self.fwd.flops_per_example(it)
 
 
 @dataclass
@@ -850,9 +1241,11 @@ class FeedForwardToRnnPreProcessor(InputPreProcessor):
 
 def infer_preprocessor(prev: InputType, layer: Layer) -> Optional[InputPreProcessor]:
     """Auto-insertion logic (InputType.getPreProcessorForInputType)."""
-    wants_ff = isinstance(layer, DenseLayer) and not isinstance(layer, RnnOutputLayer)
-    wants_cnn = isinstance(layer, (ConvolutionLayer, SubsamplingLayer))
-    wants_rnn = isinstance(layer, (LSTM, RnnOutputLayer))
+    wants_ff = isinstance(layer, (DenseLayer, EmbeddingLayer)) and not isinstance(
+        layer, (RnnOutputLayer, EmbeddingSequenceLayer))
+    wants_cnn = isinstance(layer, (ConvolutionLayer, SubsamplingLayer, Upsampling2D,
+                                   ZeroPaddingLayer, LocalResponseNormalization))
+    wants_rnn = isinstance(layer, (LSTM, SimpleRnn, Bidirectional, RnnOutputLayer))
     if prev.kind in ("cnn", "cnn3d") and wants_ff:
         return CnnToFeedForwardPreProcessor()
     if prev.kind == "cnnflat" and wants_cnn:
@@ -892,14 +1285,22 @@ class MultiLayerConfiguration:
             # DL4J allows omitting setInputType when the first layer declares
             # nIn explicitly — synthesize the InputType from it
             first = self.layers[0]
-            if isinstance(first, (ConvolutionLayer, SubsamplingLayer)):
+            if isinstance(first, Bidirectional):
+                n_in = getattr(first.fwd, "n_in", 0)
+                if n_in:
+                    it = InputType.recurrent(n_in)
+            elif isinstance(first, (ConvolutionLayer, SubsamplingLayer, Upsampling2D,
+                                    ZeroPaddingLayer, LocalResponseNormalization)):
+                # nIn alone cannot recover spatial dims for CNN inputs
                 raise ValueError(
                     "first layer is convolutional: call "
                     ".set_input_type(InputType.convolutional(h, w, c))")
-            n_in = getattr(first, "n_in", 0)
-            if n_in:
-                it = (InputType.recurrent(n_in) if isinstance(first, LSTM)
-                      else InputType.feed_forward(n_in))
+            else:
+                n_in = getattr(first, "n_in", 0)
+                if n_in:
+                    it = (InputType.recurrent(n_in)
+                          if isinstance(first, (LSTM, SimpleRnn, EmbeddingSequenceLayer))
+                          else InputType.feed_forward(n_in))
         for i, layer in enumerate(self.layers):
             if i in self.preprocessors:
                 it = self.preprocessors[i].output_type(it)
@@ -1118,10 +1519,20 @@ LAYER_REGISTRY = {
         ActivationLayer,
         DropoutLayer,
         ConvolutionLayer,
+        Deconvolution2D,
+        DepthwiseConvolution2D,
+        SeparableConvolution2D,
         SubsamplingLayer,
+        Upsampling2D,
+        ZeroPaddingLayer,
         BatchNormalization,
+        LocalResponseNormalization,
+        EmbeddingLayer,
+        EmbeddingSequenceLayer,
         LSTM,
         GravesLSTM,
+        SimpleRnn,
+        Bidirectional,
         LastTimeStep,
         RnnOutputLayer,
         GlobalPoolingLayer,
@@ -1136,7 +1547,7 @@ def layer_class(name: str):
         return LAYER_REGISTRY[name]
     raise NotImplementedError(
         f"layer {name!r} is not ported to deeplearning4j_tpu_torch yet (ROADMAP.md queue 1 "
-        "item 8, the remaining layers)")
+        "item 8.4: the layers of nn/layers_ext.py, nn/layers_tail.py and nn/capsules.py)")
 
 
 PREPROCESSOR_REGISTRY = {

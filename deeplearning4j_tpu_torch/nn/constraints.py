@@ -18,6 +18,13 @@ import torch
 from .dropout import RngKey
 
 
+def is_bias(name: str) -> bool:
+    """A parameter named ``b``, or a wrapped layer's (``"fwd/b"`` of
+    ``conf.Bidirectional``): the name that L1/L2, constraints and weight
+    noise leave out."""
+    return name.rsplit("/", 1)[-1] == "b"
+
+
 def _norm(w, axes):
     return torch.sqrt(torch.sum(torch.square(w), dim=axes, keepdim=True) + 1e-12)
 
@@ -69,7 +76,7 @@ def apply_constraints(layer_params: dict, constraints, constrain_bias: bool = Fa
         return layer_params
     out = {}
     for k, w in layer_params.items():
-        if k == "b" and not constrain_bias:
+        if is_bias(k) and not constrain_bias:
             out[k] = w
             continue
         for c in constraints:
@@ -93,7 +100,7 @@ class WeightNoise:
             return params
         out = {}
         for i, (k, w) in enumerate(sorted(params.items())):
-            if k == "b" and not self.apply_to_bias:
+            if is_bias(k) and not self.apply_to_bias:
                 out[k] = w
                 continue
             g = rng.fold_in(i).generator(w.device)
@@ -115,7 +122,7 @@ class DropConnect:
             return params
         out = {}
         for i, (k, w) in enumerate(sorted(params.items())):
-            if k == "b" and not self.apply_to_bias:
+            if is_bias(k) and not self.apply_to_bias:
                 out[k] = w
                 continue
             g = rng.fold_in(i).generator(w.device)

@@ -47,6 +47,7 @@ from ..common.precision import amp_enabled, cast_floating, cast_input, compute_d
 from ..data.dataset import DataSet, MultiDataSet
 from ..eval.evaluation import Evaluation
 from .conf import BatchNormalization, GlobalPoolingLayer, LastTimeStep
+from .constraints import is_bias
 from .dropout import RngKey
 from .graph_conf import ComputationGraphConfiguration
 from .multilayer import (_WEIGHT_NOISE_SALT, _BnState, _grad_normalize, _LazyScoreMixin,
@@ -193,10 +194,10 @@ class ComputationGraph(_LazyScoreMixin, nn.Module):
                 continue
             if node.layer.l2 > 0.0:
                 reg = reg + node.layer.l2 * 0.5 * sum(torch.sum(torch.square(w))
-                                                      for k, w in pj.items() if k != "b")
+                                                      for k, w in pj.items() if not is_bias(k))
             if node.layer.l1 > 0.0:
                 reg = reg + node.layer.l1 * sum(torch.sum(torch.abs(w))
-                                                for k, w in pj.items() if k != "b")
+                                                for k, w in pj.items() if not is_bias(k))
         return total_loss + (reg if shares is None else reg * shares[None]), new_bn
 
     # ------------------------------------------------------------- train step

@@ -48,7 +48,7 @@ from .attention_layers import (LearnedSelfAttentionLayer, RecurrentAttentionLaye
                                SelfAttentionLayer)
 from .conf import (BatchNormalization, GlobalPoolingLayer, LastTimeStep, LSTM,
                    MultiLayerConfiguration)
-from .constraints import apply_constraints
+from .constraints import apply_constraints, is_bias
 from .dropout import RngKey
 
 _MASKED_LAYERS = (LastTimeStep, GlobalPoolingLayer, SelfAttentionLayer, LearnedSelfAttentionLayer,
@@ -293,10 +293,10 @@ class MultiLayerNetwork(_LazyScoreMixin, nn.Module):
                 continue
             if layer.l2 > 0.0:
                 reg = reg + layer.l2 * 0.5 * sum(torch.sum(torch.square(w))
-                                                 for k, w in pj.items() if k != "b")
+                                                 for k, w in pj.items() if not is_bias(k))
             if layer.l1 > 0.0:
                 reg = reg + layer.l1 * sum(torch.sum(torch.abs(w))
-                                           for k, w in pj.items() if k != "b")
+                                           for k, w in pj.items() if not is_bias(k))
         return loss + reg, (new_bn, new_rnn)
 
     # ------------------------------------------------------------- train step

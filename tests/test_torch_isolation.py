@@ -31,6 +31,7 @@ from torch_port_fixtures import _no_leaked_children_or_shm  # noqa: F401  (per-p
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "deeplearning4j_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "deeplearning4j_tpu")
+ZOO = ("VGG16", "VGG19", "AlexNet", "Darknet19", "SqueezeNet", "UNet", "Xception", "NASNet")
 
 
 def _forbidden(module: str) -> bool:
@@ -49,6 +50,8 @@ def test_importing_the_port_loads_no_jax():
         "before = set(sys.modules)\n"
         f"for name in {_port_modules()!r}:\n"
         "    importlib.import_module(name)\n"
+        "models = importlib.import_module('deeplearning4j_tpu_torch.models')\n"
+        f"assert all(n in models.__all__ and hasattr(models, n) for n in {ZOO!r})\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n")
     out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, check=True)
@@ -79,7 +82,7 @@ def test_importing_the_port_loads_no_jax():
                    "nlp.sequencevectors", "nlp.paragraph_vectors", "nlp.glove", "nlp.tfidf",
                    "nlp.tsne", "nlp.bert_iterator", "arbiter", "arbiter.optimize",
                    "arbiter.spaces", "arbiter.trial_worker", "arbiter.fleet", "monitoring.trial",
-                   "nn.transfer"):
+                   "nn.transfer", "models.vgg", "models.zoo_ext", "models.nasnet"):
         assert f"deeplearning4j_tpu_torch.{module}" in added
     assert [m for m in added if _forbidden(m)] == []
 
@@ -178,6 +181,7 @@ def test_networks_default_to_cuda_and_raise_without_a_card():
     parameters on ``device``, "cuda" unless the caller asks for the CPU; so
     does a BatchNormalization layer's running state."""
     _no_card()
+    from deeplearning4j_tpu_torch import models
     from deeplearning4j_tpu_torch.models import (InceptionResNetV1, LeNet, ResNet50,
                                                  TextGenerationLSTM)
     from deeplearning4j_tpu_torch.nn import (BatchNormalization, ComputationGraph, InputType,
@@ -189,6 +193,7 @@ def test_networks_default_to_cuda_and_raise_without_a_card():
              "ComputationGraph": lambda: ComputationGraph(ResNet50().conf()),
              "ResNet50().init()": lambda: ResNet50().init(),
              "InceptionResNetV1().init()": lambda: InceptionResNetV1().init(),
+             **{f"{n}().init()": (lambda n=n: getattr(models, n)().init()) for n in ZOO},
              "BatchNormalization().init_state": lambda: BatchNormalization().init_state(
                  InputType.feed_forward(4))}
     for name, call in calls.items():

@@ -245,10 +245,13 @@ def test_config_json_round_trip_both_ways():
 
 
 def test_unported_layer_in_json_raises():
+    from deeplearning4j_tpu.nn.layers_ext import PReLULayer
+
     jconf = (JC.NeuralNetConfiguration.Builder().list()
-             .layer(JC.EmbeddingLayer(n_in=10, n_out=4))
+             .layer(JC.DenseLayer(n_in=10, n_out=4))
+             .layer(PReLULayer())
              .layer(JC.OutputLayer(n_out=2)).build())
-    with pytest.raises(NotImplementedError, match="EmbeddingLayer.*ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="PReLULayer.*ROADMAP.md.*8.4"):
         TC.MultiLayerConfiguration.from_json(jconf.to_json())
     # a graph configuration is ported (nn.graph_conf): the builder gives one
     from deeplearning4j_tpu_torch.nn.graph_conf import GraphBuilder

@@ -131,3 +131,57 @@ def params_close(tnet, jnet, before=None, rel=GRAD_REL):
 
 def snapshot(jnet):
     return jax.tree.map(lambda a: np.asarray(a).astype(np.float64), jnet.params_)
+
+
+def flat_tree(tree, prefix=""):
+    """A (possibly nested) parameter tree as one flat dict keyed by its
+    paths joined with ``/``: the port's per-layer keys (``"fwd/W"``)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def layer_parity(jl, tl, it, x, rs, *, out_atol, grad_rel, x_grad=True, **fwd):
+    """The JAX layer and the port's on the same input and weights (the JAX
+    layer's parameter shapes, nested or not, filled from ``rs``): output
+    within ``out_atol``, the gradients of one seeded cotangent with respect
+    to every parameter (and, with ``x_grad``, to the input) within
+    ``grad_rel`` of their norms, ``output_type`` and ``flops_per_example``
+    equal. Returns the port's output."""
+    shapes = jax.tree.map(lambda a: a.shape, jl.init_params(jax.random.key(0), it))
+    jparams = jax.tree.map(lambda s: (rs.randn(*s) * 0.5).astype(np.float32), shapes,
+                           is_leaf=lambda s: isinstance(s, tuple))
+    jp = jax.tree.map(jnp.asarray, jparams)
+
+    def jfn(p, xx):
+        return jl.forward(p, xx, it, training=False, **fwd)
+
+    if x_grad:
+        jout, vjp = jax.vjp(jfn, jp, jnp.asarray(x))
+    else:
+        jout, vjp = jax.vjp(lambda p: jfn(p, jnp.asarray(x)), jp)
+    cot = rs.randn(*jout.shape).astype(np.float32)
+    jg = vjp(jnp.asarray(cot))
+    jgrads = flat_tree(jax.tree.map(np.asarray, jg[0]))
+    if x_grad:
+        jgrads["x"] = np.asarray(jg[1])
+    tit = TC.InputType(**JC.dataclasses.asdict(it))
+    tp = {k: t(v, True) for k, v in flat_tree(jparams).items()}
+    tx = t(x, x_grad)
+    tout = tl.forward(tp, tx, tit, training=False, **fwd)
+    names = list(tp)
+    gs = torch.autograd.grad(tout, [tp[n] for n in names] + ([tx] if x_grad else []),
+                             grad_outputs=t(cot), allow_unused=True)
+    tgrads = {n: (torch.zeros_like(tp[n]) if g is None else g) for n, g in zip(names, gs)}
+    if x_grad:
+        tgrads["x"] = gs[-1]
+    assert tuple(tout.shape) == jout.shape
+    close(tout, jout, atol=out_atol)
+    grads_close(tgrads, jgrads, rel=grad_rel)
+    assert tl.output_type(tit) == TC.InputType(**JC.dataclasses.asdict(jl.output_type(it)))
+    assert tl.flops_per_example(tit) == jl.flops_per_example(it)
+    return tout
