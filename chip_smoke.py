@@ -309,8 +309,22 @@ Phases:
    NASNet 64): the median step of 10 after 3 warm-up steps (VGG19 5),
    images/s, peak memory above the resident state, the share of the dense
    bf16 peak, and the device time by kind of kernel of VGG16 (the
-   device-bound end) and NASNet (399 nodes, the host-bound end).
-   Phases 15, 16 and 17 launch none of the three kernels.
+   device-bound end) and NASNet (399 nodes, the host-bound end);
+18. the rest of the layer set (``nn/layers_ext.py``, ``nn/layers_tail.py``,
+   ``nn/capsules.py``): (a) CapsNet at Sabour et al.'s widths (6,804,224
+   parameters, 28x28 digit-like images) and (b) the ConvLSTM frame
+   predictor at Shi et al.'s (3,893,264 parameters, 10 frames of 64x64 cut
+   into 4x4 patches by ``SpaceToDepth``), each: its parameter count, a
+   float32 fit on the card against the CPU's (CapsNet batch 4, ConvLSTM 2)
+   within bounds measured against a float64 step, bf16 Adam at batch 128
+   and 16 (the median step of 10 after 3, examples/s, peak memory, the
+   share of the dense bf16 peak from the 2·MACs count that
+   ``capsnet_flops``/``convlstm_flops`` state) and the device time by
+   kind; (c) every one of the 40 new layer classes, float32 on the card
+   against the CPU at the parity tests' small shapes (output or loss, and
+   the gradients of the input and every parameter; both GRU modes, both
+   Deconvolution3D modes, pooling in both modes, the wrappers, the loss
+   heads). Phases 15 to 18 launch none of the three kernels.
 
 A line before the last is a JSON object describing each kernel (launch
 counts on the main path, error against the plain version, times and the
@@ -6453,6 +6467,395 @@ def phase_zoo(tag):
         print(f"{tag} 17 {name}: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ------------------------------------------------------------------ phase 18
+
+# 18a: CapsNet at the widths of Sabour, Frosst & Hinton 2017 ("Dynamic
+# Routing Between Capsules", section 4): a 9x9 convolution of 256 ReLU
+# channels, 32 maps of 8-D primary capsules (9x9, stride 2: 6x6x32 = 1152
+# capsules), 10 digit capsules of 16-D from 3 routing rounds, the margin
+# loss; 28x28 images. Its reconstruction decoder is not in the JAX package
+# and not here. 18b: the frame predictor of Shi et al. 2015 ("Convolutional
+# LSTM Network", Moving-MNIST): 64x64 frames cut into 4x4 patches (16
+# channels of 16x16), 10 frames, ConvLSTM layers of 128, 64 and 64 5x5
+# filters, then a 1x1x1 convolution back to the 16 patch channels and a
+# per-voxel sigmoid cross-entropy against the next frame. The paper's
+# encoder-forecaster (the encoding network's states copied into a
+# forecasting network that predicts frames from them alone) is not
+# expressible as a MultiLayerNetwork: here every layer runs over the input
+# frames and each step predicts the frame after it.
+CAPSNET_PARAMS = 6_804_224    # the JAX package's num_params() of capsnet_conf
+CONVLSTM_PARAMS = 3_893_264   # and of convlstm_conf
+# seven-segment strokes of the digits on a 28x28 canvas: (rows, cols) boxes
+SEGMENT_BOXES = {"a": (4, 6, 8, 20), "b": (6, 13, 18, 20), "c": (15, 22, 18, 20),
+                 "d": (22, 24, 8, 20), "e": (15, 22, 8, 10), "f": (6, 13, 8, 10),
+                 "g": (13, 15, 8, 20)}
+DIGIT_SEGMENTS = ("abcdef", "bc", "abged", "abgcd", "fgbc", "afgcd", "afgedc", "abc", "abcdefg",
+                  "abcdfg")
+
+
+def capsnet_conf(C, U, conv=256, capsules=32, capsule_dim=8, kernel=9, primary_kernel=9,
+                 classes=10, digit_dim=16, hw=28, lr=1e-3):
+    """CapsNet (18a) in the package whose ``nn.conf`` is ``C`` and whose
+    updaters are ``U``, at Sabour et al.'s widths unless told otherwise."""
+    L = C.LAYER_REGISTRY
+    return (C.NeuralNetConfiguration.Builder().seed(18).updater(U.Adam(lr)).list()
+            .layer(C.ConvolutionLayer(n_out=conv, kernel_size=(kernel, kernel), activation="relu"))
+            .layer(L["PrimaryCapsules"](capsules=capsules, capsule_dim=capsule_dim,
+                                        kernel_size=primary_kernel, stride=2))
+            .layer(L["CapsuleLayer"](capsules=classes, capsule_dim=digit_dim, routings=3))
+            .layer(L["CapsuleStrengthLayer"]())
+            .layer(L["CapsNetOutputLayer"]())
+            .set_input_type(C.InputType.convolutional(hw, hw, 1)).build())
+
+
+def convlstm_conf(C, U, channels=16, widths=(128, 64, 64), kernel=5, frames=10, hw=16, lr=1e-3):
+    """The ConvLSTM frame predictor (18b) in the package ``C``/``U``, at Shi
+    et al.'s widths unless told otherwise."""
+    L = C.LAYER_REGISTRY
+    b = C.NeuralNetConfiguration.Builder().seed(18).updater(U.Adam(lr)).list()
+    for w in widths:
+        b = b.layer(L["ConvLSTM2D"](n_out=w, kernel_size=(kernel, kernel)))
+    return (b.layer(L["Convolution3D"](n_out=channels, kernel_size=(1, 1, 1)))
+            .layer(L["Cnn3DLossLayer"](loss="xent", activation="sigmoid"))
+            .set_input_type(C.InputType.convolutional3d(frames, hw, hw, channels)).build())
+
+
+def digit_batch(batch, seed=0, classes=10):
+    """Digit-like 28x28 images and one-hot labels: each label's
+    seven-segment strokes, shifted by up to 3 pixels, on uniform noise."""
+    rs = np.random.RandomState(seed)
+    y = rs.randint(0, classes, batch)
+    x = rs.rand(batch, 1, 28, 28).astype(np.float32) * 0.1
+    for i, c in enumerate(y):
+        dy, dx = rs.randint(-3, 4, 2)
+        for seg in DIGIT_SEGMENTS[c % 10]:
+            r0, r1, c0, c1 = SEGMENT_BOXES[seg]
+            x[i, 0, r0 + dy:r1 + dy, c0 + dx:c1 + dx] += 0.9
+    return np.clip(x, 0.0, 1.0), np.eye(classes, dtype=np.float32)[y]
+
+
+def moving_blobs(batch, frames, size=64, blobs=2, seed=0):
+    """[B, frames, size, size] in [0, 1]: Gaussian blobs (sigma 4 pixels)
+    moving 2-4 pixels a frame and bouncing off the edges."""
+    rs = np.random.RandomState(seed)
+    pos = rs.uniform(8, size - 8, (batch, blobs, 2))
+    vel = rs.uniform(2, 4, (batch, blobs, 2)) * rs.choice([-1.0, 1.0], (batch, blobs, 2))
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float64)
+    out = np.zeros((batch, frames, size, size), np.float32)
+    for t in range(frames):
+        for k in range(blobs):
+            d2 = (yy - pos[:, k, 0, None, None]) ** 2 + (xx - pos[:, k, 1, None, None]) ** 2
+            out[:, t] = np.maximum(out[:, t], np.exp(-d2 / 32.0))
+        pos += vel
+        edge = (pos < 4) | (pos > size - 4)
+        vel = np.where(edge, -vel, vel)
+        pos = np.clip(pos, 4, size - 4)
+    return out
+
+
+def frame_batch(batch, seed=0, frames=10, size=64, block=4):
+    """(x, y) of the frame predictor: frames 0..T-1 and 1..T of
+    :func:`moving_blobs`, each cut into block x block patches by the port's
+    ``SpaceToDepth`` on [B·(T+1), 1, size, size], as [B, block², T,
+    size/block, size/block]."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn import SpaceToDepth
+
+    seq = moving_blobs(batch, frames + 1, size, seed=seed)
+    h = size // block
+    flat = torch.from_numpy(seq.reshape(batch * (frames + 1), 1, size, size))
+    patches = SpaceToDepth(block_size=block).forward({}, flat, None, training=False)
+    p = patches.reshape(batch, frames + 1, block * block, h, h).transpose(1, 2).numpy()
+    return np.ascontiguousarray(p[:, :, :-1]), np.ascontiguousarray(p[:, :, 1:])
+
+
+def capsnet_flops(hw=28, conv=256, kernel=9, primary_kernel=9, capsules=32, capsule_dim=8,
+                  classes=10, digit_dim=16, routings=3) -> int:
+    """CapsNet's forward flops for one example, 2 x the multiply-adds of its
+    products (the layers' ``flops_per_example`` keep the JAX package's
+    default of one per output element). At the published widths: the 9x9
+    convolution 2·20²·256·81 = 16,588,800; the primary capsules
+    2·6²·256·256·81 = 382,205,952; the prediction vectors 2·10·1152·8·16 =
+    2,949,120; routing (three coupling sums and two agreements) 5·2·10·1152·16
+    = 1,843,200; in all 403,587,072."""
+    c1 = hw - kernel + 1
+    p = (c1 - primary_kernel) // 2 + 1
+    caps_in = capsules * p * p
+    return (2 * c1 * c1 * conv * kernel * kernel
+            + 2 * p * p * capsules * capsule_dim * conv * primary_kernel ** 2
+            + 2 * classes * caps_in * capsule_dim * digit_dim
+            + (2 * routings - 1) * 2 * classes * caps_in * digit_dim)
+
+
+def convlstm_flops(channels=16, widths=(128, 64, 64), kernel=5, frames=10, hw=16) -> int:
+    """The frame predictor's forward flops for one example, 2 x the
+    multiply-adds of its convolutions as ``ConvLSTM2D`` runs them: the x
+    side at every frame, the h side at every frame but the first (h_0 is
+    zero and its convolution is left out). At the published widths: layer 1
+    x 10 · 104,857,600 and h 9 · 838,860,800; layer 2 x 10 · 419,430,400
+    and h 9 · 209,715,200; layer 3 x 10 · 209,715,200 and h 9 · 209,715,200;
+    the 1x1x1 convolution 5,242,880; in all 18,669,895,680."""
+    total, c = 0, channels
+    for f in widths:
+        total += 2 * hw * hw * 4 * f * kernel * kernel * (c * frames + f * (frames - 1))
+        c = f
+    return total + 2 * frames * hw * hw * c * channels
+
+
+# The float32 fit on the card against the CPU's, from the same weights and
+# batch (CapsNet batch 4, the ConvLSTM batch 2): (score, each tensor's
+# update, all parameters' update), each the sum of the card's and the CPU's
+# distance from a float64 step of the same network and batch (`python3
+# tests/torch_float64_step.py --device cuda --only capsnet_28,convlstm_16`
+# on the H100, 700 W), rounded up (the score to a power of ten, at least one
+# float32 rounding, 1e-7). Measured (card; CPU), score, worst tensor, all
+# parameters: CapsNet 0, 7.4e-8; 3.5e-5, 3.6e-5; 1.6e-5, 6.6e-6. ConvLSTM
+# 0, 8.6e-8; 4.6e-6, 4.0e-6; 2.3e-6, 1.9e-6.
+CAPS_BOUNDS = (1e-7, 8e-5, 3e-5)
+CONVLSTM_BOUNDS = (1e-7, 9e-6, 5e-6)
+CAPS_BATCH, CONVLSTM_BATCH = 128, 16     # the bf16 fits
+# 18c: every layer class of layers_ext, layers_tail and capsules, float32 on
+# the card against the CPU at the parity tests' small shapes: the output
+# (or a loss head's loss) and the gradients of one seeded cotangent with
+# respect to the input and every parameter, each within this share of the
+# CPU's norm (float32 sums in another order; TF32 off)
+LAYER_CARD_REL = 1e-5
+
+
+def _phase18_model(tag, what, build, data, check_batch, batch, count, bounds, fwd_flops):
+    """One model of 18a/18b: the parameter count, a float32 fit on the card
+    against the CPU's, bf16 training at ``batch`` (median of 10 steps after
+    3, examples/s, peak memory above the resident state, the share of the
+    dense bf16 peak from ``fwd_flops``) and the device time by kind."""
+    import torch
+
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn import conf as TC
+    from deeplearning4j_tpu_torch.nn import updaters as TU
+
+    loss_rel, update_rel, all_rel = bounds
+    check_fit_on_cpu(tag, f"18{what} [{check_batch}] Adam",
+                     lambda dev: MultiLayerNetwork(build(TC, TU), device=dev).init(),
+                     DataSet(*data(check_batch)), loss_rel=loss_rel, update_rel=update_rel,
+                     all_rel=all_rel)
+    _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    net = MultiLayerNetwork(build(TC, TU), device="cuda").init()
+    check(net.num_params() == count,
+          f"18{what} has {net.num_params()} parameters, expected {count}")
+    staged = _staged(*data(batch, 1))
+    times, scores = _train_steps(net, staged, 10)
+    check(all(math.isfinite(v) for v in scores), f"18{what}: non-finite score in {scores}")
+    step_ms = statistics.median(times)
+    peak = (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
+    shape = ",".join(map(str, staged.features.shape))
+    print(f"{tag} 18{what} ({count:,} parameters) fit step [{shape}] bf16: {spread(times)}, "
+          f"{batch / step_ms * 1e3:.1f} examples/s at the median; peak memory {peak:.2f} GiB "
+          f"above the resident state; score {scores[0]:.4f} -> {scores[-1]:.4f} over "
+          f"{len(scores)} steps", flush=True)
+    flops = 3.0 * fwd_flops * batch
+    share = flops / (step_ms / 1e3) / PEAK_OPS_PER_S["bfloat16"]
+    print(f"{tag} 18{what} achieved share of the dense bf16 peak: {share:.4f} ({flops:.4e} "
+          f"flops per step, 3 x {fwd_flops:,} forward flops x {batch}, in the {step_ms:.3f} ms "
+          f"median step, against 989 TFLOP/s)", flush=True)
+    device_profile(tag, f"18{what} fit step [{shape}] bf16", lambda: net.fit(staged), reps=2,
+                   top=8, by_kind=True)
+    del net, staged
+    _free_card()
+
+
+def _layer_cases(L, I):
+    """18c's cases: (name, layer, input type, input shape, labels shape or
+    None, features mask or None). Loss heads compare the loss."""
+    ff, rnn, cnn, c3 = I.feed_forward, I.recurrent, I.convolutional, I.convolutional3d
+    mask = np.array([[1, 1, 1, 0, 0], [1, 1, 1, 1, 1]], np.float32)
+    return [
+        ("Convolution3D same", L.Convolution3D(n_out=4, kernel_size=(3, 2, 3), stride=(2, 1, 2),
+                                               convolution_mode="same", activation="tanh"),
+         c3(5, 6, 7, 3), (2, 3, 5, 6, 7), None, None),
+        ("Subsampling3DLayer avg same", L.Subsampling3DLayer(
+            pooling_type="avg", kernel_size=(3, 3, 2), convolution_mode="same"),
+         c3(5, 7, 6, 2), (2, 2, 5, 7, 6), None, None),
+        ("Subsampling3DLayer max padded", L.Subsampling3DLayer(kernel_size=(3, 3, 2),
+                                                               padding=(1, 1, 0)),
+         c3(5, 7, 6, 2), (2, 2, 5, 7, 6), None, None),
+        ("LocallyConnected2D", L.LocallyConnected2D(n_out=4, kernel_size=(3, 2), stride=(1, 2),
+                                                    padding=(1, 1), activation="tanh"),
+         cnn(6, 7, 3), (2, 3, 6, 7), None, None),
+        ("PReLULayer", L.PReLULayer(shared_axes=(2, 3)), cnn(4, 5, 3), (2, 3, 4, 5), None, None),
+        ("Cropping2D", L.Cropping2D(cropping=(1, 0, 2, 1)), cnn(5, 6, 2), (2, 2, 5, 6), None,
+         None),
+        ("CenterLossOutputLayer", L.CenterLossOutputLayer(n_out=4, lambda_=0.3), ff(6), (5, 6),
+         (5, 4), None),
+        ("Convolution1DLayer", L.Convolution1DLayer(n_out=5, kernel_size=4, stride=2,
+                                                    activation="tanh"),
+         rnn(3, 9), (2, 3, 9), None, None),
+        ("Subsampling1DLayer avg same", L.Subsampling1DLayer(pooling_type="avg", kernel_size=3,
+                                                             convolution_mode="same"),
+         rnn(3, 8), (2, 3, 8), None, None),
+        ("Subsampling1DLayer max", L.Subsampling1DLayer(kernel_size=3), rnn(3, 8), (2, 3, 8),
+         None, None),
+        ("ReshapeLayer", L.ReshapeLayer(target_shape=(12, 3)), cnn(3, 4, 3), (2, 3, 3, 4), None,
+         None),
+        ("PermuteLayer", L.PermuteLayer(dims=(2, 1, 3)), cnn(3, 4, 2), (2, 2, 3, 4), None, None),
+        ("RepeatVectorLayer", L.RepeatVectorLayer(n=3), ff(5), (2, 5), None, None),
+        ("GRULayer reset after", L.GRULayer(n_out=5), rnn(4, 7), (3, 4, 7), None, None),
+        ("GRULayer reset before", L.GRULayer(n_out=5, reset_after=False), rnn(4, 7), (3, 4, 7),
+         None, None),
+        ("OCNNOutputLayer", L.OCNNOutputLayer(hidden_size=3, nu=0.2), ff(6), (5, 6), (5, 1),
+         None),
+        ("GravesBidirectionalLSTM", L.GravesBidirectionalLSTM(n_out=5), rnn(3, 6), (2, 3, 6),
+         None, None),
+        ("MaskLayer", L.MaskLayer(), rnn(4, 5), (2, 4, 5), None, mask),
+        ("MaskZeroLayer", L.MaskZeroLayer(underlying=L.LSTM(n_out=6)), rnn(4, 5), (2, 4, 5),
+         None, None),
+        ("RnnLossLayer", L.RnnLossLayer(loss="mcxent", activation="softmax"), rnn(4, 5),
+         (2, 4, 5), (2, 4, 5), mask),
+        ("CnnLossLayer", L.CnnLossLayer(loss="xent", activation="sigmoid"), cnn(4, 5, 3),
+         (2, 3, 4, 5), (2, 3, 4, 5), None),
+        ("Cnn3DLossLayer", L.Cnn3DLossLayer(), c3(2, 3, 4, 3), (2, 3, 2, 3, 4), (2, 3, 2, 3, 4),
+         None),
+        ("ElementWiseMultiplicationLayer", L.ElementWiseMultiplicationLayer(n_out=6,
+                                                                            activation="tanh"),
+         ff(6), (3, 6), None, None),
+        ("FrozenLayerWithBackprop", L.FrozenLayerWithBackprop(underlying=L.DenseLayer(
+            n_out=4, activation="relu")), ff(5), (3, 5), None, None),
+        ("TimeDistributed", L.TimeDistributed(underlying=L.DenseLayer(n_out=4,
+                                                                      activation="sigmoid")),
+         rnn(3, 6), (2, 3, 6), None, None),
+        ("SpaceToDepth", L.SpaceToDepth(block_size=2), cnn(4, 6, 3), (2, 3, 4, 6), None, None),
+        ("SpaceToBatch", L.SpaceToBatch(block_size=(2, 3), padding=((1, 1), (0, 3))),
+         cnn(4, 6, 3), (2, 3, 4, 6), None, None),
+        ("Cropping1D", L.Cropping1D(cropping=(1, 2)), rnn(3, 7), (2, 3, 7), None, None),
+        ("Cropping3D", L.Cropping3D(cropping=(1, 0, 0, 2, 1, 1)), c3(4, 5, 6, 2),
+         (2, 2, 4, 5, 6), None, None),
+        ("ZeroPadding1DLayer", L.ZeroPadding1DLayer(padding=(2, 1)), rnn(3, 5), (2, 3, 5), None,
+         None),
+        ("ZeroPadding3DLayer", L.ZeroPadding3DLayer(padding=(1, 0, 2, 1, 0, 3)), c3(2, 3, 4, 2),
+         (2, 2, 2, 3, 4), None, None),
+        ("Upsampling1D", L.Upsampling1D(size=3), rnn(3, 4), (2, 3, 4), None, None),
+        ("Upsampling3D", L.Upsampling3D(size=(2, 1, 3)), c3(2, 3, 2, 2), (2, 2, 2, 3, 2), None,
+         None),
+        ("Deconvolution3D same", L.Deconvolution3D(n_out=3, kernel_size=(3, 2, 4),
+                                                   stride=(2, 2, 1), activation="tanh"),
+         c3(3, 4, 5, 2), (2, 2, 3, 4, 5), None, None),
+        ("Deconvolution3D truncate", L.Deconvolution3D(n_out=3, kernel_size=(3, 2, 4),
+                                                       stride=(2, 2, 1),
+                                                       convolution_mode="truncate"),
+         c3(3, 4, 5, 2), (2, 2, 3, 4, 5), None, None),
+        ("Convolution2D", L.Convolution2D(n_out=3, kernel_size=(2, 2), convolution_mode="same"),
+         cnn(5, 5, 2), (2, 2, 5, 5), None, None),
+        ("Pooling1D", L.Pooling1D(kernel_size=4, stride=3, convolution_mode="same"), rnn(3, 8),
+         (2, 3, 8), None, None),
+        ("Pooling2D avg same", L.Pooling2D(pooling_type="avg", convolution_mode="same"),
+         cnn(5, 5, 2), (2, 2, 5, 5), None, None),
+        ("Pooling2D max", L.Pooling2D(kernel_size=(3, 3)), cnn(5, 5, 2), (2, 2, 5, 5), None,
+         None),
+        ("ConvLSTM2D", L.ConvLSTM2D(n_out=4, kernel_size=(3, 3)), c3(4, 5, 6, 3),
+         (2, 3, 4, 5, 6), None, None),
+        ("ConvLSTM2D even kernel, last step", L.ConvLSTM2D(n_out=3, kernel_size=(2, 4),
+                                                           return_sequences=False),
+         c3(3, 4, 5, 2), (2, 2, 3, 4, 5), None, None),
+        ("LocallyConnected1D", L.LocallyConnected1D(n_out=4, kernel_size=3, stride=2,
+                                                    activation="relu"),
+         rnn(3, 9), (2, 3, 9), None, None),
+        ("PrimaryCapsules", L.PrimaryCapsules(capsules=3, capsule_dim=4, kernel_size=3),
+         cnn(7, 8, 2), (2, 2, 7, 8), None, None),
+        ("CapsuleLayer", L.CapsuleLayer(capsules=3, capsule_dim=5), rnn(4, 6), (2, 4, 6), None,
+         None),
+        ("CapsuleStrengthLayer", L.CapsuleStrengthLayer(), rnn(5, 3), (2, 5, 3), None, None),
+        ("CapsNetOutputLayer", L.CapsNetOutputLayer(), ff(4), (3, 4), (3, 4), None),
+    ]
+
+
+def _layer_grads(layer, it, x, params, labels, mask, cot):
+    """A layer's output (a loss head's loss) and the gradients of
+    ``sum(out * cot)`` (of the loss) with respect to the input and each
+    parameter, on the tensors' device."""
+    import torch
+
+    ps = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    xx = x.clone().requires_grad_(True)
+    with torch.enable_grad():
+        if labels is not None:
+            out = layer.compute_loss(ps, xx, labels, it, training=False, mask=mask)
+            seed = out
+        else:
+            out = layer.forward(ps, xx, it, training=False,
+                                **({} if mask is None else {"mask": mask}))
+            seed = (out * (torch.ones_like(out) if cot is None else cot)).sum()
+        names = list(ps)
+        grads = torch.autograd.grad(seed, [ps[n] for n in names] + [xx], allow_unused=True)
+    return out.detach(), {n: g for n, g in zip(names + ["x"], grads) if g is not None}
+
+
+def phase_layers_on_card(tag):
+    """18c: every class of the port's layers_ext, layers_tail and capsules,
+    float32 on the card against the CPU (output or loss, and gradients)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn import conf as TC
+
+    from types import SimpleNamespace
+
+    L = SimpleNamespace(**TC.LAYER_REGISTRY)
+    new = {n for n, c in TC.LAYER_REGISTRY.items()
+           if c.__module__.rsplit(".", 1)[-1] in ("layers_ext", "layers_tail", "capsules")}
+    cases = _layer_cases(L, TC.InputType)
+    covered = {type(layer).__name__ for _, layer, *_ in cases}
+    check(covered == new and len(new) == 40,
+          f"18c covers {len(covered)} classes, not the 40 registered: {sorted(new ^ covered)}")
+    worst = (0.0, "")
+    for i, (name, layer, it, shape, lshape, mask) in enumerate(cases):
+        g = torch.Generator().manual_seed(1800 + i)
+        params = {k: torch.randn(v.shape, generator=g) * 0.5
+                  for k, v in layer.init_params(torch.Generator().manual_seed(i), it).items()}
+        x = torch.randn(shape, generator=g)
+        labels = None
+        if lshape is not None:
+            labels = torch.rand(lshape, generator=g)
+            if name in ("CenterLossOutputLayer", "RnnLossLayer", "CapsNetOutputLayer"):
+                hot = labels.argmax(dim=1, keepdim=True)
+                labels = torch.zeros_like(labels).scatter_(1, hot, 1.0)
+        m = None if mask is None else torch.from_numpy(mask)
+        out, grads = _layer_grads(layer, it, x, params, labels, m, None)
+        cot = None if labels is not None else torch.randn(out.shape, generator=g)
+        out, grads = _layer_grads(layer, it, x, params, labels, m, cot)
+        on = lambda t: None if t is None else t.cuda()  # noqa: E731
+        cout, cgrads = _layer_grads(layer, it, x.cuda(), {k: v.cuda() for k, v in params.items()},
+                                    on(labels), on(m), on(cot))
+        check(cout.is_cuda and all(v.is_cuda for v in cgrads.values()),
+              f"18c {name}: the card's result is not on the card")
+        check(sorted(cgrads) == sorted(grads), f"18c {name}: gradients of {sorted(cgrads)} "
+                                               f"on the card, {sorted(grads)} on the CPU")
+        errs = {}
+        for k, want in [("out", out)] + sorted(grads.items()):
+            got = (cout if k == "out" else cgrads[k]).double().cpu()
+            errs[k] = float((got - want.double()).norm() / want.double().norm().clamp(min=1e-30))
+        k = max(errs, key=errs.get)
+        print(f"{tag} 18c {name}: {'loss' if labels is not None else 'output'} "
+              f"{errs['out']:.1e}, worst of {len(errs)} ({k}) {errs[k]:.1e}", flush=True)
+        check(errs[k] <= LAYER_CARD_REL,
+              f"18c {name}: {k} on the card differs from the CPU's by {errs[k]:.2e}")
+        worst = max(worst, (errs[k], name))
+    print(f"{tag} 18c every new layer on the card against the CPU: {len(cases)} cases of "
+          f"{len(covered)} classes, worst {worst[0]:.2e} ({worst[1]}), bound {LAYER_CARD_REL}",
+          flush=True)
+
+
+def phase_extra_layers(tag):
+    """18: CapsNet (18a) and the ConvLSTM frame predictor (18b) at published
+    widths, then every new layer on the card (18c)."""
+    _phase18_model(tag, "a CapsNet", capsnet_conf, digit_batch, 4, CAPS_BATCH, CAPSNET_PARAMS,
+                   CAPS_BOUNDS, capsnet_flops())
+    _phase18_model(tag, "b ConvLSTM", convlstm_conf, frame_batch, 2, CONVLSTM_BATCH,
+                   CONVLSTM_PARAMS, CONVLSTM_BOUNDS, convlstm_flops())
+    phase_layers_on_card(tag)
+
+
 def main() -> int:
     import torch
 
@@ -6639,6 +7042,9 @@ def main() -> int:
         t17 = time.perf_counter()
         phase_zoo(tag)
         print(f"phase 17 image zoo: ok ({time.perf_counter() - t17:.1f} s)", flush=True)
+        t18 = time.perf_counter()
+        phase_extra_layers(tag)
+        print(f"phase 18 extra layers: ok ({time.perf_counter() - t18:.1f} s)", flush=True)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1

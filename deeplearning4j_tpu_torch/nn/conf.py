@@ -9,18 +9,19 @@ of a {name: tensor} dict and the input. The public layouts are DL4J's: NCHW
 images, OIHW convolution weights, [B, C, T] sequences, [in, out] dense
 weights, so the JAX weights load as they are.
 
-Ported layers: every layer of the JAX package's ``nn/conf.py`` — Dense,
+This module holds every layer of the JAX package's ``nn/conf.py`` — Dense,
 Output, Loss, Activation, Dropout, Convolution, Deconvolution2D,
 Depthwise- and SeparableConvolution2D, Subsampling, Upsampling2D,
 ZeroPadding, BatchNormalization, LocalResponseNormalization, Embedding,
 EmbeddingSequence, LSTM, GravesLSTM, SimpleRnn, Bidirectional,
-LastTimeStep, RnnOutputLayer, GlobalPooling — and (``nn.attention_layers``)
-the two self-attention layers and RecurrentAttentionLayer. A layer of the
-JAX package that is not ported yet (those of its ``nn/layers_ext.py``,
-``nn/layers_tail.py`` and ``nn/capsules.py``), found in a configuration's
-JSON, raises ``NotImplementedError`` naming it and its ROADMAP.md item; it
-is never dropped. ``NeuralNetConfiguration.Builder.graph_builder`` gives the
-``nn.graph_conf.GraphBuilder`` of a ComputationGraph.
+LastTimeStep, RnnOutputLayer, GlobalPooling. The rest of the layer set
+registers itself in :data:`LAYER_REGISTRY` when the package is imported:
+``nn.attention_layers`` (the two self-attention layers and
+RecurrentAttentionLayer), ``nn.layers_ext``, ``nn.layers_tail`` and
+``nn.capsules``, so a configuration's JSON reads back every layer class the
+JAX package registers; an unknown class name raises ``KeyError``, as the
+JAX package's lookup does. ``NeuralNetConfiguration.Builder.graph_builder``
+gives the ``nn.graph_conf.GraphBuilder`` of a ComputationGraph.
 
 Dtypes follow the JAX package's promotion: a product of a bf16 and a float32
 operand runs in float32 (:func:`_mm`), as ``jnp`` promotes it.
@@ -395,13 +396,17 @@ class DropoutLayer(Layer):
 
 
 def _spatial_pads(x, kernel, stride, padding, dilation, same):
-    """F.pad's (left, right, top, bottom) for an NCHW input: XLA's SAME
-    (odd pad at the end) or the symmetric explicit padding."""
-    if same:
-        top, bottom = _same_pads(x.shape[2], kernel[0], stride[0], dilation[0])
-        left, right = _same_pads(x.shape[3], kernel[1], stride[1], dilation[1])
-        return (left, right, top, bottom)
-    return (padding[1], padding[1], padding[0], padding[0])
+    """F.pad's flat pad list, last axis first, for the trailing
+    ``len(kernel)`` axes of ``x`` (NCHW: (left, right, top, bottom)): XLA's
+    SAME per axis (odd pad at the end) or the symmetric explicit padding."""
+    n = len(kernel)
+    pads = []
+    for ax in reversed(range(n)):
+        if same:
+            pads += _same_pads(x.shape[x.dim() - n + ax], kernel[ax], stride[ax], dilation[ax])
+        else:
+            pads += [padding[ax], padding[ax]]
+    return tuple(pads)
 
 
 @dataclass
@@ -614,9 +619,35 @@ class SeparableConvolution2D(ConvolutionLayer):
         return depthwise + pointwise
 
 
+_POOL = {2: (F.max_pool2d, F.avg_pool2d), 3: (F.max_pool3d, F.avg_pool3d)}
+
+
 def _window_sum(x, kernel, stride):
-    """Sum over each pooling window (no padding: the caller pads)."""
-    return F.avg_pool2d(x, tuple(kernel), tuple(stride), divisor_override=1)
+    """Sum over each pooling window of the trailing 2 or 3 axes (no padding:
+    the caller pads)."""
+    return _POOL[len(kernel)][1](x, tuple(kernel), tuple(stride), divisor_override=1)
+
+
+def _pool(x, kind, kernel, stride, pads):
+    """Max or average pooling over the trailing ``len(kernel)`` axes after
+    the flat ``pads``: max pads with -inf; an average divides each window's
+    sum by its cells that are not padding (also where SAME pads one side
+    only). One axis pools as a 1 x k window (``avg_pool1d`` has no
+    ``divisor_override``)."""
+    if len(kernel) == 1:
+        out = _pool(x[:, :, None], kind, (1,) + tuple(kernel), (1,) + tuple(stride),
+                    tuple(pads) + (0, 0))
+        return out[:, :, 0]
+    k, s = tuple(kernel), tuple(stride)
+    padded = any(pads)
+    if kind == "max":
+        return _POOL[len(k)][0](F.pad(x, pads, value=float("-inf")) if padded else x, k, s)
+    if kind != "avg":
+        raise ValueError(f"unknown pooling {kind}")
+    if not padded:
+        return _POOL[len(k)][1](x, k, s)
+    ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype, device=x.device)
+    return _window_sum(F.pad(x, pads), k, s) / _window_sum(F.pad(ones, pads), k, s)
 
 
 @dataclass
@@ -645,22 +676,11 @@ class SubsamplingLayer(Layer):
     def forward(self, params, x, it, *, training, rng=None):
         k, s = tuple(self.kernel_size), tuple(self.stride)
         pads = _spatial_pads(x, k, s, self.padding, (1, 1), self.convolution_mode == "same")
-        padded = any(pads)
-        if self.pooling_type == "max":
-            if padded:
-                x = F.pad(x, pads, value=float("-inf"))
-            return F.max_pool2d(x, k, s)
-        if self.pooling_type == "avg":
-            total = _window_sum(F.pad(x, pads) if padded else x, k, s)
-            if not padded:
-                return total / float(k[0] * k[1])
-            ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype, device=x.device)
-            return total / _window_sum(F.pad(ones, pads), k, s)
         if self.pooling_type == "pnorm":
             p = float(self.pnorm)
             y = torch.abs(x) ** p
-            return _window_sum(F.pad(y, pads) if padded else y, k, s) ** (1.0 / p)
-        raise ValueError(f"unknown pooling {self.pooling_type}")
+            return _window_sum(F.pad(y, pads) if any(pads) else y, k, s) ** (1.0 / p)
+        return _pool(x, self.pooling_type, k, s, pads)
 
     def flops_per_example(self, it: InputType) -> float:
         out = self.output_type(it)
@@ -1540,14 +1560,9 @@ LAYER_REGISTRY = {
 }
 
 def layer_class(name: str):
-    """The layer class JSON names: a ported one, or ``NotImplementedError``
-    naming the ROADMAP.md item that ports it (``nn.attention_layers``
-    registers its three layers when the package is imported)."""
-    if name in LAYER_REGISTRY:
-        return LAYER_REGISTRY[name]
-    raise NotImplementedError(
-        f"layer {name!r} is not ported to deeplearning4j_tpu_torch yet (ROADMAP.md queue 1 "
-        "item 8.4: the layers of nn/layers_ext.py, nn/layers_tail.py and nn/capsules.py)")
+    """The layer class a configuration's JSON names; ``KeyError`` for a name
+    no module registered, as in the JAX package."""
+    return LAYER_REGISTRY[name]
 
 
 PREPROCESSOR_REGISTRY = {

@@ -50,9 +50,11 @@ from .conf import (BatchNormalization, GlobalPoolingLayer, LastTimeStep, LSTM,
                    MultiLayerConfiguration)
 from .constraints import apply_constraints, is_bias
 from .dropout import RngKey
+from .layers_tail import MaskLayer
 
+# the layers that take the features mask
 _MASKED_LAYERS = (LastTimeStep, GlobalPoolingLayer, SelfAttentionLayer, LearnedSelfAttentionLayer,
-                  RecurrentAttentionLayer)
+                  RecurrentAttentionLayer, MaskLayer)
 _WEIGHT_NOISE_SALT = 0x9015E
 
 

@@ -556,8 +556,9 @@ class NetPartition:
             top, rest = path.split("/", 1)
             if top == "bn":
                 spec = P()
-            else:
-                parts = rest.split("/")
-                spec = self.spec(parts[-2], parts[-1])
+            else:  # params/<layer>/<name> or updater/<slot>/<layer>/<name>, where a
+                # nested layer's name holds "/" ("fwd/W")
+                parts = rest.split("/")[1 if top == "updater" else 0:]
+                spec = self.spec(parts[0], "/".join(parts[1:]))
             out[path] = to_numpy(gather_leaf(t.detach(), spec, self.mesh).cpu())
         return out

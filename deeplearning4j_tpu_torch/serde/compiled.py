@@ -60,8 +60,9 @@ def _to_numpy(leaf) -> np.ndarray:
 
 
 def _from_numpy(a: np.ndarray, device) -> torch.Tensor:
-    """An npz array as a tensor on ``device``; ``|V2`` is bfloat16's bytes."""
-    a = np.ascontiguousarray(a)
+    """An npz array as a tensor on ``device``; ``|V2`` is bfloat16's bytes
+    (a 0-d array stays 0-d)."""
+    a = np.ascontiguousarray(a).reshape(np.shape(a))
     if a.dtype == BF16_BYTES:
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
     return torch.from_numpy(a).to(device)

@@ -75,8 +75,9 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def from_numpy(a: np.ndarray) -> torch.Tensor:
-    """A numpy array as a host tensor; ``|V2`` is read as bfloat16 bytes."""
-    a = np.ascontiguousarray(a)
+    """A numpy array as a host tensor; ``|V2`` is read as bfloat16 bytes. A
+    0-d array stays 0-d (``np.ascontiguousarray`` makes it [1])."""
+    a = np.ascontiguousarray(a).reshape(np.shape(a))
     if a.dtype == BF16_BYTES:
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(a)

@@ -58,6 +58,8 @@ def test_importing_the_port_loads_no_jax():
     added = json.loads(out.stdout.strip().splitlines()[-1])
     assert "deeplearning4j_tpu_torch.models.transformer" in added
     assert "deeplearning4j_tpu_torch.kernels._build" in added
+    assert {f"deeplearning4j_tpu_torch.nn.{m}" for m in ("layers_ext", "layers_tail",
+                                                        "capsules")} <= set(added)
     assert "deeplearning4j_tpu_torch.nn.updaters" in added
     for module in ("common.environment", "common.dtypes", "common.precision",
                    "kernels.autotune", "nn.activations", "nn.weights", "nn.losses",

@@ -245,14 +245,21 @@ def test_config_json_round_trip_both_ways():
 
 
 def test_unported_layer_in_json_raises():
+    """Every layer class of the JAX package reads back (PReLULayer among
+    them); a class name no module registers raises ``KeyError``, as the JAX
+    package's lookup does, and is never dropped."""
     from deeplearning4j_tpu.nn.layers_ext import PReLULayer
 
     jconf = (JC.NeuralNetConfiguration.Builder().list()
              .layer(JC.DenseLayer(n_in=10, n_out=4))
              .layer(PReLULayer())
              .layer(JC.OutputLayer(n_out=2)).build())
-    with pytest.raises(NotImplementedError, match="PReLULayer.*ROADMAP.md.*8.4"):
-        TC.MultiLayerConfiguration.from_json(jconf.to_json())
+    text = jconf.to_json()
+    assert TC.MultiLayerConfiguration.from_json(text).to_json() == text
+    unknown = text.replace('"PReLULayer"', '"NoSuchLayer"')
+    for C in (JC, TC):
+        with pytest.raises(KeyError, match="NoSuchLayer"):
+            C.MultiLayerConfiguration.from_json(unknown)
     # a graph configuration is ported (nn.graph_conf): the builder gives one
     from deeplearning4j_tpu_torch.nn.graph_conf import GraphBuilder
 

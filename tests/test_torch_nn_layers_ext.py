@@ -176,8 +176,12 @@ def test_json_equals_jax_and_the_registry_is_complete():
         assert json.dumps(TC.Layer.from_json(json.loads(text)).to_json()) == text
     jax_conf_layers = {n for n, c in JC.LAYER_REGISTRY.items() if c.__module__ == JC.__name__}
     assert len(jax_conf_layers) == 23 and jax_conf_layers <= set(TC.LAYER_REGISTRY)
-    with pytest.raises(NotImplementedError, match="8.4"):
-        TC.layer_class("PReLULayer")
+    # with the rest of the layer set ported, the registries are equal and an
+    # unknown name raises as the JAX package's lookup does
+    assert set(TC.LAYER_REGISTRY) == set(JC.LAYER_REGISTRY) and len(TC.LAYER_REGISTRY) == 66
+    assert TC.layer_class("PReLULayer").__name__ == "PReLULayer"
+    with pytest.raises(KeyError):
+        TC.layer_class("NoSuchLayer")
 
 
 def test_conv_stack_fit_matches_jax():

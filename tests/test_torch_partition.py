@@ -1,8 +1,10 @@
 """The port's FSDP x TP partitioner, held to the JAX package in one process.
 
 Counterpart of ``tests/test_partition.py``: for every bundled network (LeNet,
-the char-RNN, ResNet-50, InceptionResNetV1, the attention MLN and the
-AttentionVertex graph) and the flagship's ``partition_specs``:
+the char-RNN, ResNet-50, InceptionResNetV1, the attention MLN, the
+AttentionVertex graph, and the JAX test's recurrent MLN with GRULayer and
+GravesBidirectionalLSTM and attention MLN with PReLULayer and
+CenterLossOutputLayer) and the flagship's ``partition_specs``:
 
 - ``Partitioner.spec_tree`` equals JAX's spec for spec, with the same
   ``uncovered`` and ``replicated_fallback`` reports, on 4- and 8-device
@@ -59,6 +61,7 @@ from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.parallel import partition as TPart
 from deeplearning4j_tpu_torch.parallel import sharding as TShard
 from deeplearning4j_tpu_torch.parallel.mesh import Mesh, use_mesh
+from torch_mln_helpers import flat_tree
 from torch_port_fixtures import _no_leaked_children_or_shm  # noqa: F401  (per-process leak audit)
 
 LAYOUTS = ((1, 2, 2), (2, 2, 1), (1, 4, 1), (2, 2, 2), (1, 4, 2), (1, 1, 8))
@@ -83,6 +86,34 @@ def _attention_graph(C, G, U, AV, RA):
     g.add_layer("pool", C.GlobalPoolingLayer(pooling_type="avg"), "cat")
     g.add_layer("out", C.OutputLayer(n_out=3, activation="softmax", loss="mcxent"), "pool")
     return g.set_outputs("out").build()
+
+
+def _rnn_ext_mln(C, U):
+    """The JAX package's partition test's recurrent MLN (tests/test_partition.py):
+    LSTM, GravesLSTM, GRULayer, GravesBidirectionalLSTM and Bidirectional."""
+    L = C.LAYER_REGISTRY
+    return (C.NeuralNetConfiguration.Builder().seed(5).updater(U.Adam(1e-3)).list()
+            .layer(C.EmbeddingSequenceLayer(n_in=32, n_out=8))
+            .layer(C.LSTM(n_in=8, n_out=8))
+            .layer(C.GravesLSTM(n_in=8, n_out=8, peephole=True))
+            .layer(L["GRULayer"](n_in=8, n_out=8))
+            .layer(L["GravesBidirectionalLSTM"](n_in=8, n_out=8))
+            .layer(C.Bidirectional(fwd=C.SimpleRnn(n_in=8, n_out=8)))
+            .layer(C.RnnOutputLayer(n_in=16, n_out=4, activation="softmax", loss="mcxent"))
+            .set_input_type(C.InputType.recurrent(32, 6)).build())
+
+
+def _attention_ext_mln(C, U):
+    """Its attention MLN with PReLULayer and CenterLossOutputLayer."""
+    L = C.LAYER_REGISTRY
+    return (C.NeuralNetConfiguration.Builder().seed(5).updater(U.Adam(1e-3)).list()
+            .layer(L["SelfAttentionLayer"](n_heads=2, n_out=8, project_input=True))
+            .layer(L["LearnedSelfAttentionLayer"](n_heads=2, n_out=8, n_queries=4,
+                                                  project_input=True))
+            .layer(C.GlobalPoolingLayer(pooling_type="avg"))
+            .layer(L["PReLULayer"]())
+            .layer(L["CenterLossOutputLayer"](n_in=8, n_out=4))
+            .set_input_type(C.InputType.recurrent(8, 6)).build())
 
 
 def _shape_graph(conf):
@@ -115,6 +146,10 @@ def _nets(kind):
         return (JMLN(_attention_mln(JC, JU, JSelfAttention)).init(),
                 MultiLayerNetwork(_attention_mln(TC, TU, SelfAttentionLayer),
                                   device="cpu").init())
+    if kind in ("rnn_ext", "attention_ext"):
+        build = _rnn_ext_mln if kind == "rnn_ext" else _attention_ext_mln
+        return (JMLN(build(JC, JU)).init(),
+                MultiLayerNetwork(build(TC, TU), device="cpu").init())
     if kind == "attention_graph":
         jnet = JGraph(_attention_graph(JC, JG, JU, JAttentionVertex, JRecurrent))
         jnet.init()
@@ -155,12 +190,20 @@ def _virtual(layout, rank):
     return Mesh.virtual({"data": d, "fsdp": f, "tp": t}, rank)
 
 
+def _flat_layers(tree):
+    """A per-layer tree with each layer's nested subtree (a
+    GravesBidirectionalLSTM's {"fwd", "bwd"}) as the port's flat "fwd/W"
+    keys."""
+    return {k: flat_tree(v) if isinstance(v, dict) else v for k, v in tree.items()}
+
+
 @pytest.mark.parametrize("kind", ["lenet", "char_rnn", "resnet50", "facenet", "attention_mln",
-                                  "attention_graph"])
+                                  "attention_graph", "rnn_ext", "attention_ext"])
 def test_spec_trees_reports_and_rank_blocks_equal_jax(kind):
     jnet, tnet = _nets(kind)
     jroles, troles = JPart.param_role_tree(jnet), TPart.param_role_tree(tnet)
-    assert troles == jroles
+    flat = _flat_layers if kind in ("rnn_ext", "attention_ext") else (lambda tree: tree)
+    assert troles == flat(jroles)
     assert TPart.uncovered_params(TPart.param_tree(tnet), troles) == []
     for layout in LAYOUTS:
         jmesh = _jax_mesh(layout)
@@ -169,7 +212,7 @@ def test_spec_trees_reports_and_rank_blocks_equal_jax(kind):
         jrep, trep = {}, {}
         jspecs = jpart.spec_tree(jnet.params_, jroles, report=jrep)
         tspecs = tpart.spec_tree(TPart.param_tree(tnet), troles, report=trep)
-        assert _tuples(tspecs) == _tuples(jspecs), layout
+        assert _tuples(tspecs) == flat(_tuples(jspecs)), layout
         assert trep == jrep, layout
         assert tpart.describe() == jpart.describe()
         # every rank's block is the index JAX gives the device of that rank

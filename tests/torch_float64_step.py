@@ -53,6 +53,8 @@ from deeplearning4j_tpu_torch.nn import conf as C  # noqa: E402
 from deeplearning4j_tpu_torch.nn import updaters as U  # noqa: E402
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph, module_key  # noqa: E402
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork  # noqa: E402
+from chip_smoke import (CAPSNET_PARAMS, CONVLSTM_PARAMS, capsnet_conf,  # noqa: E402,F401
+                        convlstm_conf, digit_batch, frame_batch)
 
 
 def _bn_in_float64(self, params, state, x, it, *, training):
@@ -76,7 +78,10 @@ def _bn_in_float64(self, params, state, x, it, *, training):
 
 def _batch(shape, classes, batch, seed=0):
     """Uniform images and one-hot labels; ``classes`` None: a binary
-    [B, 1, H, W] mask (UNet's per-pixel labels)."""
+    [B, 1, H, W] mask (UNet's per-pixel labels); ``classes`` a function:
+    its ``(x, y)`` for the batch size and seed."""
+    if callable(classes):
+        return classes(batch, seed)
     rs = np.random.RandomState(seed)
     x = rs.rand(batch, *shape).astype(np.float32)
     if classes is None:
@@ -271,6 +276,72 @@ def _jax_lrn_stack():
     return lrn_stack(JC, JU)
 
 
+# CapsNet and the ConvLSTM frame predictor (chip_smoke.py phase 18): at the
+# published widths with phase 18's batches and data, and at the sizes of
+# their parity tests (tests/test_torch_capsules.py, the 12x12 configuration
+# of the JAX package's test_capsules.py with its bar images, and
+# tests/test_torch_layers_nets.py: 4 patch channels of 8x8, 4 frames, two
+# ConvLSTM layers of 8)
+SMALL_CAPSNET = dict(conv=16, capsules=4, capsule_dim=4, kernel=5, primary_kernel=3, classes=2,
+                     digit_dim=8, hw=12, lr=3e-3)
+SMALL_CONVLSTM = dict(channels=4, widths=(8, 8), kernel=3, frames=4, hw=8)
+
+
+def small_capsnet(C, U):
+    """The 12x12 CapsNet of the JAX package's test in the package ``C``/``U``."""
+    return capsnet_conf(C, U, **SMALL_CAPSNET)
+
+
+def bars_batch(batch, seed=0):
+    """The JAX package's CapsNet test data: 12x12 noise with a horizontal
+    bar (class 0) or a vertical one (class 1)."""
+    rs = np.random.RandomState(seed)
+    y = rs.randint(0, 2, batch)
+    x = rs.randn(batch, 1, 12, 12).astype(np.float32) * 0.1
+    for i, c in enumerate(y):
+        if c == 0:
+            x[i, 0, 3, :] += 2.0
+        else:
+            x[i, 0, :, 3] += 2.0
+    return x, np.eye(2, dtype=np.float32)[y]
+
+
+def small_frames(batch, seed=0):
+    """4 frames of 16x16 moving blobs cut into 2x2 patches: [B, 4, 4, 8, 8]."""
+    return frame_batch(batch, frames=4, size=16, block=2, seed=seed)
+
+
+def mask_zero_stack(C, U):
+    """MaskZeroLayer(LSTM 5) → TimeDistributed(Dense 4, tanh) → per-step
+    softmax, Adam, on 3 features x 6 steps (tests/test_torch_layers_nets.py)."""
+    L = C.LAYER_REGISTRY
+    return (C.NeuralNetConfiguration.Builder().seed(3).updater(U.Adam(1e-2)).list()
+            .layer(L["MaskZeroLayer"](underlying=C.LSTM(n_in=3, n_out=5)))
+            .layer(L["TimeDistributed"](underlying=C.DenseLayer(n_out=4, activation="tanh")))
+            .layer(C.RnnOutputLayer(n_out=3, activation="softmax", loss="mcxent"))
+            .set_input_type(C.InputType.recurrent(3, 6)).build())
+
+
+def padded_sequences(batch, seed=0):
+    """[B, 3, 6] normal sequences, the first one's last two steps zero
+    (MaskZeroLayer's padding), and one-hot [B, 3, 6] labels."""
+    rs = np.random.RandomState(seed)
+    x = rs.randn(batch, 3, 6).astype(np.float32)
+    x[0, :, 4:] = 0.0
+    return x, np.eye(3, dtype=np.float32)[rs.randint(0, 3, (batch, 6))].transpose(0, 2, 1)
+
+
+def _jax_conf(build):
+    def conf():
+        import deeplearning4j_tpu.nn  # noqa: F401  (registers the whole layer set)
+        from deeplearning4j_tpu.nn import conf as JC
+        from deeplearning4j_tpu.nn import updaters as JU
+
+        return build(JC, JU)
+
+    return conf
+
+
 # (name, conf, input shape, classes, batch, JAX counterpart for --jax: a
 # zoo model's (name, kwargs), or a function that builds the JAX configuration)
 CONFIGS = [
@@ -292,6 +363,14 @@ CONFIGS = [
      _classes(name, kw), 2, (name, kw)) for name, kw in ZOO_SMALL.items()
 ] + [
     ("lrn_stack_9x8_b4", lambda: lrn_stack(C, U), (2, 9, 8), 3, 4, _jax_lrn_stack),
+    ("capsnet_28_b4", lambda: capsnet_conf(C, U), (1, 28, 28), digit_batch, 4, None),
+    ("convlstm_16_b2", lambda: convlstm_conf(C, U), (16, 10, 16, 16), frame_batch, 2, None),
+    ("capsnet_12_b4", lambda: small_capsnet(C, U), (1, 12, 12), bars_batch, 4,
+     _jax_conf(small_capsnet)),
+    ("convlstm_8_b2", lambda: convlstm_conf(C, U, **SMALL_CONVLSTM), (4, 4, 8, 8), small_frames,
+     2, _jax_conf(lambda JC, JU: convlstm_conf(JC, JU, **SMALL_CONVLSTM))),
+    ("mask_zero_stack_b3", lambda: mask_zero_stack(C, U), (3, 6), padded_sequences, 3,
+     _jax_conf(mask_zero_stack)),
 ]
 
 

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+import deeplearning4j_tpu.nn  # noqa: F401  (registers the whole layer set)
 from deeplearning4j_tpu.nn import conf as JC
 from deeplearning4j_tpu_torch.nn import conf as TC
 
@@ -23,14 +24,23 @@ LOSS_REL = 1e-5      # losses and scores, relative
 
 
 def pair(cls_name, **kw):
-    """(JAX layer, port layer) of one class with the same fields."""
-    jl = getattr(JC, cls_name, None)
-    if jl is None:
-        from deeplearning4j_tpu.nn import attention_layers as JA
-        from deeplearning4j_tpu_torch.nn import attention_layers as TA
+    """(JAX layer, port layer) of one registered class with the same fields."""
+    return JC.LAYER_REGISTRY[cls_name](**kw), TC.LAYER_REGISTRY[cls_name](**kw)
 
-        return getattr(JA, cls_name)(**kw), getattr(TA, cls_name)(**kw)
-    return jl(**kw), getattr(TC, cls_name)(**kw)
+
+def layers(port: bool):
+    """Every registered layer class of one package, and its InputType, as
+    attributes: ``build(layers(False))`` and ``build(layers(True))`` make
+    the same (possibly nested) layer in the two packages."""
+    from types import SimpleNamespace
+
+    C = TC if port else JC
+    return SimpleNamespace(InputType=C.InputType, **C.LAYER_REGISTRY)
+
+
+def built_pair(build):
+    """(JAX layer, port layer) that ``build`` makes from :func:`layers`."""
+    return build(layers(False)), build(layers(True))
 
 
 def random_params(jlayer, it, rs, scale=0.5):
@@ -153,7 +163,7 @@ def layer_parity(jl, tl, it, x, rs, *, out_atol, grad_rel, x_grad=True, **fwd):
     ``grad_rel`` of their norms, ``output_type`` and ``flops_per_example``
     equal. Returns the port's output."""
     shapes = jax.tree.map(lambda a: a.shape, jl.init_params(jax.random.key(0), it))
-    jparams = jax.tree.map(lambda s: (rs.randn(*s) * 0.5).astype(np.float32), shapes,
+    jparams = jax.tree.map(lambda s: np.asarray(rs.randn(*s) * 0.5, np.float32), shapes,
                            is_leaf=lambda s: isinstance(s, tuple))
     jp = jax.tree.map(jnp.asarray, jparams)
 
