@@ -97,7 +97,7 @@ Phases:
    256 on a batch staged on the card: step time (median and p50+ of 20 after
    3 warm-up steps), images/s, peak memory, a profile (busy share, top
    kernels), the share of the bf16 peak, ``output()`` latency at batch 256,
-   and the step with ``cudnn.benchmark`` off and on in turns; (b)
+   and the step with ``cudnn.benchmark`` on, then off; (b)
    InceptionResNetV1 at its defaults (3x160x160, blocks (5, 10, 5), 1001
    classes, two outputs): a float32 fit against the CPU's at batch 4 with
    its DropoutLayer off, unit-norm embeddings, then bf16 Adam at batch 128:
@@ -109,6 +109,22 @@ Phases:
    each launching the flash forward, dkv and dq twice, and the bf16 kernels
    on each vertex's own q/k/v against their plain versions. Phase 2's
    ``rect_q96_k200`` case holds the kernels at 7c's non-causal rectangle;
+   (d) ResNet-50 from files on disk, right after 7a on its live bf16
+   network: bench.py's real-data legs at batch 256, 224x224, 1000 classes
+   (1024 random 256x256 JPEGs at quality 85 in 16 class directories),
+   uint8 NHWC batches cast, permuted and scaled on the card by
+   ``make_device_ingest(ImagePreProcessingScaler(), "NHWC")`` through
+   ``set_device_ingest`` (removed again before 9a): JPEGs decoded and
+   augmented by ``ImageRecordReader`` on a thread pool, the pre-decoded
+   uint8 cache, and the multi-process ETL service (its host worker curve,
+   then the full stack), each staged by ``DevicePrefetchIterator``:
+   images/s against 7a's median step, input and compute per step, input
+   wait and starved steps, h2d MB/s against a pinned probe; each leg's
+   first staged batch equal to its host batch bit for bit, the ingest equal
+   to the host transform (a standardizer's within 1e-6), then LeNet in
+   float32: a prefetched fit bit for bit the synchronous one and a bucketed
+   epoch with a ragged tail within 1e-6 of the unbucketed one; no child
+   process or shared-memory segment left. No flash kernel launches here;
 8. serving through ``JsonModelServer`` (every request must answer 200):
    (a) bench.py's serving configuration, a float32 Dense(64->128, relu) ->
    Output(8) MLN behind ``batch_limit(16).queue_size(256)``, 16 clients x
@@ -259,7 +275,7 @@ Phases:
    with ``infer_vector`` on a seeded four-topic corpus, ``SequenceVectors``
    over a ``GraphWalkIterator`` of a 200-node community graph, and
    ``BarnesHutTsne`` of (a)'s 2,000 word vectors (the affinities, the first
-   10 steps from one start, the final KL of 500), each against its CPU run
+   10 steps from one start, the final KL of 250), each against its CPU run
    on the same seed; (c) ``BertIterator`` (masked LM, ``max_length`` 128,
    batch 16) over WordPiece text from a seeded vocabulary, sentences and
    pairs of ~10 to past 128 pieces, feeding BERT-base at full width and
@@ -2517,7 +2533,7 @@ def phase_resnet(tag):
     the CPU's at batch 4 (full width), then bf16 training at batch 256 with
     the zoo's Nesterovs(0.1, 0.9): step time, images/s, peak memory, a
     profile, the share of the bf16 peak, ``output()`` latency, and the step
-    with ``cudnn.benchmark`` off and on in turns. Returns the trained
+    with ``cudnn.benchmark`` on, then off. Returns the trained
     network and its staged batch (phase 9a)."""
     import torch
 
@@ -2554,22 +2570,399 @@ def phase_resnet(tag):
     # cudnn.benchmark off (the library's default) and on, in turns
     by_mode = {False: [], True: []}
     try:
-        for mode in (True, False, False, True):
+        for mode in (True, False):
             torch.backends.cudnn.benchmark = mode
             t, _ = _train_steps(net, ds, 4, warmup=1)
             by_mode[mode] += t
     finally:
         torch.backends.cudnn.benchmark = False
     print(f"{tag} ResNet-50 fit step with cudnn.benchmark off: {spread(by_mode[False])}; on: "
-          f"{spread(by_mode[True])} (in turns, 4 timed steps per turn after one)", flush=True)
+          f"{spread(by_mode[True])} (one turn each, 4 timed steps after one)", flush=True)
     x = ds.features
-    out_times = wall_ms(lambda: net.output(x), n=10, warmup=2)
+    out_times = wall_ms(lambda: net.output(x), n=5, warmup=2)
     out = net.output(x)[0]
     check(tuple(out.shape) == (RESNET_BATCH, classes) and bool(torch.isfinite(out).all()),
           "ResNet-50: output() is not finite or has the wrong shape")
     print(f"{tag} ResNet-50 output() [{RESNET_BATCH},{dims}] float32: {spread(out_times)}, "
           f"{RESNET_BATCH / statistics.median(out_times) * 1e3:.1f} images/s", flush=True)
-    return net, ds  # phase 9a checkpoints this state
+    return net, ds, step_ms  # phase 7d trains on, phase 9a checkpoints this state
+
+
+# phase 7d: bench.py's real-data ResNet-50 legs (bench.py:153, :310-616):
+# 1024 random JPEGs of 256x256 at quality 85 from seed 0 in 16 class
+# directories, batch 256 cropped to 224x224, labels padded to 1000 classes
+# on the host; one warm-up step, then pipeline_steps timed steps per leg
+PIPELINE_IMAGES, PIPELINE_SRC, PIPELINE_DIRS, PIPELINE_STEPS = 1024, 256, 16, 3
+# a NormalizerStandardize ingest against the host transform, float32
+STANDARDIZE_ATOL = 1e-6
+# LeNet's bucketed epoch with a ragged tail against the unbucketed one (the
+# JAX package's pin); the prefetched fit against the synchronous one: bitwise
+BUCKET_ATOL = 1e-6
+PIPE_LENET_BATCH, PIPE_LENET_BATCHES, PIPE_LENET_TAIL = 64, 5, 37
+
+
+def _write_jpegs(root):
+    """bench.py's image set: arrays drawn in order from one RandomState(0),
+    encoded on a thread pool."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    rs = np.random.RandomState(0)
+    arrays = [rs.randint(0, 255, (PIPELINE_SRC, PIPELINE_SRC, 3), dtype=np.uint8)
+              for _ in range(PIPELINE_IMAGES)]
+    for c in range(PIPELINE_DIRS):
+        os.makedirs(os.path.join(root, f"c{c:03d}"), exist_ok=True)
+
+    def save(i):
+        Image.fromarray(arrays[i]).save(
+            os.path.join(root, f"c{i % PIPELINE_DIRS:03d}", f"i{i}.jpg"), quality=85)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(save, range(PIPELINE_IMAGES)))
+
+
+class _PadLabels:
+    """bench.py's ``_pad_labels_iter``: the directory labels one-hot over
+    ``classes`` on the host, before staging; keeps a host copy of the first
+    batch (features and padded labels) to hold the staged one against."""
+
+    def __init__(self, base, classes):
+        from deeplearning4j_tpu_torch.data import DataSetIterator
+
+        class Pad(DataSetIterator):
+            def has_next(inner):
+                return base.has_next()
+
+            def reset(inner):
+                base.reset()
+
+            def batch(inner):
+                return base.batch()
+
+            def next(inner):
+                from deeplearning4j_tpu_torch.data import DataSet
+
+                ds = base.next()
+                y = np.zeros((ds.features.shape[0], classes), np.float32)
+                k = min(ds.labels.shape[1], classes)
+                y[:, :k] = ds.labels[:, :k]
+                if self.first is None:
+                    self.first = (np.array(ds.features), y)
+                return DataSet(ds.features, y)
+
+        self.first = None
+        self.iterator = Pad()
+
+
+def _pinned_probe_mbps(nbytes_shape):
+    """MB/s of one pinned host batch copied to the card (5 copies after 2,
+    timed by CUDA events)."""
+    import torch
+
+    src = torch.ones(nbytes_shape, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(nbytes_shape, dtype=torch.uint8, device="cuda")
+    for _ in range(2):
+        dst.copy_(src, non_blocking=True)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(5):
+        dst.copy_(src, non_blocking=True)
+    end.record()
+    end.synchronize()
+    return src.numel() * 5 / 1e6 / (start.elapsed_time(end) / 1e3)
+
+
+def _pipeline_leg(tag, leg, net, data, want_first, step_ms, probe_mbps):
+    """One leg of 7d: a warm-up step, then ``PIPELINE_STEPS`` timed steps of
+    ``net.fit`` on the prefetcher's staged batches (each step waits for the
+    card), the first staged batch held bit for bit to its host batch;
+    prints images/s against 7a's median step and the pipeline's stats."""
+    import torch
+
+    from deeplearning4j_tpu_torch.common.environment import host_cpu_count
+
+    inputs, computes, scores = [], [], []
+    done, t0, first = 0, None, None
+    while done <= PIPELINE_STEPS:
+        if not data.has_next():
+            data.reset()
+        ti = time.perf_counter()
+        ds = data.next()
+        tc = time.perf_counter()
+        if first is None:
+            first = ds
+        net.fit(ds)
+        torch.cuda.synchronize()
+        te = time.perf_counter()
+        scores.append(net.score_)
+        if done == 0:
+            t0 = te  # the warm-up step (queue fill, first shapes) is not timed
+        else:
+            inputs.append((tc - ti) * 1e3)
+            computes.append((te - tc) * 1e3)
+        done += 1
+    ips = RESNET_BATCH * PIPELINE_STEPS / (time.perf_counter() - t0)
+    stats = data.stats()
+    data.reset()  # stop the worker and release the staged batches
+    wx, wy = want_first()
+    check(first.features.is_cuda and first.features.dtype == torch.uint8
+          and torch.equal(first.features.cpu(), torch.from_numpy(wx))
+          and torch.equal(first.labels.cpu(), torch.from_numpy(wy)),
+          f"7d {leg}: the staged batch differs from its host batch")
+    check(all(math.isfinite(s) for s in scores), f"7d {leg}: non-finite score in {scores}")
+    synthetic = RESNET_BATCH / step_ms * 1e3
+    print(f"{tag} 7d {leg}: {ips:.1f} images/s over {PIPELINE_STEPS} steps after one, "
+          f"{ips / synthetic:.3f} of 7a's {synthetic:.1f} (median step {step_ms:.3f} ms); "
+          f"per step input {spread(inputs)}, compute {spread(computes)}; input wait "
+          f"{stats['input_wait_ms_per_step']} ms/step, starved steps "
+          f"{stats['starved_steps']}; h2d {stats['h2d_MBps']} MB/s ({stats['h2d_bytes']} B "
+          f"in {stats['h2d_seconds']} s) against the pinned probe's {probe_mbps:.1f} MB/s; "
+          f"host CPUs {host_cpu_count()}; scores {scores[0]:.4f} -> {scores[-1]:.4f}"
+          + "".join(f"; {k} {stats[k]}" for k in ("etl_workers", "ring_slots",
+                                                  "etl_worker_busy_frac", "cache_hits",
+                                                  "cache_misses") if k in stats),
+          flush=True)
+    return first
+
+
+def _check_ingests(tag, x_u8):
+    """The ingest of a staged uint8 NHWC batch against the host transform
+    of the same batch in NCHW: the image scaler bit for bit (one IEEE
+    division on either side), a NormalizerStandardize within 1e-6."""
+    import torch
+
+    from deeplearning4j_tpu_torch.data import (DataSet, ImagePreProcessingScaler,
+                                               NormalizerStandardize, make_device_ingest)
+
+    nchw = x_u8.cpu().numpy().transpose(0, 3, 1, 2).astype(np.float32)
+    host = DataSet(nchw.copy(), None)
+    ImagePreProcessingScaler().transform(host)
+    got = make_device_ingest(ImagePreProcessingScaler(), "NHWC")(x_u8)
+    check(torch.equal(got.cpu(), torch.from_numpy(host.features)),
+          "7d: the image-scaler ingest differs from the host transform")
+    std = NormalizerStandardize().fit(DataSet(nchw[:32], None))
+    host = DataSet(nchw.copy(), None)
+    std.transform(host)
+    err = float((make_device_ingest(std, "NHWC")(x_u8).cpu()
+                 - torch.from_numpy(host.features)).abs().max())
+    check(err <= STANDARDIZE_ATOL, f"7d: standardize ingest off by {err:.3e}")
+    print(f"{tag} 7d ingest [{x_u8.shape[0]},224,224,3] uint8 NHWC -> float32 NCHW: the image "
+          f"scaler equals the host transform bit for bit; NormalizerStandardize within "
+          f"{err:.3e} (bound {STANDARDIZE_ATOL}); the permuted batch is not made contiguous "
+          f"(strides {tuple(got.stride())}: channels-last into the first convolution)",
+          flush=True)
+
+
+def _lenet_pipeline_checks(tag):
+    """LeNet in float32 on the card: a fit through DevicePrefetchIterator
+    bit for bit the synchronous fit; a bucketed epoch with a ragged tail
+    within 1e-6 of the unbucketed one (scores and parameters) with
+    PyTorch's own convolutions, and its scores within 1e-6 on cuDNN (whose
+    weight-gradient algorithm changes with the batch size, so the
+    parameter gap there is printed); ``tdl_bucket_pad_rows_total`` counting
+    the pad."""
+    import torch
+
+    from deeplearning4j_tpu_torch.common.bucketing import BucketSpec
+    from deeplearning4j_tpu_torch.data import (DataSet, DevicePrefetchIterator,
+                                               ListDataSetIterator)
+    from deeplearning4j_tpu_torch.data.datasets import _synthetic_mnist
+    from deeplearning4j_tpu_torch.models import LeNet
+    from deeplearning4j_tpu_torch.monitoring.registry import MetricsRegistry, get_registry
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+
+    n = PIPE_LENET_BATCH * PIPE_LENET_BATCHES + PIPE_LENET_TAIL
+    imgs, labels = _synthetic_mnist(n, 5, True)
+    x = (imgs.astype(np.float32) / 255.0).reshape(-1, 1, 28, 28)
+    y = np.eye(10, dtype=np.float32)[labels]
+    batches = [DataSet(x[i:i + PIPE_LENET_BATCH], y[i:i + PIPE_LENET_BATCH])
+               for i in range(0, n, PIPE_LENET_BATCH)]
+    counter = get_registry().counter("tdl_bucket_pad_rows_total", labels=("path",))
+
+    def bucketed_epoch(conf):
+        """(score gap, parameter gap, rows padded) of one epoch, bucketed
+        against unbucketed, step by step."""
+        ref, bucketed = (MultiLayerNetwork(conf, device="cuda").init() for _ in range(2))
+        bucketed.set_bucketing(BucketSpec(min_batch=PIPE_LENET_BATCH))
+        before, gap = counter.labels("train").value, 0.0
+        for ds in batches:
+            ref.fit(ds)
+            bucketed.fit(ds)
+            gap = max(gap, abs(ref.score_ - bucketed.score_))
+        check(bucketed.last_batch_size == PIPE_LENET_TAIL,
+              f"7d LeNet: last_batch_size {bucketed.last_batch_size}, not the true tail")
+        with torch.no_grad():
+            params = max(float((a - b).abs().max()) for (_, _, a), (_, _, b) in
+                         zip(ref._param_entries(), bucketed._param_entries()))
+        return gap, params, counter.labels("train").value - before
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # one algorithm per shape, run to run
+    try:
+        with float32_policy():
+            sync, pre = (LeNet().init(device="cuda") for _ in range(2))
+            sync.fit(ListDataSetIterator(batches), epochs=2)
+            pre.fit(DevicePrefetchIterator(ListDataSetIterator(batches), buffer_size=2,
+                                           registry=MetricsRegistry()), epochs=2)
+            on_cudnn = bucketed_epoch(LeNet().conf())
+            torch.backends.cudnn.enabled = False
+            try:
+                native = bucketed_epoch(LeNet().conf())
+            finally:
+                torch.backends.cudnn.enabled = True
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    same = all(torch.equal(a, b) for (_, _, a), (_, _, b) in
+               zip(sync._param_entries(), pre._param_entries()))
+    check(same and sync.score_ == pre.score_ and pre.iteration == 2 * len(batches),
+          "7d LeNet: the prefetched fit differs from the synchronous fit")
+    pad = PIPE_LENET_BATCH - PIPE_LENET_TAIL
+    check(native[0] <= BUCKET_ATOL and native[1] <= BUCKET_ATOL and on_cudnn[0] <= BUCKET_ATOL,
+          f"7d LeNet: bucketed epoch off by {native[0]:.3e} (scores), {native[1]:.3e} "
+          f"(parameters), {on_cudnn[0]:.3e} (scores with cuDNN)")
+    check(native[2] == on_cudnn[2] == pad, f"7d LeNet: tdl_bucket_pad_rows_total rose by "
+                                           f"{native[2]} and {on_cudnn[2]}, expected {pad}")
+    print(f"{tag} 7d LeNet float32 Adam(1e-3), {len(batches)} batches of {PIPE_LENET_BATCH} "
+          f"with a tail of {PIPE_LENET_TAIL}: DevicePrefetchIterator fit bit for bit the "
+          f"synchronous fit over 2 epochs (cudnn deterministic); bucketed epoch (tail padded "
+          f"to {PIPE_LENET_BATCH}) against the unbucketed one, with PyTorch's own "
+          f"convolutions (one algorithm at both batch sizes): scores {native[0]:.3e}, "
+          f"parameters {native[1]:.3e} (bound {BUCKET_ATOL}); on cuDNN: scores "
+          f"{on_cudnn[0]:.3e} (bound {BUCKET_ATOL}), parameters {on_cudnn[1]:.3e} (printed: "
+          f"cuDNN's weight-gradient algorithm for conv 2 differs between {PIPE_LENET_BATCH} "
+          f"and {PIPE_LENET_TAIL} rows); tdl_bucket_pad_rows_total +{pad} per epoch",
+          flush=True)
+
+
+def phase_input_pipeline(tag, net, step_ms):
+    """7d: bench.py's real-data ResNet-50 legs on 7a's live bf16 network,
+    the ingest ``make_device_ingest(ImagePreProcessingScaler(), "NHWC")``
+    installed with ``set_device_ingest`` (and removed at the end): JPEGs
+    decoded and augmented on a thread pool, the pre-decoded uint8 cache,
+    and the multi-process ETL service (the host worker curve, then the full
+    stack), each staged by ``DevicePrefetchIterator``; then LeNet's
+    prefetch and bucketing checks. No flash kernel launches here."""
+    import multiprocessing as mp
+
+    from deeplearning4j_tpu_torch.common.environment import host_cpu_count
+    from deeplearning4j_tpu_torch.data import (CachedImageDataSetIterator, DevicePrefetchIterator,
+                                               EtlDataSetIterator, FileSplit, FlipImageTransform,
+                                               ImageEtlSpec, ImagePreProcessingScaler,
+                                               ImageRecordReader, ImageRecordReaderDataSetIterator,
+                                               ParentPathLabelGenerator, PipelineImageTransform,
+                                               PreDecodedImageCache, RandomCropTransform,
+                                               make_device_ingest)
+    from deeplearning4j_tpu_torch.data.etl_service import SHM_PREFIX
+    from deeplearning4j_tpu_torch.monitoring.registry import MetricsRegistry, get_registry
+
+    classes, hw = 1000, 224
+    workers = min(16, host_cpu_count())
+    probe = _pinned_probe_mbps((RESNET_BATCH, hw, hw, 3))
+    root = tempfile.mkdtemp(prefix="tdl_smoke_jpegs_")
+    net.set_device_ingest(make_device_ingest(ImagePreProcessingScaler(), "NHWC"))
+    try:
+        t = time.perf_counter()
+        _write_jpegs(root)
+        print(f"{tag} 7d {PIPELINE_IMAGES} JPEGs {PIPELINE_SRC}x{PIPELINE_SRC} q85 written in "
+              f"{time.perf_counter() - t:.2f} s; pinned h2d probe of one [{RESNET_BATCH},{hw},{hw},"
+              f"3] uint8 batch {probe:.1f} MB/s", flush=True)
+        # leg 1: JPEGs decoded and augmented on a thread pool
+        chain = PipelineImageTransform([RandomCropTransform(hw, hw), FlipImageTransform(1)])
+        rr = ImageRecordReader(hw, hw, 3, ParentPathLabelGenerator(), transform=chain,
+                               uint8_wire=True)
+        rr.initialize(FileSplit(root))
+        decode = ImageRecordReaderDataSetIterator(rr, RESNET_BATCH, num_workers=workers)
+        pad = _PadLabels(decode, classes)
+        data = DevicePrefetchIterator(pad.iterator, buffer_size=3, registry=MetricsRegistry())
+        first = _pipeline_leg(tag, f"JPEG leg ({workers} decode threads)", net, data,
+                              lambda: pad.first, step_ms, probe)
+        _check_ingests(tag, first.features)
+        del first
+        decode.close()
+        # leg 2: the pre-decoded uint8 cache
+        t = time.perf_counter()
+        cache = PreDecodedImageCache(os.path.join(root, "_u8cache"),
+                                     (PIPELINE_SRC, PIPELINE_SRC)).build(FileSplit(root),
+                                                                         num_workers=workers)
+        build_s = time.perf_counter() - t
+        pad = _PadLabels(CachedImageDataSetIterator(cache, RESNET_BATCH, crop=(hw, hw),
+                                                    dtype=np.uint8), classes)
+        data = DevicePrefetchIterator(pad.iterator, buffer_size=3, registry=MetricsRegistry())
+        _pipeline_leg(tag, "cached leg", net, data, lambda: pad.first, step_ms, probe)
+        host_it = CachedImageDataSetIterator(cache, RESNET_BATCH, crop=(hw, hw), dtype=np.uint8)
+        list(host_it)  # warm the page cache
+        t, cnt = time.perf_counter(), 0
+        for _ in range(2):
+            for ds in host_it:
+                cnt += ds.features.shape[0]
+        host_ips = cnt / (time.perf_counter() - t)
+        print(f"{tag} 7d cache build {build_s:.2f} s ({len(cache)} images, {workers} threads); "
+              f"host-only cached ETL {host_ips:.1f} images/s "
+              f"({host_ips / (RESNET_BATCH / step_ms * 1e3):.3f} of 7a)", flush=True)
+        # leg 3: the multi-process ETL service
+        spec = ImageEtlSpec.from_directory(root, hw, hw, batch_size=RESNET_BATCH,
+                                           num_classes=classes, store_pad=PIPELINE_SRC - hw,
+                                           cache_dir=os.path.join(root, "_etlcache"))
+        # the ring lives in /dev/shm, where a write past the free space is a
+        # SIGBUS: two slots per worker (the service's default) while half of
+        # the free space holds them
+        slot = RESNET_BATCH * hw * hw * 3
+        shm_free = shutil.disk_usage("/dev/shm").free
+        slots = lambda w: max(2, min(2 * w, shm_free // (2 * slot)))  # noqa: E731
+        curve = []
+        # largest first: the first epoch decodes into the shared cache, so
+        # the other points' first epochs time their spawns; a pool is at
+        # most the epoch's batches (4 here), so the host's count may fold
+        sizes = {min(w, len(spec.my_batches())) for w in (1, 2, 4, host_cpu_count())}
+        for w in sorted(sizes, reverse=True):
+            t = time.perf_counter()
+            it = EtlDataSetIterator(spec, num_workers=w, ring_slots=slots(w),
+                                    registry=MetricsRegistry())
+            try:
+                for _ in it:  # warm-up epoch: spawn, and the cache filled
+                    pass
+                warm = time.perf_counter() - t
+                t0, n = time.perf_counter(), 0
+                for _ in range(2):
+                    it.reset()
+                    while it.has_next():
+                        n += it.next().features.shape[0]
+                curve.append((w, n / (time.perf_counter() - t0), warm))
+            finally:
+                it.close()
+        curve.sort()
+        print(f"{tag} 7d ETL host worker curve over {{1, 2, 4, {host_cpu_count()} CPUs}} "
+              f"workers, at most {len(spec.my_batches())} batches, ring slots of "
+              f"{slot / 1e6:.1f} MB in /dev/shm with {shm_free / 2 ** 30:.1f} GiB free (images/s, "
+              f"cache warm; the first epoch's spawn, and at {curve[-1][0]} workers the decode, "
+              f"in s): "
+              + ", ".join(f"{w} workers {r:.1f} ({s:.2f} s)" for w, r, s in curve), flush=True)
+        w_max = curve[-1][0]
+        b0 = spec.my_batches()[0]
+
+        def etl_first():
+            imgs, labs, _ = spec.produce(b0, 0, None)
+            return imgs, np.eye(classes, dtype=np.float32)[labs]
+
+        data = DevicePrefetchIterator(EtlDataSetIterator(spec, num_workers=w_max,
+                                                         ring_slots=slots(w_max),
+                                                         registry=get_registry()),
+                                      buffer_size=3, registry=get_registry())
+        _pipeline_leg(tag, f"ETL leg ({w_max} worker processes)", net, data, etl_first,
+                      step_ms, probe)
+        data.close()
+        left = [p.name for p in mp.active_children()]
+        segs = [s for s in os.listdir("/dev/shm") if s.startswith(SHM_PREFIX)
+                and f"_{os.getpid()}_" in s]
+        check(not left and not segs,
+              f"7d: child processes {left} or shared-memory segments {segs} left behind")
+    finally:
+        net.set_device_ingest(None)  # 9a checkpoints this network as 7a left it
+        shutil.rmtree(root, ignore_errors=True)
+    _free_card()
+    _lenet_pipeline_checks(tag)
 
 
 def _facenet(dev, dropout=True):
@@ -5497,6 +5890,9 @@ TABLE_REL = 1e-4
 # two; one step from a shared state gave at most 9.8e-07 (y) and 2.0e-07
 # (KL) in all 600 (tests/torch_tsne_drift.py)
 TSNE_STEPS_CHECKED = 10
+# the depth of 14b's t-SNE runs, on the card and as the CPU reference (cut
+# from 500 steps to make room for phase 7d)
+TSNE_ITERS = 250
 TSNE_Y_REL = 1e-5    # a step's embedding, of its largest magnitude
 TSNE_KL_REL = 1e-5   # a step's KL
 TSNE_P_ATOL = 1e-6   # the affinities (float32 bisection)
@@ -5674,7 +6070,7 @@ def phase_nlp_rest(tag, w2v):
     # from the CPU run's state), then the whole run's final KL
     x = w2v.syn0
     n = x.shape[0]
-    tsne = TS.BarnesHutTsne(seed=17)
+    tsne = TS.BarnesHutTsne(seed=17, n_iter=TSNE_ITERS)
     perp = min(tsne.perplexity, max((n - 1) / 3.0, 2.0))
     ps = []
     for device in ("cuda", "cpu"):
@@ -5709,7 +6105,7 @@ def phase_nlp_rest(tag, w2v):
     t_card, t_cpu, kls = [], [], []
     for device, sink in (("cuda", t_card), ("cpu", t_cpu)):
         t0 = time.perf_counter()
-        m = TS.BarnesHutTsne(seed=17, device=device)
+        m = TS.BarnesHutTsne(seed=17, n_iter=TSNE_ITERS, device=device)
         y = m.fit_transform(x)
         sink.append(time.perf_counter() - t0)
         check(np.isfinite(y).all() and y.shape == (n, 2), f"t-SNE on {device}: bad embedding")
@@ -6920,8 +7316,14 @@ def main() -> int:
         phase_attention_mln(tag, launches)
         print(f"phase 6c attention MLN: ok ({time.perf_counter() - t6:.1f} s)", flush=True)
         t7 = time.perf_counter()
-        resnet = phase_resnet(tag)
+        net, ds, resnet_ms = phase_resnet(tag)
+        resnet = (net, ds)
+        del net, ds
         print(f"phase 7a ResNet-50: ok ({time.perf_counter() - t7:.1f} s)", flush=True)
+        t7 = time.perf_counter()
+        phase_input_pipeline(tag, resnet[0], resnet_ms)
+        print(f"phase 7d ResNet-50 from files on disk: ok ({time.perf_counter() - t7:.1f} s)",
+              flush=True)
         t7 = time.perf_counter()
         phase_facenet(tag)
         print(f"phase 7b InceptionResNetV1: ok ({time.perf_counter() - t7:.1f} s)", flush=True)

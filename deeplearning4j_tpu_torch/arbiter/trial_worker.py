@@ -33,9 +33,10 @@ On the card every trial process is one NCCL rank of a gang of its own, so
 up to the fleet's ``max_concurrent`` such processes share one card.
 
 The JAX package's second task, ``lenet_images``, decodes an image
-directory through the ETL service (``data/etl_service.py``), which the port
-does not have yet (ROADMAP item 8.5): it stays a registered kind that
-raises :class:`NotImplementedError` when built.
+directory through the ETL service (``data/etl_service.py``, ported) into
+trial gangs that spawn their own decode workers; the task itself is not
+ported yet (ROADMAP item 8.5b): it stays a registered kind that raises
+:class:`NotImplementedError` when built.
 """
 
 from __future__ import annotations
@@ -117,13 +118,13 @@ class SynthClassifyTask:
 class LenetImagesTask:
     """The JAX package's LeNet-style conv task over an image directory,
     decoded through its ETL service with a shared decoded-batch cache. The
-    port has no ETL service yet, so building it raises."""
+    task is not ported yet, so building it raises."""
 
     def __init__(self, spec: Dict):
         raise NotImplementedError(
-            "trial task 'lenet_images' decodes its images through the ETL service "
-            "(data/etl_service.py ImageEtlSpec and DecodedBatchCache), which the port "
-            "does not have yet (ROADMAP.md queue 1 item 8.5); use 'synth_classify'")
+            "trial task 'lenet_images' (LeNet over an image directory decoded by the ETL "
+            "service's ImageEtlSpec and DecodedBatchCache) is not ported yet (ROADMAP.md "
+            "queue 1 item 8.5b); use 'synth_classify'")
 
 
 TASKS = {

@@ -11,16 +11,19 @@ staged on the device is not copied back to the host).
 
 from __future__ import annotations
 
+import sys
 from typing import List, Optional, Sequence
 
 import numpy as np
-import torch
 
 
 def _to_np(x):
     if x is None or isinstance(x, np.ndarray):
         return x
-    if isinstance(x, torch.Tensor):
+    # a tensor exists only where torch is imported: this module imports
+    # nothing of torch, so the ETL service's worker processes never load it
+    torch = sys.modules.get("torch")
+    if torch is not None and isinstance(x, torch.Tensor):
         return x if x.device.type != "cpu" else x.numpy()
     if hasattr(x, "numpy"):
         return x.numpy()

@@ -17,7 +17,8 @@
 - :mod:`.deploy` — the deploy controller's families and the paired canary
   judgement (``paired_canary_windows``, ``judge_canary_windows``);
 - :mod:`.trial` — the trial fleet's families (``tdl_trial_*``,
-  ``tdl_fleet_disk_bytes``) and the exclusive trial-state gauge.
+  ``tdl_fleet_disk_bytes``) and the exclusive trial-state gauge;
+- :mod:`.etl` — the multi-process ETL service's families (``tdl_etl_*``).
 
 The spools, flight logs and heartbeats read the same to both packages' fleet
 tools. The JAX package's ``costmodel``, ``trace``, ``watchdogs``, ``slo``
@@ -27,6 +28,7 @@ and the rest are not ported yet (ROADMAP item 8).
 from .aggregate import MetricsSpooler, maybe_spool, merged_prometheus
 from .alerts import AlertEngine, AlertRule, default_rules
 from .deploy import canary_rules, deploy_metrics
+from .etl import etl_metrics
 from .flight import FlightRecorder, get_flight_recorder, set_flight_recorder
 from .heartbeat import HeartbeatWriter, host_rss_bytes, read_heartbeat
 from .history import HistoryRing, HistoryView
@@ -36,6 +38,7 @@ from .serving import serving_metrics
 from .trial import TRIAL_STATES, set_trial_state, trial_metrics
 
 __all__ = [
+    "etl_metrics",
     "AlertEngine",
     "AlertRule",
     "default_rules",

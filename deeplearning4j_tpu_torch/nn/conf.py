@@ -840,8 +840,14 @@ class LocalResponseNormalization(Layer):
 def _embedding_ids(ix, rows: int) -> torch.Tensor:
     """``ix`` as long ids, each checked to lie in [0, rows). JAX clamps an
     out-of-range gather; a CUDA gather would hit a device-side assert that
-    poisons the context, so the port raises first."""
+    poisons the context, so the eager port raises first. A program traced by
+    ``torch.export`` cannot branch on the ids' values, so there an id is
+    mapped as JAX's exported gather maps it: a negative id counts once from
+    the end, then the id is clamped into range. The artifact gives JAX's
+    answer for every id and never gathers out of range."""
     ix = ix.to(torch.long)
+    if torch.compiler.is_exporting():
+        return torch.where(ix < 0, ix + rows, ix).clamp(0, rows - 1)
     if ix.numel() and (bool((ix < 0).any()) or bool((ix >= rows).any())):
         raise ValueError(f"embedding ids must lie in [0, {rows})")
     return ix

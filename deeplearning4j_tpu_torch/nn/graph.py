@@ -27,8 +27,11 @@ Random numbers follow the reference's derivation: a step's key is
 ``(seed ^ 0x5EED, iteration)``, a node's that key folded with the node's
 index in the topological order, vertices counted.
 
-Not ported yet: ``set_bucketing`` and ``set_device_ingest`` (ROADMAP.md
-queue 1 item 8), the monitoring trace and watchdog hooks (item 8).
+``set_device_ingest`` takes one function for every input, or a dict
+``{input_name: fn}`` that scopes an ingest to some inputs (an image scaler
+never touches a dense side input); ``set_bucketing`` pads DataSets and
+MultiDataSets (``common.bucketing``). Not ported yet: the monitoring trace
+and watchdog hooks (ROADMAP.md queue 1 item 8.6).
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from ..common.device import resolve_device
 from ..common.dtypes import to_torch
 from ..common.precision import amp_enabled, cast_floating, cast_input, compute_dtype
 from ..data.dataset import DataSet, MultiDataSet
+from ..data.iterators import AsyncDataSetIterator
 from ..eval.evaluation import Evaluation
 from .conf import BatchNormalization, GlobalPoolingLayer, LastTimeStep
 from .constraints import is_bias
@@ -226,7 +230,8 @@ class ComputationGraph(_LazyScoreMixin, nn.Module):
             weight = dp.loss_weight(next(iter(lmasks.values())))
         with torch.enable_grad(), data_parallel.use(dp):
             pc = cast_floating(live, cdt) if amp else live
-            xc = {k: cast_input(v, cdt) for k, v in inputs.items()} if amp else inputs
+            xi = {k: self._ingest_input(k, v) for k, v in inputs.items()}
+            xc = {k: cast_input(v, cdt) for k, v in xi.items()} if amp else xi
             loss, new_bn = self._forward(pc, self._bn(), xc, training=True, rng=rng,
                                          labels=labels, lmasks=lmasks, shares=shares)
             flat = [(name, k, p) for name, pd in live.items() for k, p in pd.items()]
@@ -268,11 +273,13 @@ class ComputationGraph(_LazyScoreMixin, nn.Module):
     # ------------------------------------------------------------------- fit
 
     def _coerce_inputs(self, features) -> Dict[str, torch.Tensor]:
+        # an input with an ingest stages at its wire dtype (uint8 stays
+        # uint8); the ingest casts it inside the step
         if isinstance(features, dict):
-            return {k: self._put(v, self._dtype) for k, v in features.items()}
+            return {k: self._put(v, self._wire_dtype(k)) for k, v in features.items()}
         if not isinstance(features, (list, tuple)):
             features = [features]
-        return {name: self._put(f, self._dtype)
+        return {name: self._put(f, self._wire_dtype(name))
                 for name, f in zip(self.conf.network_inputs, features)}
 
     def _coerce_labels(self, labels) -> Dict[str, torch.Tensor]:
@@ -298,20 +305,32 @@ class ComputationGraph(_LazyScoreMixin, nn.Module):
         """fit(DataSet | MultiDataSet | iterator of either) or
         fit(features, labels): arrays, lists of arrays in the order of the
         network's inputs and outputs, or dicts keyed by their names."""
-        for _ in range(epochs):
-            if isinstance(data, (DataSet, MultiDataSet)):
-                self._fit_batch(*self._batch(data))
-            elif hasattr(data, "__iter__") and not isinstance(
-                    data, (np.ndarray, torch.Tensor, list, tuple, dict)):
-                for ds in data:
-                    self._fit_batch(*self._batch(ds))
-            else:
-                self._fit_batch(self._coerce_inputs(data), self._coerce_labels(labels), None)
-            self.epoch += 1
+        try:
+            for _ in range(epochs):
+                if isinstance(data, (DataSet, MultiDataSet)):
+                    self._fit_one(data)
+                elif hasattr(data, "__iter__") and not isinstance(
+                        data, (np.ndarray, torch.Tensor, list, tuple, dict)):
+                    for ds in data:
+                        self._fit_one(ds)
+                else:
+                    self._fit_batch(self._coerce_inputs(data), self._coerce_labels(labels), None)
+                self.epoch += 1
+        finally:
+            # a prefetching iterator joins its worker even when an epoch raises
+            if isinstance(data, AsyncDataSetIterator):
+                data.close()
         return self
 
-    def _fit_batch(self, inputs, labels, lmasks):
-        self.last_batch_size = int(next(iter(inputs.values())).shape[0])
+    def _fit_one(self, ds):
+        """One DataSet or MultiDataSet, padded to its bucket first when
+        bucketing is on (the padded rows carry a zero labels mask)."""
+        ds, true_n = self._bucket_dataset(ds)
+        self._fit_batch(*self._batch(ds), true_examples=true_n)
+
+    def _fit_batch(self, inputs, labels, lmasks, true_examples=None):
+        self.last_batch_size = (true_examples if true_examples is not None
+                                else int(next(iter(inputs.values())).shape[0]))
         self.score_ = self._step(inputs, labels, lmasks, self.iteration)  # read on first use
         self.iteration += 1
         self._notify()
@@ -341,6 +360,7 @@ class ComputationGraph(_LazyScoreMixin, nn.Module):
         """Every network output's activations, in the order of
         ``network_outputs``, in inference mode and the model's dtype."""
         inputs = self._coerce_inputs(list(features) if len(features) > 1 else features[0])
+        inputs = {k: self._ingest_input(k, v) for k, v in inputs.items()}
         outs, _ = self._forward(self._whole_params("output()"), self._bn(), inputs,
                                 training=False, rng=None)
         return [outs[o] for o in self.conf.network_outputs]
@@ -355,6 +375,7 @@ class ComputationGraph(_LazyScoreMixin, nn.Module):
         if ds is None:
             return self.score_
         inputs, labels, _ = self._batch(ds)
+        inputs = {k: self._ingest_input(k, v) for k, v in inputs.items()}
         loss, _ = self._forward(self._whole_params("score()"), self._bn(), inputs,
                                 training=False, rng=None,
                                 labels=labels)

@@ -23,8 +23,14 @@ Random numbers follow the JAX package's derivation, with generators in
 place of keys: a step's key is ``(seed ^ 0x5EED, iteration)``, a layer's
 that key folded with its index (:class:`~.dropout.RngKey`).
 
-Not ported yet: ``set_bucketing`` and ``set_device_ingest`` (ROADMAP.md
-queue 1 item 8), the monitoring trace and watchdog hooks (item 8). Checkpoints of the network are ``serde.checkpoint`` and
+``set_device_ingest`` installs a function (``data.normalizers
+.make_device_ingest``) that the step, ``output()`` and evaluation run on
+the raw wire batch, followed by the cast to the network's dtype; the batch
+is then staged at its wire dtype (uint8 stays uint8). ``set_bucketing``
+pads ragged batches to the bucket policy of ``common.bucketing``, masked
+out of the loss; ``last_batch_size`` stays the true count. Not ported yet:
+the monitoring trace and watchdog hooks (ROADMAP.md queue 1 item 8.6).
+Checkpoints of the network are ``serde.checkpoint`` and
 ``serde.model_serializer``.
 """
 
@@ -42,7 +48,8 @@ from ..common.device import resolve_device
 from ..common.dtypes import to_torch
 from ..common.precision import amp_enabled, cast_floating, cast_input, compute_dtype
 from ..data.dataset import DataSet
-from ..data.iterators import ArrayDataSetIterator, DataSetIterator, ListDataSetIterator
+from ..data.iterators import (ArrayDataSetIterator, AsyncDataSetIterator, DataSetIterator,
+                              ListDataSetIterator)
 from ..eval.evaluation import Evaluation, RegressionEvaluation
 from .attention_layers import (LearnedSelfAttentionLayer, RecurrentAttentionLayer,
                                SelfAttentionLayer)
@@ -180,13 +187,96 @@ class _LazyScoreMixin:
 
     setListeners = add_listeners
 
-    def set_bucketing(self, spec):
-        raise NotImplementedError("set_bucketing: shape bucketing of the fit paths is not "
-                                  "ported yet (ROADMAP.md queue 1 item 8)")
+    # -- on-device input ingest (narrow wire format) ------------------------
+    # the installed function runs inside the step, output() and evaluation
+    # on the raw wire batch (uint8 NHWC → float32 NCHW, normalized); see
+    # data.normalizers.make_device_ingest
+
+    _device_ingest = None
 
     def set_device_ingest(self, fn):
-        raise NotImplementedError("set_device_ingest: on-device input ingest is not ported "
-                                  "yet (ROADMAP.md queue 1 item 8)")
+        """Install ``fn`` (raw wire batch → float32 model-layout batch, a
+        torch function) to run inside the train step, ``output()`` and
+        evaluation; None removes it. On a ComputationGraph a dict
+        ``{input_name: fn}`` scopes ingests to some inputs (the others
+        stage at the model's dtype); a dict is refused on a
+        MultiLayerNetwork."""
+        if isinstance(fn, dict) and not hasattr(self.conf, "network_inputs"):
+            raise TypeError(
+                "a dict of ingests needs named inputs (ComputationGraph); "
+                "MultiLayerNetwork takes a single callable")
+        self._device_ingest = fn
+        return self
+
+    def _ingest_fn(self, name=None):
+        fn = self._device_ingest
+        return fn.get(name) if isinstance(fn, dict) else fn
+
+    def _ingest_input(self, name, x):
+        f = self._ingest_fn(name)
+        return x if f is None else f(x).to(self._dtype)
+
+    def _wire_dtype(self, name=None):
+        """Staging dtype of one input: None (keep the wire dtype, e.g.
+        uint8) when an ingest casts it inside the step."""
+        return None if self._ingest_fn(name) is not None else self._dtype
+
+    def _ingest(self, x):
+        return self._ingest_input(None, x)
+
+    def _features_dtype(self):
+        return self._wire_dtype()
+
+    # -- shape bucketing -----------------------------------------------------
+    # ragged final batches (and, opted in, variable sequence lengths) pad to
+    # the bucket policy; padded rows carry a zero labels mask, so the loss
+    # and gradients are those of the unpadded batch (common.bucketing)
+
+    _bucketing = None
+
+    def set_bucketing(self, spec):
+        """Install a :class:`~..common.bucketing.BucketSpec` (``True`` for
+        the defaults, None to disable) on the fit paths.
+        ``last_batch_size`` keeps the TRUE example count. Refuses networks
+        with BatchNormalization: its batch statistics would see the padded
+        rows."""
+        from ..common.bucketing import BucketSpec
+
+        if spec is True:
+            spec = BucketSpec()
+        if spec is not None and spec.batch:
+            for name, layer in self._iter_layer_confs():
+                if isinstance(layer, BatchNormalization):
+                    raise ValueError(
+                        "shape bucketing is unsupported with "
+                        f"BatchNormalization (layer {name}): padded zero "
+                        "rows would enter the batch mean/variance, silently "
+                        "breaking parity with unbucketed training; train "
+                        "without bucketing (ragged tails fall back to one "
+                        "executable per distinct shape)")
+        self._bucketing = spec
+        return self
+
+    def _iter_layer_confs(self):
+        """(name, layer configuration) of an MLN's list or a graph's nodes."""
+        layers = getattr(self.conf, "layers", None)
+        if layers is not None:
+            for i, layer in enumerate(layers):
+                yield str(i), layer
+            return
+        for name, node in self.conf.nodes.items():
+            if node.layer is not None:
+                yield name, node.layer
+
+    def _bucket_dataset(self, ds):
+        """(possibly padded ds, true example count, or None when off)."""
+        if self._bucketing is None:
+            return ds, None
+        from ..common.bucketing import pad_dataset, pad_multidataset
+
+        if isinstance(ds, DataSet):
+            return pad_dataset(ds, self._bucketing)
+        return pad_multidataset(ds, self._bucketing)
 
 
 class MultiLayerNetwork(_LazyScoreMixin, nn.Module):
@@ -317,7 +407,8 @@ class MultiLayerNetwork(_LazyScoreMixin, nn.Module):
         live = shards.gather(params) if shards is not None else params
         with torch.enable_grad(), data_parallel.use(dp):
             pc = cast_floating(live, cdt) if amp else live
-            xc = cast_input(x, cdt) if amp else x
+            xi = self._ingest(x)  # on the device: cast, layout, normalize
+            xc = cast_input(xi, cdt) if amp else xi
             loss, (new_bn, new_rnn) = self._loss_fn(pc, self._bn(), xc, y, fmask, lmask, rng,
                                                     True, rnn_states)
             weight = dp.loss_weight(lmask) if dp is not None else None
@@ -374,13 +465,19 @@ class MultiLayerNetwork(_LazyScoreMixin, nn.Module):
             f = data.numpy() if hasattr(data, "numpy") else np.asarray(data)
             l = labels.numpy() if hasattr(labels, "numpy") else np.asarray(labels)
             it = ArrayDataSetIterator(f, l, batch_size or f.shape[0])
-        for _ in range(epochs):
-            for ds in it:
-                self._fit_batch(ds)
-            self.epoch += 1
-            for lst in self.listeners:
-                if hasattr(lst, "on_epoch_end"):
-                    lst.on_epoch_end(self)
+        try:
+            for _ in range(epochs):
+                for ds in it:
+                    self._fit_batch(ds)
+                self.epoch += 1
+                for lst in self.listeners:
+                    if hasattr(lst, "on_epoch_end"):
+                        lst.on_epoch_end(self)
+        finally:
+            # a prefetching iterator joins its worker here, so an exception
+            # mid-epoch cannot leak the thread (or an ETL base's processes)
+            if isinstance(it, AsyncDataSetIterator):
+                it.close()
         return self
 
     def fit_scan(self, datasets) -> np.ndarray:
@@ -401,7 +498,8 @@ class MultiLayerNetwork(_LazyScoreMixin, nn.Module):
                                  "features/labels masks")
         losses = []
         for k, ds in enumerate(datasets):
-            loss, _ = self._step(self._put(ds.features, self._dtype), self._put(ds.labels),
+            loss, _ = self._step(self._put(ds.features, self._features_dtype()),
+                                 self._put(ds.labels),
                                  self._put(ds.features_mask), self._put(ds.labels_mask),
                                  self.iteration + k)
             losses.append(loss)
@@ -411,19 +509,22 @@ class MultiLayerNetwork(_LazyScoreMixin, nn.Module):
         self._notify()
         return torch.stack(losses).float().cpu().numpy()
 
-    def _fit_batch(self, ds: DataSet):
+    def _fit_batch(self, ds: DataSet, true_examples: Optional[int] = None):
+        if true_examples is None:
+            ds, true_examples = self._bucket_dataset(ds)
         if self.conf.backprop_type == "TruncatedBPTT" and self.conf.tbptt_fwd_length > 0:
-            self._fit_tbptt(ds)
+            self._fit_tbptt(ds, true_examples)
             return
-        x = self._put(ds.features, self._dtype)
-        self.last_batch_size = int(x.shape[0])
+        x = self._put(ds.features, self._features_dtype())
+        # the TRUE count when bucketing padded this batch
+        self.last_batch_size = true_examples if true_examples is not None else int(x.shape[0])
         loss, _ = self._step(x, self._put(ds.labels), self._put(ds.features_mask),
                              self._put(ds.labels_mask), self.iteration)
         self.score_ = loss  # read as a float on first use
         self.iteration += 1
         self._notify()
 
-    def _fit_tbptt(self, ds: DataSet):
+    def _fit_tbptt(self, ds: DataSet, true_examples: Optional[int] = None):
         """Truncated BPTT (MultiLayerNetwork fitHelper's tbptt path): the time
         axis is padded to a multiple of ``tbptt_fwd_length`` (labels mask 0
         on the padding) and split into segments; one update per segment,
@@ -453,7 +554,7 @@ class MultiLayerNetwork(_LazyScoreMixin, nn.Module):
             seg_weights = self._data_parallel.all_reduce_sum(seg_weights)
         seg = lambda a, s: a[..., s * fwd:(s + 1) * fwd]  # noqa: E731
         rnn_states = self._zero_rnn_states(B)
-        self.last_batch_size = B
+        self.last_batch_size = true_examples if true_examples is not None else B
         losses = []
         for s in range(S):
             loss, rnn_states = self._step(seg(x_all, s), seg(y_all, s),
@@ -491,15 +592,15 @@ class MultiLayerNetwork(_LazyScoreMixin, nn.Module):
         """Forward to the final layer's activations (MultiLayerNetwork.output),
         in inference mode and the model's dtype."""
         params = self._whole_params("output()")
-        h, _, _ = self._forward(params, self._bn(), self._put(x, self._dtype), training=False,
-                                rng=None)
+        x = self._ingest(self._put(x, self._features_dtype()))
+        h, _, _ = self._forward(params, self._bn(), x, training=False, rng=None)
         return self._head_forward(params, h)
 
     @torch.no_grad()
     def feed_forward(self, x) -> List[torch.Tensor]:
         """All layer activations (MultiLayerNetwork.feedForward)."""
         params = self._whole_params("feed_forward()")
-        xj = self._put(x, self._dtype)
+        xj = self._ingest(self._put(x, self._features_dtype()))
         acts, _, _ = self._forward(params, self._bn(), xj, training=False, rng=None,
                                    collect=True)
         return acts + [self._head_forward(params, acts[-1] if acts else xj)]
@@ -510,7 +611,7 @@ class MultiLayerNetwork(_LazyScoreMixin, nn.Module):
         if ds is None:
             return self.score_
         loss, _ = self._loss_fn(self._whole_params("score()"), self._bn(),
-                                self._put(ds.features, self._dtype),
+                                self._ingest(self._put(ds.features, self._features_dtype())),
                                 self._put(ds.labels), self._put(ds.features_mask),
                                 self._put(ds.labels_mask), None, False)
         return float(loss)

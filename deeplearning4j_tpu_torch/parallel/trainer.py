@@ -43,7 +43,14 @@ port's updaters are elementwise (none has a trust ratio), so updating the
 blocks is exact. ``checkpointer()`` carries the partitioner into
 ``serde.checkpoint``. A layout with a ``pipe`` axis is refused here: only
 ``parallel.pipeline.PipelineParallelTrainer`` runs the microbatch schedule
-it implies. Not ported yet: ``sharded_etl`` (ROADMAP.md item 8).
+it implies.
+
+Input: ``fit(prefetch=K)`` stages the next K batches on the card while the
+step runs (``prefetch()``: a ``DevicePrefetchIterator`` over
+``batch_sharding()``, which copies only this rank's rows of a batch);
+``sharded_etl(spec)`` gives this rank's slice of the multi-process ETL
+service (``data.etl_service``) behind that prefetcher; ``bucketing=``
+pads ragged batches to a bucket that the data group divides.
 """
 
 from __future__ import annotations
@@ -193,26 +200,114 @@ class ParallelTrainer:
         with self._phases.phase("h2d"):
             return self.net._put(x, dtype)
 
+    def _input_dtypes(self, n_inputs: int):
+        """The staging dtype of each features array: the network's dtype,
+        or the wire dtype (None) of an input with an on-device ingest."""
+        n = self.net
+        names = getattr(n.conf, "network_inputs", None)
+        if names is None:
+            return [n._features_dtype()] * n_inputs
+        return [n._wire_dtype(name) for name in names[:n_inputs]]
+
     def _staged(self, ds):
-        dt = getattr(self.net, "_dtype", None)
         if isinstance(ds, MultiDataSet):  # a ComputationGraph's several inputs and outputs
-            many = lambda xs, d=None: None if xs is None else [self._stage(x, d)  # noqa: E731
-                                                              for x in xs]
-            return MultiDataSet(many(ds.features, dt), many(ds.labels),
-                                many(ds.features_masks), many(ds.labels_masks))
-        return DataSet(self._stage(ds.features, dt), self._stage(ds.labels),
-                       self._stage(ds.features_mask), self._stage(ds.labels_mask))
+            many = lambda xs: None if xs is None else [self._stage(x) for x in xs]  # noqa: E731
+            feats = [self._stage(x, d) for x, d in
+                     zip(ds.features, self._input_dtypes(len(ds.features)))]
+            return MultiDataSet(feats, many(ds.labels), many(ds.features_masks),
+                                many(ds.labels_masks))
+        return DataSet(self._stage(ds.features, self._input_dtypes(1)[0]),
+                       self._stage(ds.labels), self._stage(ds.features_mask),
+                       self._stage(ds.labels_mask))
+
+    def batch_sharding(self) -> "BatchSharding":
+        """How a global batch is placed: its rows split over the ranks of
+        distinct rows, this rank's part on its device. Hand it to a
+        :class:`~..data.iterators.DevicePrefetchIterator` and each rank
+        copies only its rows (the one-shot placement); the fit loop's
+        staging then does nothing."""
+        return BatchSharding(self._rank, self._ndata, self.net.device)
+
+    def prefetch(self, iterator, buffer_size: int = 2):
+        """Wrap ``iterator`` so that the next ``buffer_size`` batches are
+        copied to the card (this rank's rows) while the current step runs.
+        Under bucketing a batch is staged whole: the trainer pads the
+        global batch before it splits it."""
+        from ..data.iterators import DevicePrefetchIterator
+
+        sharding = None if getattr(self.net, "_bucketing", None) is not None \
+            else self.batch_sharding()
+        return DevicePrefetchIterator(iterator, buffer_size=buffer_size, sharding=sharding,
+                                      device=self.net.device)
+
+    # -- sharded ETL --------------------------------------------------------
+
+    def _etl_rank_world(self):
+        """(rank, world size) for per-rank input sharding: every rank of a
+        ParallelTrainer feeds the same global batches, so it reads the
+        whole stream; MultiProcessTrainer overrides."""
+        return 0, 1
+
+    #: whether this trainer's ``prefetch()`` buffers HOST views across
+    #: ``base.next()`` calls. DevicePrefetchIterator copies each batch to the
+    #: card before it asks for the next, so the ring's view is done with
+    #: when its slot is released: zero-copy is safe. MultiProcessTrainer's
+    #: AsyncDataSetIterator queues the raw views, which a worker could
+    #: overwrite in place.
+    _prefetch_buffers_host_views = False
+
+    def sharded_etl(self, spec, num_workers=None, ring_slots=None, prefetch: int = 2):
+        """This rank's slice of a multi-process ETL pipeline: the spec
+        re-ranked to this trainer's (rank, world size), so each gang member's
+        workers decode only its batches, the same ones across restarts, and
+        wrapped in the trainer's prefetcher (``prefetch=0`` gives the bare
+        :class:`~..data.etl_service.EtlDataSetIterator`, e.g. to
+        ``set_state`` before fitting)."""
+        from ..data.etl_service import EtlDataSetIterator
+
+        spec = spec.for_rank(*self._etl_rank_world())
+        zero_copy = not (prefetch and self._prefetch_buffers_host_views)
+        it = EtlDataSetIterator(spec, num_workers=num_workers, ring_slots=ring_slots,
+                                zero_copy=zero_copy)
+        return self.prefetch(it, buffer_size=prefetch) if prefetch else it
+
+    # -- bucketing ----------------------------------------------------------
+
+    def _bucket_multiple(self) -> int:
+        """What the bucket must divide by: the ranks of distinct rows (every
+        rank feeds the whole global batch); MultiProcessTrainer's ranks feed
+        their local shards, so there it is 1."""
+        return self._ndata
+
+    def _bucket_for_mesh(self, ds):
+        """``ds`` padded to the network's bucket spec with the data group's
+        size folded into the bucket multiple, so a bucketed batch always
+        divides and the remainder step stays dead. Returns ``(ds,
+        true_examples or None)``."""
+        spec = getattr(self.net, "_bucketing", None)
+        if spec is None or getattr(ds, "global_examples", None) is not None:
+            return ds, None
+        import math
+        from dataclasses import replace
+
+        from ..common.bucketing import pad_dataset, pad_multidataset
+
+        multiple = self._bucket_multiple()
+        if spec.batch_multiple % multiple:
+            spec = replace(spec, batch_multiple=math.lcm(spec.batch_multiple, multiple))
+        if isinstance(ds, MultiDataSet):
+            return pad_multidataset(ds, spec)
+        return pad_dataset(ds, spec)
 
     # -- fit ----------------------------------------------------------------
 
     def fit(self, iterator, epochs: int = 1, prefetch: int = 0):
         """Fit ``epochs`` passes over ``iterator`` (DataSets of global
-        batches; local shards for :class:`MultiProcessTrainer`). Batches are
-        staged synchronously: ``prefetch`` > 0 (the JAX trainer's
-        asynchronous staging) is ROADMAP.md item 8 and raises."""
+        batches; local shards for :class:`MultiProcessTrainer`).
+        ``prefetch=K`` overlaps the ETL and the copies of the next K batches
+        with the step (0: staged synchronously)."""
         if prefetch:
-            raise NotImplementedError("prefetch: asynchronous input staging is not ported yet "
-                                      "(ROADMAP.md queue 1 item 8)")
+            iterator = self.prefetch(iterator, buffer_size=prefetch)
         try:
             for _ in range(epochs):
                 batches = iter(iterator)
@@ -228,12 +323,19 @@ class ParallelTrainer:
                 self._phases.discard()
                 self.net.epoch += 1
         finally:
+            # join a prefetching worker even when a step raises (and free a
+            # restartable ETL base's processes)
+            from ..data.iterators import AsyncDataSetIterator
+
+            if isinstance(iterator, AsyncDataSetIterator):
+                iterator.close()
             aggregate.maybe_spool(force=True)
             flight.flush()
         return self.net
 
     def _fit_batch(self, ds: DataSet):
-        b = ds.num_examples()
+        ds, self._bucketed_true_examples = self._bucket_for_mesh(ds)
+        b = _global_examples(ds)
         rem = b % self._ndata
         if rem and (self.partitioner is not None or self.sharding_rules is not None):
             raise ValueError(f"a global batch of {b} rows over {self._ndata} ranks of "
@@ -308,23 +410,31 @@ class ParallelTrainer:
                 self._grad_bytes)
 
     def _shard(self, ds: DataSet) -> DataSet:
-        """This rank's rows of a global batch, on the device."""
+        """This rank's rows of a global batch, on the device (a batch the
+        prefetcher staged through ``batch_sharding()`` holds them already)."""
+        if getattr(ds, "global_examples", None) is not None:
+            return self._staged(ds)
         b = ds.num_examples() // self._ndata
         return _slice_ds(self._staged(ds), self._rank * b, (self._rank + 1) * b)
 
     def _fit_core_inner(self, ds: DataSet):
         n = self.net
         local = self._shard(ds)
+        # the batch was padded already (a bucket the group divides): the
+        # network gets the TRUE count and does not pad again
+        true_n = getattr(self, "_bucketed_true_examples", None)
         n._data_parallel = self._context
         try:
+            padded = {} if true_n is None else {"true_examples": true_n}
             if isinstance(n, _mln()):
                 # the net's own fit paths (tbptt included), one logical step
-                n._fit_batch(local)
+                n._fit_batch(local, **padded)
             else:  # ComputationGraph
-                n._fit_batch(*n._batch(local))
+                n._fit_batch(*n._batch(local), **padded)
         finally:
             n._data_parallel = None
-        n.last_batch_size = ds.num_examples()  # what this trainer was fed
+        # what this trainer was fed
+        n.last_batch_size = true_n if true_n is not None else _global_examples(ds)
 
 
 def _mln():
@@ -352,6 +462,25 @@ class MultiProcessTrainer(ParallelTrainer):
                 "takes sharding_rules")
         super().__init__(net, mesh, data_axis, mesh_layout=mesh_layout)
 
+    def prefetch(self, iterator, buffer_size: int = 2):
+        """Host-staged prefetch, as in the JAX package: each rank feeds its
+        local shard, which the step stages itself; overlapping the ETL with
+        the step still pays."""
+        from ..data.iterators import AsyncDataSetIterator
+
+        return AsyncDataSetIterator(iterator, queue_size=buffer_size)
+
+    # the Async wrapper above queues RAW host batches across base.next()
+    # calls: an ETL ring view buffered there could be overwritten in place,
+    # so sharded_etl hands out copies
+    _prefetch_buffers_host_views = True
+
+    def _etl_rank_world(self):
+        # the data coordinate: ranks that differ only in fsdp or tp feed
+        # the same rows
+        return (self.mesh.axis_index(self.data_axis),
+                self.mesh.axis_size(self.data_axis))
+
     def _bucket_multiple(self) -> int:
         # each rank feeds its local shard to its one device
         return 1
@@ -359,6 +488,7 @@ class MultiProcessTrainer(ParallelTrainer):
     def _fit_batch(self, ds: DataSet):
         # the remainder fallback cannot cross process boundaries: a rank's
         # local batch must divide by its local device count (one)
+        ds, self._bucketed_true_examples = self._bucket_for_mesh(ds)
         b = ds.num_examples()
         if getattr(self.net, "_bucketing", None) is not None:
             _check_lockstep_buckets(b)
@@ -401,6 +531,34 @@ def _check_lockstep_buckets(b: int) -> None:
             "bucketed local batch sizes diverged across processes: "
             f"{sizes} — multi-process bucketing requires lockstep "
             "feeds (the same local batch size on every rank each step)")
+
+
+class BatchSharding:
+    """The rows of a global batch that one rank trains on: rank ``r`` of
+    ``world`` ranks of distinct rows holds rows ``[r·b/world,
+    (r+1)·b/world)`` on ``device`` (``ParallelTrainer.batch_sharding()``,
+    read by ``DevicePrefetchIterator``)."""
+
+    def __init__(self, rank: int, world: int, device):
+        self.rank, self.world, self.device = rank, world, device
+
+    def divides(self, n: int) -> bool:
+        return n % self.world == 0
+
+    def rows(self, a):
+        b = int(a.shape[0]) // self.world
+        return a[self.rank * b:(self.rank + 1) * b]
+
+    def local(self, ds, placed) -> DataSet:
+        """This rank's staged rows of ``ds``, knowing the global count."""
+        out = DataSet(*placed)
+        out.global_examples = ds.num_examples()
+        return out
+
+
+def _global_examples(ds) -> int:
+    g = getattr(ds, "global_examples", None)
+    return ds.num_examples() if g is None else g
 
 
 def _slice_ds(ds, a: int, b: int):

@@ -10,8 +10,9 @@ multi-device mode. The fit is :class:`~.trainer.ParallelTrainer`'s (every
 rank feeds the same global batches); ``training_mode="AVERAGING"`` with
 ``averaging_frequency > 1`` selects the in-process
 :class:`~.trainer.ParameterAveragingTrainingMaster`, as in the JAX package.
-``prefetch_buffer`` is kept for the API: batches are staged synchronously
-(asynchronous staging is ROADMAP.md queue 1 item 8).
+``prefetch_buffer`` > 0 wraps a ``DataSetIterator`` in an
+``AsyncDataSetIterator`` of that depth, as the JAX package does: a host
+thread keeps the next batches ready while the step runs.
 """
 
 from __future__ import annotations
@@ -41,6 +42,11 @@ class ParallelWrapper:
                     "wrapper in each")
 
     def fit(self, iterator, epochs: int = 1):
+        from ..data.iterators import AsyncDataSetIterator, DataSetIterator
+
+        if self.prefetch_buffer > 0 and isinstance(iterator, DataSetIterator) and not isinstance(
+                iterator, AsyncDataSetIterator):
+            iterator = AsyncDataSetIterator(iterator, queue_size=self.prefetch_buffer)
         if self.training_mode == "AVERAGING" and self.averaging_frequency > 1:
             master = ParameterAveragingTrainingMaster(
                 workers=self.workers, averaging_frequency=self.averaging_frequency)

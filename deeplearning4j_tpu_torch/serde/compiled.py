@@ -245,17 +245,48 @@ def load_compiled(path: str, device="cuda") -> CompiledModel:
 # --------------------------------------------------------- framework fronts
 
 
+def _nested(pd: dict) -> dict:
+    """A layer's parameters with "/"-joined keys (a Bidirectional's
+    ``"fwd/W"``) as a nested tree (``{"fwd": {"W": ...}}``)."""
+    out: Dict[str, Any] = {}
+    for k, v in pd.items():
+        *path, leaf = k.split("/")
+        cur = out
+        for p in path:
+            cur = cur.setdefault(p, {})
+        cur[leaf] = v
+    return out
+
+
+def _joined(tree, prefix="") -> dict:
+    """The inverse of :func:`_nested`."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_joined(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
 def export_multilayer(net, path: str, example_input) -> Dict[str, float]:
     """``MultiLayerNetwork.export()``: the inference forward (``output()``)
     as a compiled artifact; weights = ``{"params", "bn"}`` under the JAX
     package's keys (layer index, parameter name; ``mean``/``var``)."""
 
     def fwd(weights, x):
-        h, _, _ = net._forward(weights["params"], weights["bn"], x, training=False, rng=None)
-        return net._head_forward(weights["params"], h)
+        params = {si: _joined(pd) for si, pd in weights["params"].items()}
+        h, _, _ = net._forward(params, weights["bn"], net._ingest(x), training=False,
+                               rng=None)
+        return net._head_forward(params, h)
 
-    x = net._put(example_input, net._dtype)
-    weights = {"params": net._params(), "bn": net._bn()}
+    # the example at the wire dtype: an on-device ingest (set_device_ingest)
+    # is part of the exported forward, as it is of output()
+    x = net._put(example_input, net._features_dtype())
+    # a wrapped layer's flat "fwd/W" keys go in as the nested tree JAX's
+    # artifact holds: weights.npz's "/"-joined paths reload into that tree
+    weights = {"params": {si: _nested(pd) for si, pd in net._params().items()},
+               "bn": net._bn()}
     return export_compiled(fwd, (x,), weights, path,
                            metadata={"model_type": "MultiLayerNetwork"})
 

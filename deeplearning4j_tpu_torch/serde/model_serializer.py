@@ -13,10 +13,14 @@ writes ``__list<i>`` / ``__tuple<i>`` for a position in a sequence, which
 the state trees of either package never hold. bfloat16 arrays are their raw
 bytes (``|V2``), as ``serde.net_state`` says.
 
-Not ported: normalizers (ROADMAP item 8.5), so ``write_model(normalizer=)``
-raises and a ``normalizer.json`` in a zip is ignored on restore, as the JAX
-package ignores it; Keras HDF5 and TF GraphDef import (item 8.8), which
-``ModelGuesser`` recognises and refuses.
+``write_model(normalizer=)`` adds ``normalizer.json``: the normalizer's
+``_state()``, the JSON that ``Normalizer.save`` writes and
+``Normalizer.restore`` reads (the JAX package's ``write_model`` calls a
+``normalizer.to_json()`` that none of its normalizers has, and raises
+mid-zip; the port does not copy that). A restore reads the network and
+ignores ``normalizer.json``, as the JAX package does. Not ported: Keras
+HDF5 and TF GraphDef import (item 8.8), which ``ModelGuesser`` recognises
+and refuses.
 """
 
 from __future__ import annotations
@@ -51,9 +55,6 @@ class ModelSerializer:
         from ..nn.graph import ComputationGraph
         from .net_state import snapshot
 
-        if normalizer is not None:
-            raise NotImplementedError("write_model(normalizer=): normalizers are not ported "
-                                      "yet (ROADMAP.md queue 1 item 8.5)")
         kind = "ComputationGraph" if isinstance(model, ComputationGraph) else "MultiLayerNetwork"
         payload = {"@model": kind, "configuration": json.loads(model.conf.to_json())}
         arrays = snapshot(model)
@@ -67,6 +68,8 @@ class ModelSerializer:
                 z.writestr("bnState.npz", _npz_bytes(arrays, "bn"))
             z.writestr("meta.json", json.dumps(
                 {"iteration": model.iteration, "epoch": model.epoch, "score": model.score_}))
+            if normalizer is not None:
+                z.writestr("normalizer.json", json.dumps(normalizer._state()))
 
     writeModel = write_model
 

@@ -209,9 +209,11 @@ def test_node_names_are_kept_and_escaped_for_the_module():
     assert not torch.equal(clone.params(), tnet.params())
     clone.fit(MultiDataSet(features, labels))
     assert torch.equal(clone.params(), tnet.params())
-    for call in (lambda: tnet.set_bucketing(True), lambda: tnet.set_device_ingest(None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"):
-            call()
+    # bucketing and the on-device ingest are ported (tests/test_torch_bucketing.py,
+    # tests/test_torch_normalizers.py); this graph's BN node refuses bucketing, as in JAX
+    with pytest.raises(ValueError, match="BatchNormalization \\(layer bn\\)"):
+        tnet.set_bucketing(True)
+    assert tnet.set_device_ingest({"x1": None}) is tnet and tnet._wire_dtype("x2") == tnet._dtype
 
 
 def _dropout_conf(p):

@@ -84,7 +84,10 @@ def test_importing_the_port_loads_no_jax():
                    "nlp.sequencevectors", "nlp.paragraph_vectors", "nlp.glove", "nlp.tfidf",
                    "nlp.tsne", "nlp.bert_iterator", "arbiter", "arbiter.optimize",
                    "arbiter.spaces", "arbiter.trial_worker", "arbiter.fleet", "monitoring.trial",
-                   "nn.transfer", "models.vgg", "models.zoo_ext", "models.nasnet"):
+                   "nn.transfer", "models.vgg", "models.zoo_ext", "models.nasnet",
+                   "common.bucketing", "data.normalizers", "data.records",
+                   "data.record_reader_iterator", "data.image", "data.etl_service",
+                   "monitoring.etl"):
         assert f"deeplearning4j_tpu_torch.{module}" in added
     assert [m for m in added if _forbidden(m)] == []
 
@@ -319,6 +322,27 @@ def test_cpu_training_never_touches_the_build(monkeypatch):
                                                  torch.Generator().manual_seed(0))
     assert loss.device.type == "cpu" and bool(torch.isfinite(loss))
     assert [f.launches for f in counters] == before
+
+
+def test_input_pipeline_host_modules_import_without_torch():
+    """What a spawned ETL worker imports (``data.etl_service`` with the
+    image, record, dataset and iterator modules, through the lazy ``data``
+    package), the normalizers and the bucketing policy load in a fresh
+    interpreter without torch, JAX or the JAX package."""
+    script = ("import json, sys\n"
+              "from deeplearning4j_tpu_torch.data import ImageEtlSpec, EtlDataSetIterator\n"
+              "import deeplearning4j_tpu_torch.data.etl_service\n"
+              "import deeplearning4j_tpu_torch.data.image\n"
+              "import deeplearning4j_tpu_torch.data.record_reader_iterator\n"
+              "import deeplearning4j_tpu_torch.data.normalizers\n"
+              "import deeplearning4j_tpu_torch.common.bucketing\n"
+              "import deeplearning4j_tpu_torch.monitoring.etl\n"
+              "print(json.dumps(sorted(sys.modules)))\n")
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, check=True)
+    mods = json.loads(out.stdout.strip().splitlines()[-1])
+    assert [m for m in mods if _forbidden(m)] == []
+    assert "torch" not in mods and "deeplearning4j_tpu_torch.data.etl_service" in mods
 
 
 def test_supervisor_and_controller_import_without_jax_or_torch():

@@ -16,6 +16,7 @@ normalizer is refused on write (item 8.5) and ignored on restore, as in
 the JAX package.
 """
 
+import json
 import zipfile
 
 import jax
@@ -141,8 +142,15 @@ def test_updater_state_is_optional_and_a_normalizer_is_ignored(tmp_path):
     assert all(not t.any() for slot in fresh.updater_state.values() for t in slot.values())
     for (_, _, a), (_, _, b) in zip(fresh._param_entries(), full._param_entries()):
         assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="item 8.5"):
-        ModelSerializer.write_model(full, str(tmp_path / "n.zip"), normalizer=object())
+    # write_model(normalizer=) is ported: it adds the normalizer's JSON, which a
+    # restore ignores (tests/test_torch_normalizers.py holds it to JAX's)
+    from deeplearning4j_tpu_torch.data.normalizers import ImagePreProcessingScaler
+
+    npath = str(tmp_path / "n.zip")
+    ModelSerializer.write_model(full, npath, normalizer=ImagePreProcessingScaler())
+    with zipfile.ZipFile(npath) as z:
+        assert json.loads(z.read("normalizer.json"))["kind"] == "image"
+    assert_same_state(ModelSerializer.restore(npath, device="cpu"), jnet)
 
 
 def test_model_guesser(tmp_path):

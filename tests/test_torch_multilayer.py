@@ -288,10 +288,11 @@ def test_clone_is_independent_and_not_ported_calls_raise():
     assert not torch.equal(copy.params(), tnet.params())
     copy.fit(DataSet(x, y))
     assert torch.equal(copy.params(), tnet.params())
-    # export is ported (serde.compiled, tests/test_torch_compiled_export.py)
-    for call in (lambda: tnet.set_bucketing(True), lambda: tnet.set_device_ingest(None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
+    # export is ported (serde.compiled, tests/test_torch_compiled_export.py);
+    # so are bucketing and the on-device ingest (tests/test_torch_bucketing.py,
+    # tests/test_torch_normalizers.py): LeNet has no BN, so bucketing installs
+    assert tnet.set_bucketing(True) is tnet and tnet._bucketing is not None
+    assert tnet.set_device_ingest(None) is tnet and tnet._features_dtype() == torch.float32
     # init_pretrained is ported: without a local zip it refuses, as in JAX
     with pytest.raises(ValueError, match="no pretrained weights can be downloaded"):
         LeNet().init_pretrained()

@@ -8,8 +8,10 @@ creates in another worker process while a port test runs is then reported
 as the port test's leak (an ERROR at its teardown, though its body passed),
 and unlinked under the ETL service that still uses it. This audit checks
 the same two things for what this process can leak: its own live child
-processes, and the ``tdl_*`` segments named after this process's pid (the
-ETL service names its rings ``tdl_etl_<pid>_<id>``) or after no pid.
+processes, and the port's ``tdlt_*`` segments (``SHM_PREFIX``; the port's
+ETL service names its rings ``tdlt_etl_<pid>_<id>``, outside the ``tdl_``
+names the suite-wide audit takes) named after this process's pid or after
+no pid.
 
 ``tf32``, ``truncate_tf32``, ``split`` and ``product`` model the float32
 kernels' products on the TF32 tensor cores (3xTF32, ``csrc/attention_tiles.cuh``
@@ -26,10 +28,12 @@ import pytest
 import torch
 
 _SHM_DIR = "/dev/shm"
-_CREATOR_PID = re.compile(r"^tdl_[a-z]+_(\d+)_")
+SHM_PREFIX = "tdlt_"
+_CREATOR_PID = re.compile(r"^tdlt_[a-z]+_(\d+)_")
 
 
 def _own_tdl_shm_segments():
+    """The port's segments that this process made (or that name no pid)."""
     try:
         names = os.listdir(_SHM_DIR)
     except OSError:  # non-Linux: no visible shm namespace to audit
@@ -37,7 +41,7 @@ def _own_tdl_shm_segments():
     pid = str(os.getpid())
     own = set()
     for name in names:
-        if not name.startswith("tdl_"):
+        if not name.startswith(SHM_PREFIX):
             continue
         m = _CREATOR_PID.match(name)
         if m is None or m.group(1) == pid:
@@ -52,6 +56,15 @@ def _no_leaked_children_or_shm():
     after the failure is recorded."""
     before = _own_tdl_shm_segments()
     yield
+    leaked_procs, leaked_shm = reap_leaks(before)
+    assert not leaked_procs and not leaked_shm, (
+        f"test leaked live child processes {leaked_procs} and/or "
+        f"shared-memory segments {sorted(leaked_shm)}")
+
+
+def reap_leaks(before):
+    """(names of live child processes, this process's port segments not in
+    ``before``), each terminated or unlinked."""
     leaked_procs = []
     children = mp.active_children()  # also reaps finished children
     if children:
@@ -72,9 +85,7 @@ def _no_leaked_children_or_shm():
             os.unlink(os.path.join(_SHM_DIR, name))
         except OSError:
             pass
-    assert not leaked_procs and not leaked_shm, (
-        f"test leaked live child processes {leaked_procs} and/or "
-        f"shared-memory segments {sorted(leaked_shm)}")
+    return leaked_procs, leaked_shm
 
 
 def tf32(x):
