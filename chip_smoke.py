@@ -129,7 +129,11 @@ Phases:
    (a) bench.py's serving configuration, a float32 Dense(64->128, relu) ->
    Output(8) MLN behind ``batch_limit(16).queue_size(256)``, 16 clients x
    20 one-row requests: req/s, p50/p99, mean coalesced rows, each answer
-   equal to its row's ``output`` alone; (b) phase 6c's attention MLN in
+   equal to its row's ``output`` alone, with an ``SloTracker`` over the
+   stock objectives and an ``AlertEngine`` over the stock rules evaluating
+   a ``HistoryRing`` of the server's registry while the clients run
+   (attainment, budget left, burn rates, the rules that fired; every
+   objective sees traffic, availability 1.0); (b) phase 6c's attention MLN in
    bf16 behind ``batch_limit(8)`` (8 clients x 8 sequences): one flash
    forward per executed batch, each answer within one bf16 ulp of its
    sequence's ``output`` alone at the served batch shape; then ResNet-50's
@@ -146,7 +150,8 @@ Phases:
    of 8c's model (``chip_smoke.py:serving_replica``, one CUDA context each,
    one kernel build shared through the pool's compile cache): the six
    prompts through the router (tokens held to phase 4's), ``scale_to(3)``
-   and the third replica's time to ready beside the first two's, and a
+   and the third replica's time to ready beside the first two's (its
+   ``compilecache.stats()``: every library a cache hit, none a miss), and a
    draining stop after which every replica exited 0;
 9. checkpoints (``serde.checkpoint``): (a) phase 7a's ResNet-50 state
    through ``TrainingCheckpointer(async_write=True, durable=True)``: the time
@@ -300,7 +305,13 @@ Phases:
    accuracy); (c) bench.py's resume leg (3 trials, one rung of 4, one gang
    at a time) through ``python -m deeplearning4j_tpu_torch.arbiter.fleet``,
    SIGKILLed with its gang after the first journaled score and rerun: the
-   pre-kill scores adopted verbatim, the time to a winner;
+   pre-kill scores adopted verbatim, the time to a winner; (d) bench.py's
+   shared-ETL-cache leg: 48 16x16 grayscale PNGs from seed 0 in 4 class
+   directories, two ``lenet_images`` trials (12x12, batch 8, store_pad 2,
+   seed 5, rung 3) one at a time on the card over one ``cache_dir``: the
+   first trial's ETL traffic has misses, the second's is all hits (read per
+   trial from the merged spools), no child process and no ``tdlt_``
+   segment left;
 16. transfer learning: a float32 LeNet (published widths) trained one epoch
    of 6a's synthetic MNIST, then ``TransferLearning.Builder`` with Adam 1e-3,
    ``set_feature_extractor(3)`` and ``n_out_replace(5, 26)``, fine-tuned on
@@ -340,14 +351,37 @@ Phases:
    against the CPU at the parity tests' small shapes (output or loss, and
    the gradients of the input and every parameter; both GRU modes, both
    Deconvolution3D modes, pooling in both modes, the wrappers, the loss
-   heads). Phases 15 to 18 launch none of the three kernels.
+   heads). Phases 15 to 18 launch none of the three kernels;
+19. (a) datavec to the card: a 100,000-row CSV with DL4J's
+   BasicDataVecExample columns from a seed through a ``TransformProcess``
+   (ids removed, refunds replaced, Mexico filtered out, the country one-hot,
+   hour and weekday derived from the time string, the label an integer):
+   rows/s, then ``CSVRecordReader`` -> ``RecordReaderDataSetIterator`` into
+   a float32 MLN, and 512 one-second 16 kHz WAV clips in 8 class
+   directories through ``WavFileRecordReader(features="spectrogram")``
+   ([124, 129] per clip, clips/s) into a small CNN: each fit against the
+   CPU's (6a's limits), then ms per step; (b) the monitored training path:
+   phase 6c's attention MLN (bf16 Adam) under a ``RecompileWatchdog``, a
+   ``DeviceMemoryWatchdog``, a trace profiler (``OpProfiler``) and a
+   ``MetricsListener``, inside a ``torch.profiler`` capture: an epoch of 6
+   steps, then one batch of 96 and one of 64 tokens: one step span per step
+   in the OpProfiler and as ``record_function`` ranges, new signatures 1,
+   2, 3 and one churn warning, the memory gauges equal to
+   ``torch.cuda.memory_stats()``, the listener's counts equal to the steps,
+   each kernel launched once per step; the cost tables (flops counted under
+   fake tensors, no launch and no change to the network) of LeNet at batch
+   128, phase 5's BERT-base MLM step (the flash operators among the counted
+   ones) and 6c's step, with coverage and the device-bytes breakdown;
+   LeNet's step with the hooks off and on in turns (median of 40 after 5;
+   the inactive step computes no signature and opens no span); a crash
+   dump written and read back.
 
 A line before the last is a JSON object describing each kernel (launch
 counts on the main path, error against the plain version, times and the
 card's bound; the forward also by q-tile instantiation, with the launches
 of the autotune search; phase 10's to 14's launches are in the counts:
 the forward in 10a-d, the backward pair in 10b-d, all three in 11a, 11c,
-12a, 12b, 13a, 13b and 14c, the forward in 13c's replicas and eval gate),
+12a, 12b, 13a, 13b, 14c and 19b, the forward in 13c's replicas and eval gate),
 then the card's name and power
 limit; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero and
@@ -2334,6 +2368,18 @@ def _attention_conf(updater, dropout=0.0):
             .set_input_type(C.InputType.recurrent(ATTN_C, ATTN_T)).build())
 
 
+def _attention_batch(T, seed):
+    """6c's batch of ``T`` steps from ``seed``: [ATTN_B, ATTN_C, T] features
+    with a ragged features mask (the first row full), one-hot labels of 10."""
+    from deeplearning4j_tpu_torch.data import DataSet
+
+    rs = np.random.RandomState(seed)
+    lengths = np.concatenate([[T], rs.randint(16, T + 1, ATTN_B - 1)])
+    fm = (np.arange(T)[None] < lengths[:, None]).astype(np.float32)
+    return DataSet(rs.randn(ATTN_B, ATTN_C, T).astype(np.float32),
+                   np.eye(10, dtype=np.float32)[rs.randint(0, 10, ATTN_B)], features_mask=fm)
+
+
 def _check_attention_counts(what, counts, steps):
     want = {name: steps for name in _counters()}
     check(counts == want, f"{what}: kernel launches {counts}, expected {want}")
@@ -2407,15 +2453,10 @@ def phase_attention_mln(tag, launches):
     CPU (the dense path; phase 5's limits), then bf16 Adam steps, each
     launching the flash forward, dkv and dq once, and the bf16 kernels held
     to their plain versions on the layer's own inputs."""
-    from deeplearning4j_tpu_torch.data import DataSet
     from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
     from deeplearning4j_tpu_torch.nn.updaters import Adam, Sgd
 
-    rs = np.random.RandomState(8)
-    lengths = np.concatenate([[ATTN_T], rs.randint(16, ATTN_T + 1, ATTN_B - 1)])
-    fm = (np.arange(ATTN_T)[None] < lengths[:, None]).astype(np.float32)
-    ds = DataSet(rs.randn(ATTN_B, ATTN_C, ATTN_T).astype(np.float32),
-                 np.eye(10, dtype=np.float32)[rs.randint(0, 10, ATTN_B)], features_mask=fm)
+    ds = _attention_batch(ATTN_T, 8)
 
     counts = check_fit_on_cpu(
         tag, f"attention MLN [{ATTN_B},{ATTN_C},{ATTN_T}] Sgd (update = lr x gradient)",
@@ -3126,6 +3167,9 @@ def phase_attention_graph(tag, launches):
 # amplitude 0.4, a 10x burst over 15% of the run, 48 clients, slots 8.
 SERVE_MLN_FEATURES, SERVE_MLN_CLASSES, SERVE_MLN_HIDDEN = 64, 8, 128
 SERVE_MLN_CLIENTS, SERVE_MLN_REQUESTS = 16, 20          # per client
+# 8a's SLO tracker and alert engine: bench.py's serving_slo threshold and
+# target (bench.py:162-165); windows longer than 8a's few seconds of traffic
+SLO_THRESHOLD_S, SLO_TARGET, SLO_WINDOW_S = 0.25, 0.99, 30.0
 SERVE_ATTN_CLIENTS, SERVE_ATTN_REQUESTS = 8, 8          # one sequence each
 SERVE_RESNET_CLIENTS, SERVE_RESNET_REQUESTS, SERVE_RESNET_LIMIT = 8, 8, 32
 SERVE_REPLAY_S, SERVE_REPLAY_SLOTS, SERVE_REPLAY_CLIENTS = 6.0, 8, 48
@@ -3146,17 +3190,19 @@ def _pct(values, q):
     return vals[min(len(vals) - 1, int(q * len(vals)))]
 
 
-def _drive_clients(what, port, payloads, clients, headers_fn=None):
+def _drive_clients(what, port, payloads, clients, headers_fn=None, registry=None):
     """Send ``payloads`` from ``clients`` threads, each with its own
     ``JsonModelClient`` and no retries: every request must answer 200 the
-    first time. Returns (outputs in payload order, per-request ms, wall s)."""
+    first time. Returns (outputs in payload order, per-request ms, wall s).
+    ``registry``: where the clients record their metrics (the process
+    registry by default)."""
     from deeplearning4j_tpu_torch.serving import JsonModelClient
 
     outs, lat, errors = [None] * len(payloads), [0.0] * len(payloads), []
 
     def worker(first):
         client = JsonModelClient(port=port, retries=0, timeout=300.0,
-                                 breaker_threshold=10 ** 9)
+                                 breaker_threshold=10 ** 9, registry=registry)
         for i in range(first, len(payloads), clients):
             t0 = time.perf_counter()
             try:
@@ -3204,8 +3250,15 @@ def _serve(model, what, warmup, registry, **builder):
 
 
 def phase_serve_mln(tag):
-    """8a: micro-batching a float32 MLN (bench.py's serving config)."""
-    from deeplearning4j_tpu_torch.monitoring import MetricsRegistry
+    """8a: micro-batching a float32 MLN (bench.py's serving config), with an
+    SloTracker over the stock objectives and an AlertEngine over the stock
+    rules evaluating a HistoryRing of the server's registry while the
+    clients run (bench.py's serving_slo wiring: its thresholds, its
+    evaluation cadence)."""
+    from deeplearning4j_tpu_torch.monitoring import (AlertEngine, HistoryRing, MetricsRegistry,
+                                                     SloTracker, default_objectives,
+                                                     default_rules)
+    from deeplearning4j_tpu_torch.monitoring.serving import client_metrics
     from deeplearning4j_tpu_torch.nn import (DenseLayer, MultiLayerNetwork,
                                              NeuralNetConfiguration, OutputLayer)
     from deeplearning4j_tpu_torch.nn.updaters import Adam
@@ -3220,10 +3273,55 @@ def phase_serve_mln(tag):
     rows = list(np.random.RandomState(0).randn(n, 1, F).astype(np.float32))
     server = _serve(net, "8a MLN", np.zeros((1, F), np.float32), reg,
                     batch_limit=16, queue_size=256)
+    ring = HistoryRing(registry=reg, interval=0.0)
+    tracker = SloTracker(default_objectives(latency_threshold_s=SLO_THRESHOLD_S,
+                                            target=SLO_TARGET, window_s=SLO_WINDOW_S),
+                         history_view=ring, registry=reg,
+                         burn_windows=(("fast", SLO_WINDOW_S / 2), ("slow", SLO_WINDOW_S * 2)))
+    engine = AlertEngine(default_rules(p99_latency_s=SLO_THRESHOLD_S,
+                                       latency_window_s=SLO_WINDOW_S,
+                                       shed_window_s=SLO_WINDOW_S),
+                         registry=reg, history_view=ring)
+    fired, stop_eval, evals = set(), threading.Event(), [0]
+    # the series the objectives read, at zero before the first request: the
+    # ring's first sample is their baseline however short the drive
+    reg.get("tdl_inference_requests_total").labels(code="200")
+    client_metrics(reg).request_seconds.labels("ok")
+    ring.sample(force=True)
+
+    def evaluate_loop():  # live evaluation at bench.py's scrape cadence
+        while not stop_eval.is_set():
+            ring.sample(force=True)
+            tracker.evaluate()
+            fired.update(a["rule"] for a in engine.evaluate() if a["firing"])
+            evals[0] += 1
+            stop_eval.wait(0.2)
+
+    evaluator = threading.Thread(target=evaluate_loop, daemon=True)
+    evaluator.start()
     try:
-        outs, lat, wall = _drive_clients("8a MLN", server.port, rows, SERVE_MLN_CLIENTS)
+        outs, lat, wall = _drive_clients("8a MLN", server.port, rows, SERVE_MLN_CLIENTS,
+                                         registry=reg)
     finally:
+        stop_eval.set()
+        evaluator.join(10.0)
         server.stop()
+    ring.sample(force=True)
+    slo = {r["slo"]: r for r in tracker.evaluate()}
+    fired.update(a["rule"] for a in engine.evaluate() if a["firing"])
+    n_req = SERVE_MLN_CLIENTS * SERVE_MLN_REQUESTS
+    print(f"{tag} 8a SLOs (threshold {SLO_THRESHOLD_S * 1e3:.0f} ms, target {SLO_TARGET}, "
+          f"window {SLO_WINDOW_S:.0f} s; {evals[0]} live evaluations): "
+          + "; ".join(f"{k} attainment {r['attainment']}, budget left "
+                      f"{r['error_budget_remaining']}, burn {r['burn_rate']}, {r['state']}"
+                      for k, r in slo.items())
+          + f"; alert rules fired {sorted(fired) or 'none'}", flush=True)
+    check(all(r["state"] != "no_traffic" for r in slo.values()),
+          f"8a: an objective saw no traffic: {[k for k, r in slo.items()]}")
+    check(slo["serving_availability"]["attainment"] == 1.0,
+          f"8a: availability {slo['serving_availability']['attainment']} with every request 200")
+    check(reg.get("tdl_inference_requests_total").snapshot()["series"][0]["value"] >= n_req,
+          "8a: the server counted fewer requests than were sent")
     batches, coalesced = _batches(reg)
     got = np.asarray(outs, np.float32)
     ref = np.stack([net.output(r).float().cpu().numpy() for r in rows])
@@ -3460,12 +3558,14 @@ def serving_replica():
     from deeplearning4j_tpu_torch.kernels import _build
     from deeplearning4j_tpu_torch.kernels.attention import flash_forward
     from deeplearning4j_tpu_torch.models import paged_decode as pd
+    from deeplearning4j_tpu_torch.monitoring import compilecache
     from deeplearning4j_tpu_torch.serving import JsonModelServer
 
     class ReportingPool(pd.PagedDecodeSlotPool):
         def block_stats(self):
             return {**super().block_stats(), "flash_fwd_launches": flash_forward.launches,
-                    "kernels_built": len(_build.build_info.get("built", ()))}
+                    "kernels_built": len(_build.build_info.get("built", ())),
+                    "compile_cache": compilecache.stats()}
 
     set_fp32_numerics()
     params, cfg, _ = generator_model()
@@ -3541,6 +3641,17 @@ def phase_serving_pool(tag, launches, gen, gen_tokens, target=None):
         replica_launches += n
     check(stats[2]["blocks"]["kernels_built"] == 0,
           "8d: the third replica ran nvcc instead of loading the shared build")
+    cache = {rid: stats[rid]["blocks"]["compile_cache"] for rid in (0, 1, 2)}
+    n_src = len(glob.glob(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                       "deeplearning4j_tpu_torch", "csrc", "*.cu")))
+    print(f"{tag} 8d compilecache.stats() per replica: "
+          + "; ".join(f"replica {rid} hits {c['hits']}, misses {c['misses']}, "
+                      f"{c['bytes']} B under {c['dir']}" for rid, c in cache.items()),
+          flush=True)
+    check(sum(cache[2]["hits"].values()) == n_src and not any(cache[2]["misses"].values()),
+          f"8d: the scaled-up replica's build is not {n_src} cache hits: {cache[2]}")
+    check(all(sum(cache[r]["hits"].values()) + sum(cache[r]["misses"].values()) == n_src
+              for r in (0, 1)), f"8d: the first replicas' cache traffic {cache}")
     launches.append(replica_launches)
     ready_s = {rid: ready_at[rid] - spawned[rid] for rid in (0, 1, 2)}
     print(f"{tag} 8d ServingPool, 2 replica processes of 8c's model: {len(prompts)} prompts "
@@ -6527,6 +6638,80 @@ def phase_fleet_resume(tag, workdir):
           f"winner from the rerun's start)", flush=True)
 
 
+# 15d: bench.py's shared-ETL-cache leg of hpo (bench.py:2790-2828): 48 16x16
+# grayscale PNGs from seed 0 in 4 class directories, two lenet_images trials
+# one at a time over one cache_dir, rung 3
+ETL_IMAGES, ETL_ITERS = 48, 3
+ETL_TASK = {"kind": "lenet_images", "height": 12, "width": 12, "channels": 1, "batch": 8,
+            "store_pad": 2, "seed": 5}
+
+
+def _shm_segments():
+    return set(glob.glob("/dev/shm/tdlt_*"))
+
+
+def phase_fleet_shared_cache(tag, workdir):
+    """15d: two ``lenet_images`` trial gangs on the card through
+    ``GangTrialRunner``/``TrialFleet``, one at a time, sharing one decoded
+    batch cache: the first trial's ETL traffic has misses, the second's is
+    all hits (read per trial from the merged metrics spools)."""
+    import multiprocessing
+
+    from PIL import Image
+
+    from deeplearning4j_tpu_torch.arbiter import (ContinuousParameterSpace,
+                                                  RandomSearchGenerator)
+    from deeplearning4j_tpu_torch.arbiter.fleet import GangTrialRunner, TrialFleet
+    from deeplearning4j_tpu_torch.monitoring import MetricsRegistry, aggregate
+
+    shm_before = _shm_segments()
+    data_dir = os.path.join(workdir, "imgs")
+    rs = np.random.RandomState(0)
+    for i in range(ETL_IMAGES):
+        d = os.path.join(data_dir, f"c{i % 4}")
+        os.makedirs(d, exist_ok=True)
+        Image.fromarray(rs.randint(0, 255, (16, 16), dtype=np.uint8), mode="L").save(
+            os.path.join(d, f"i{i:03d}.png"))
+    etl_wd = os.path.join(workdir, "etl")
+    task = {**ETL_TASK, "data_dir": data_dir, "cache_dir": os.path.join(workdir, "etl_cache")}
+    runner = _TimedGangRunner(GangTrialRunner(etl_wd, task, hang_timeout=120.0))
+    fleet = TrialFleet(
+        RandomSearchGenerator({"learning_rate": ContinuousParameterSpace(1e-3, 1e-2,
+                                                                         log_scale=True)},
+                              seed=5),
+        runner, workdir=etl_wd, n_trials=2, rungs=(ETL_ITERS,), pbt=False, seed=5,
+        max_concurrent=1, rung_timeout_s=FLEET_TIMEOUT, trial_max_restarts=1,
+        registry=MetricsRegistry())
+    t0 = time.perf_counter()
+    try:
+        winner = fleet.run()
+    finally:
+        fleet.close()
+    sweep_s = time.perf_counter() - t0
+    by_trial = {}
+    for payload in aggregate.read_spools(runner.inner.spool_dir, registry=MetricsRegistry()):
+        trial = str(payload.get("proc") or "").split("-")[0]
+        row = by_trial.setdefault(trial, {"hits": 0.0, "misses": 0.0})
+        snap = payload.get("snapshot") or {}
+        for fam, key in (("tdl_etl_cache_hits_total", "hits"),
+                         ("tdl_etl_cache_misses_total", "misses")):
+            for s in (snap.get(fam) or {}).get("series", []):
+                row[key] += float(s.get("value", 0))
+    _print_gang_runs(tag, "15d", runner.runs)
+    print(f"{tag} 15d two lenet_images trials (bench.py's hpo etl_cache leg: {ETL_IMAGES} "
+          f"16x16 PNGs, 4 classes, 12x12 batches of 8, rung {ETL_ITERS}) one at a time over "
+          f"one cache_dir: {sweep_s:.3f} s; ETL cache traffic per trial {by_trial}; winner "
+          f"{winner['trial']} score {winner['score']}", flush=True)
+    first, second = (by_trial.get(t, {}) for t in ("t00", "t01"))
+    check(first.get("misses", 0) > 0, f"15d: the first trial decoded nothing: {by_trial}")
+    check(second.get("misses", 1) == 0 and second.get("hits", 0) > 0,
+          f"15d: the second trial's traffic is not all hits: {by_trial}")
+    check(not multiprocessing.active_children(),
+          f"15d: child processes left: {multiprocessing.active_children()}")
+    left = _shm_segments() - shm_before
+    check(not left, f"15d: shared-memory segments left: {sorted(left)}")
+
+
 def phase_fleet(tag):
     workdir = tempfile.mkdtemp(prefix="tdl_smoke_fleet_")
     try:
@@ -6540,6 +6725,10 @@ def phase_fleet(tag):
         t = time.perf_counter()
         phase_fleet_resume(tag, workdir)
         print(f"phase 15c SIGKILL resume of the fleet CLI: ok ({time.perf_counter() - t:.1f} s)",
+              flush=True)
+        t = time.perf_counter()
+        phase_fleet_shared_cache(tag, workdir)
+        print(f"phase 15d shared ETL cache across trials: ok ({time.perf_counter() - t:.1f} s)",
               flush=True)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -7252,6 +7441,477 @@ def phase_extra_layers(tag):
     phase_layers_on_card(tag)
 
 
+# ------------------------------------------------------------------ phase 19
+
+# 19a: DL4J's BasicDataVecExample schema (the fraud CSV) at 100,000 rows from
+# a seed, and 512 one-second 16 kHz WAV clips in 8 class directories, read as
+# [124, 129] spectrograms (n_fft 256, hop 128)
+DV_ROWS, DV_SEED, DV_BATCH, DV_TIMED = 100_000, 19, 256, 40
+DV_COUNTRIES, DV_COUNTRY_P = ("USA", "CAN", "FR", "MX"), (0.5, 0.25, 0.15, 0.1)
+WAV_CLIPS, WAV_CLASSES, WAV_RATE, WAV_BATCH = 512, 8, 16000, 64
+WAV_SHAPE = (124, 129)
+# 19b: phase 6c's attention MLN for MON_STEPS steps of one epoch, then one
+# batch at each of MON_ODD_T lengths (the second crosses the churn
+# threshold of 3 new signatures); LeNet's step with the hooks off and on in
+# turns; the cost tables at bench.py's shapes
+MON_STEPS, MON_ODD_T, MON_CHURN = 6, (96, 64), 3
+MON_TIMED, MON_WARMUP = 40, 5
+
+
+def _fraud_csv(path, rows, seed):
+    """``rows`` transactions with BasicDataVecExample's columns (DateTimeString,
+    CustomerID, MerchantID, NumItemsInTransaction, MerchantCountryCode,
+    TransactionAmountUSD, FraudLabel) from ``seed``: fraud likelier for large
+    amounts and at night; 2% refunds (negative amounts)."""
+    rs = np.random.RandomState(seed)
+    t = 1_451_606_400 + rs.randint(0, 365 * 86400, rows)  # 2016, UTC
+    stamps = np.datetime_as_string(t.astype("datetime64[s]"), unit="s")
+    hour = (t % 86400) // 3600
+    amount = np.round(rs.lognormal(3.5, 1.0, rows), 2)
+    amount[rs.rand(rows) < 0.02] *= -1
+    country = rs.choice(len(DV_COUNTRIES), rows, p=DV_COUNTRY_P)
+    items = rs.randint(1, 10, rows)
+    logit = -4.0 + 0.01 * np.abs(amount) + 1.5 * (hour < 5)
+    fraud = rs.rand(rows) < 1.0 / (1.0 + np.exp(-logit))
+    with open(path, "w") as f:
+        for i in range(rows):
+            f.write(f"{stamps[i].replace('T', ' ')},C{rs.randint(0, 5000):05d},"
+                    f"{rs.randint(0, 300)},{items[i]},{DV_COUNTRIES[country[i]]},"
+                    f"{amount[i]:.2f},{'Fraud' if fraud[i] else 'Legit'}\n")
+
+
+def _fraud_process():
+    """The example's kind of process: drop the ids, refunds to 0 and the
+    amount scaled, drop Mexico, one-hot the country, hour and weekday from
+    the time string, the label as an integer."""
+    from deeplearning4j_tpu_torch.data import Schema, TransformProcess
+
+    schema = (Schema.Builder()
+              .add_column_string("DateTimeString")
+              .add_column_string("CustomerID")
+              .add_column_integer("MerchantID")
+              .add_column_integer("NumItemsInTransaction")
+              .add_column_categorical("MerchantCountryCode", *DV_COUNTRIES)
+              .add_column_double("TransactionAmountUSD")
+              .add_column_categorical("FraudLabel", "Fraud", "Legit")
+              .build())
+    return (TransformProcess.Builder(schema)
+            .remove_columns("CustomerID", "MerchantID")
+            .conditional_replace("TransactionAmountUSD", "lt", 0.0, 0.0)
+            .double_math_op("TransactionAmountUSD", "Divide", 100.0)
+            .filter_by_condition("MerchantCountryCode", "eq", "MX")
+            .categorical_to_one_hot("MerchantCountryCode")
+            .string_to_time("DateTimeString")
+            .derive_time_fields("DateTimeString", "hourOfDay", "dayOfWeek")
+            .remove_columns("DateTimeString")
+            .categorical_to_integer("FraudLabel")
+            .build())
+
+
+def _classifier(device, n_in, classes, seed=19):
+    from deeplearning4j_tpu_torch.nn import (DenseLayer, MultiLayerNetwork,
+                                             NeuralNetConfiguration, OutputLayer)
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+
+    conf = (NeuralNetConfiguration.Builder().seed(seed).updater(Adam(1e-3)).list()
+            .layer(DenseLayer(n_in=n_in, n_out=32, activation="relu"))
+            .layer(OutputLayer(n_out=classes, activation="softmax", loss="mcxent")).build())
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def _audio_classifier(device, seed=19):
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf import (ConvolutionLayer, DenseLayer, InputType,
+                                                  OutputLayer, SubsamplingLayer)
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+
+    conf = (NeuralNetConfiguration.Builder().seed(seed).updater(Adam(1e-3)).list()
+            .layer(ConvolutionLayer(n_out=8, kernel_size=(5, 5), stride=(2, 2),
+                                    activation="relu"))
+            .layer(SubsamplingLayer(kernel_size=(2, 2), stride=(2, 2)))
+            .layer(DenseLayer(n_out=32, activation="relu"))
+            .layer(OutputLayer(n_out=WAV_CLASSES, activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.convolutional(*WAV_SHAPE, 1)).build())
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def _fit_ms_per_step(net, batches, n):
+    """Median host ms per ``fit`` step over ``n`` steps cycling ``batches``
+    (each step ends in a synchronize), after 3 warm-up steps."""
+    cycle = itertools.cycle(batches)
+    return statistics.median(wall_ms(lambda: net.fit(next(cycle)), n=n, warmup=3))
+
+
+def _write_clips(root, seed):
+    """WAV_CLIPS one-second 16-bit mono clips, WAV_CLIPS / WAV_CLASSES per
+    class directory: class c is a tone at 220·(c + 1) Hz with a random
+    phase and amplitude, in noise."""
+    import wave
+
+    rs = np.random.RandomState(seed)
+    t = np.arange(WAV_RATE) / WAV_RATE
+    for i in range(WAV_CLIPS):
+        c = i % WAV_CLASSES
+        d = os.path.join(root, f"class{c}")
+        os.makedirs(d, exist_ok=True)
+        x = (rs.uniform(0.2, 0.6) * np.sin(2 * np.pi * 220 * (c + 1) * t + rs.uniform(0, 6.3))
+             + 0.1 * rs.randn(WAV_RATE))
+        pcm = np.clip(x * 32767, -32768, 32767).astype("<i2")
+        with wave.open(os.path.join(d, f"clip{i:04d}.wav"), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(WAV_RATE)
+            w.writeframes(pcm.tobytes())
+
+
+def phase_datavec(tag, workdir):
+    """19a: the fraud CSV through a TransformProcess, CSVRecordReader and
+    RecordReaderDataSetIterator into a float32 MLN on the card; WAV clips
+    through WavFileRecordReader's spectrograms into a small CNN on the card;
+    each fit held to the CPU's."""
+    import torch
+
+    from deeplearning4j_tpu_torch.data import (CSVRecordReader, DataSet, FileSplit,
+                                               ListDataSetIterator, ParentPathLabelGenerator,
+                                               RecordReaderDataSetIterator)
+    from deeplearning4j_tpu_torch.data.audio import WavFileRecordReader
+
+    raw = os.path.join(workdir, "fraud.csv")
+    t0 = time.perf_counter()
+    _fraud_csv(raw, DV_ROWS, DV_SEED)
+    make_s = time.perf_counter() - t0
+    tp = _fraud_process()
+    rows = [r for r in CSVRecordReader().initialize(FileSplit(raw))._rows]
+    t0 = time.perf_counter()
+    out = tp.execute(rows)
+    transform_s = time.perf_counter() - t0
+    final = tp.final_schema()
+    names = final.names()
+    want_names = ["NumItemsInTransaction", "MerchantCountryCode[USA]", "MerchantCountryCode[CAN]",
+                  "MerchantCountryCode[FR]", "MerchantCountryCode[MX]", "TransactionAmountUSD",
+                  "FraudLabel", "DateTimeString_hourOfDay", "DateTimeString_dayOfWeek"]
+    check(names == want_names, f"19a: final schema {names}")
+    mx = sum(r[4] == "MX" for r in rows)
+    check(len(out) == DV_ROWS - mx and all(len(r) == len(names) for r in out),
+          f"19a: {len(out)} rows of {DV_ROWS} after dropping {mx} MX rows")
+    check(min(r[5] for r in out) >= 0.0, "19a: a refund survived the conditional replace")
+    label = names.index("FraudLabel")
+    done = os.path.join(workdir, "fraud_out.csv")
+    with open(done, "w") as f:
+        f.writelines(",".join(str(v) for v in r) + "\n" for r in out)
+    t0 = time.perf_counter()
+    it = RecordReaderDataSetIterator(CSVRecordReader().initialize(FileSplit(done)), DV_BATCH,
+                                     label_index=label, num_classes=2)
+    batches = list(it)
+    read_s = time.perf_counter() - t0
+    fraud = sum(float(b.labels[:, 0].sum()) for b in batches)
+    print(f"{tag} 19a fraud CSV ({DV_ROWS} rows, BasicDataVecExample's 7 columns, seed "
+          f"{DV_SEED}; written in {make_s:.3f} s): TransformProcess of {len(tp.steps)} steps "
+          f"{transform_s:.3f} s = {DV_ROWS / transform_s:.1f} rows/s (host), {len(out)} rows "
+          f"out, {len(names)} columns; CSVRecordReader -> RecordReaderDataSetIterator "
+          f"{len(batches)} batches of {DV_BATCH} in {read_s:.3f} s = {len(out) / read_s:.1f} "
+          f"rows/s; {fraud:.0f} fraud labels", flush=True)
+    n_in = len(names) - 1
+    check_fit_on_cpu(tag, f"19a fraud MLN [{DV_BATCH},{n_in}]",
+                     lambda dev: _classifier(dev, n_in, 2), batches[0])
+    with float32_policy():
+        net = _classifier("cuda", n_in, 2)
+        staged = [DataSet(*(torch.as_tensor(a, device="cuda") for a in (b.features, b.labels)))
+                  for b in batches[:-1]]
+        first = None
+        for ds in staged:
+            net.fit(ds)
+            first = net.score_ if first is None else first
+        epoch_score = net.score_
+        step_ms = _fit_ms_per_step(net, staged, DV_TIMED)
+    check(math.isfinite(epoch_score) and epoch_score < first,
+          f"19a fraud MLN: one epoch's score {first} -> {epoch_score}")
+    print(f"{tag} 19a fraud MLN float32 one epoch ({len(staged)} steps): score {first:.5f} -> "
+          f"{epoch_score:.5f}; fit step [{DV_BATCH},{n_in}] {step_ms:.3f} ms median (n="
+          f"{DV_TIMED})", flush=True)
+
+    clips = os.path.join(workdir, "clips")
+    t0 = time.perf_counter()
+    _write_clips(clips, DV_SEED)
+    write_s = time.perf_counter() - t0
+    reader = WavFileRecordReader(features="spectrogram", label_generator=ParentPathLabelGenerator())
+    reader.initialize(FileSplit(clips))
+    t0 = time.perf_counter()
+    feats, labels = [], []
+    while reader.has_next():
+        f, lab = reader.next()
+        feats.append(f)
+        labels.append(lab)
+    clip_s = time.perf_counter() - t0
+    x = np.stack(feats)[:, None]
+    y = np.eye(WAV_CLASSES, dtype=np.float32)[np.asarray(labels)]
+    check(x.shape == (WAV_CLIPS, 1, *WAV_SHAPE) and reader.num_labels() == WAV_CLASSES,
+          f"19a: spectrograms {x.shape}, {reader.num_labels()} labels")
+    print(f"{tag} 19a {WAV_CLIPS} WAV clips (1 s, {WAV_RATE} Hz, 16-bit, {WAV_CLASSES} class "
+          f"directories; written in {write_s:.3f} s): WavFileRecordReader(spectrogram) "
+          f"{clip_s:.3f} s = {WAV_CLIPS / clip_s:.1f} clips/s (host), features "
+          f"{list(x.shape[2:])} per clip", flush=True)
+    audio = [DataSet(x[i:i + WAV_BATCH], y[i:i + WAV_BATCH])
+             for i in range(0, WAV_CLIPS, WAV_BATCH)]
+    check_fit_on_cpu(tag, f"19a audio CNN [{WAV_BATCH},1,{WAV_SHAPE[0]},{WAV_SHAPE[1]}]",
+                     _audio_classifier, audio[0])
+    with float32_policy():
+        net = _audio_classifier("cuda")
+        staged = [DataSet(*(torch.as_tensor(a, device="cuda") for a in (b.features, b.labels)))
+                  for b in audio]
+        scores = []
+        for _ in range(2):
+            for ds in staged:
+                net.fit(ds)
+            scores.append(net.score_)
+        step_ms = _fit_ms_per_step(net, staged, DV_TIMED)
+        acc = net.evaluate(ListDataSetIterator(audio)).accuracy()
+    check(all(math.isfinite(s) for s in scores), f"19a audio CNN: scores {scores}")
+    print(f"{tag} 19a audio CNN float32, 2 epochs of {len(staged)} steps: score by epoch "
+          f"{', '.join(f'{s:.5f}' for s in scores)}, training accuracy {acc:.4f}; fit step "
+          f"[{WAV_BATCH},1,{WAV_SHAPE[0]},{WAV_SHAPE[1]}] {step_ms:.3f} ms median (n="
+          f"{DV_TIMED})", flush=True)
+
+
+class _CallCounter:
+    """Counts the calls of a module function while installed."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, 0
+        self.real = getattr(module, name)
+
+        def counted(*a, **kw):
+            self.calls += 1
+            return self.real(*a, **kw)
+
+        setattr(module, name, counted)
+
+    def restore(self):
+        setattr(self.module, self.name, self.real)
+
+
+def _series(reg, name):
+    m = reg.get(name)
+    return {} if m is None else {tuple(sorted(s["labels"].items())): s["value"]
+                                 for s in m.snapshot()["series"]}
+
+
+def _print_cost(tag, what, table, hbm):
+    xla = table.get("xla", {})
+    top = sorted(table["layers"], key=lambda r: -r["flops"])[:3]
+    print(f"{tag} 19b cost table {what}: estimate {table['total_flops']:.4e} flops, counted "
+          f"{xla.get('flops', float('nan')):.4e} (fake tensors, FlopCounterMode), coverage "
+          f"{table.get('coverage')}; top layers "
+          + ", ".join(f"{r['layer']} {r['pct']}%" for r in top)
+          + f"; device bytes {hbm}", flush=True)
+
+
+def phase_monitored_training(tag, launches):
+    """19b: phase 6c's attention MLN under the RecompileWatchdog, the
+    DeviceMemoryWatchdog, a trace profiler and a MetricsListener; the cost
+    tables; the hooks' cost on LeNet's step; a crash dump."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_tpu_torch.data import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.models import LeNet
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+    from deeplearning4j_tpu_torch.monitoring import (DeviceMemoryWatchdog, MetricsListener,
+                                                     MetricsRegistry, RecompileWatchdog)
+    from deeplearning4j_tpu_torch.monitoring import costmodel as cm
+    from deeplearning4j_tpu_torch.monitoring import trace as tr
+    from deeplearning4j_tpu_torch.monitoring import watchdogs as wd
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    from deeplearning4j_tpu_torch.ops import OpProfiler, ProfilerConfig
+    from deeplearning4j_tpu_torch.utils import write_crash_dump
+
+    reg = MetricsRegistry()
+    net = MultiLayerNetwork(_attention_conf(Adam(1e-3)), device="cuda").init()
+    batches = [_attention_batch(ATTN_T, 80 + k) for k in range(MON_STEPS)]
+    odd = [_attention_batch(T, 90 + k) for k, T in enumerate(MON_ODD_T)]
+    prof = OpProfiler(ProfilerConfig(trace_events=True))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem = DeviceMemoryWatchdog(reg)
+    listener = MetricsListener(reg, score_every=1)
+    net.add_listeners(listener)
+    recompile = RecompileWatchdog(registry=reg, window_steps=50, churn_threshold=MON_CHURN)
+    recompile.install()
+    tr.set_trace_profiler(prof)
+    sigs_after = []
+    try:
+        _zero_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as cap:
+            net.fit(ListDataSetIterator(batches))
+            sigs_after.append(dict(_series(reg, "tdl_jit_new_signatures_total")))
+            for ds in odd:
+                net.fit(ds)
+                sigs_after.append(dict(_series(reg, "tdl_jit_new_signatures_total")))
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        sampled = mem.sample()
+        stats = torch.cuda.memory_stats()
+    finally:
+        tr.set_trace_profiler(None)
+        recompile.close()
+    steps = MON_STEPS + len(MON_ODD_T)
+    _check_attention_counts("19b monitored attention MLN", counts, steps)
+    for name, n in counts.items():
+        launches[name].append(n)
+    # a record_function range is a host event, and with CUDA activity also
+    # an annotation on the device's timeline
+    kinds = Counter(str(e.device_type).rsplit(".", 1)[-1] for e in cap.events()
+                    if e.name == "train")
+    ranges = kinds.get("CPU", 0)
+    spans = prof.stats().get("train", {}).get("count", 0)
+    check(spans == steps and ranges == steps and kinds.get("CUDA", 0) == steps,
+          f"19b: {spans} OpProfiler step spans and 'train' ranges {dict(kinds)} for "
+          f"{steps} steps")
+    chrome = os.path.join(tempfile.mkdtemp(prefix="tdl_smoke_trace_"), "trace.json")
+    prof.to_chrome_trace(chrome)
+    with open(chrome) as f:
+        events = json.load(f)["traceEvents"]
+    shutil.rmtree(os.path.dirname(chrome), ignore_errors=True)
+    check(sum(e["name"] == "train" for e in events) == steps,
+          f"19b: the chrome trace holds {len(events)} events")
+    fn = (("fn", "MultiLayerNetwork.train_step"),)
+    new_sigs = [s.get(fn, 0) for s in sigs_after]
+    churn = _series(reg, "tdl_shape_churn_warnings_total").get((), 0)
+    check(new_sigs == [1, 2, 3], f"19b: new signatures after the epoch and each odd batch "
+                                 f"{new_sigs}, expected [1, 2, 3]")
+    check(churn == 1, f"19b: {churn} churn warnings after {MON_CHURN} signatures")
+    label = "cuda:0"
+    in_use = _series(reg, "tdl_device_memory_bytes_in_use")[(("device", label),)]
+    high = _series(reg, "tdl_device_memory_high_water_bytes")[(("device", label),)]
+    limit = _series(reg, "tdl_device_memory_limit_bytes")[(("device", label),)]
+    check(in_use == sampled[label] == stats["allocated_bytes.all.current"]
+          and high == stats["allocated_bytes.all.peak"],
+          f"19b: memory gauges in use {in_use}, high water {high}; memory_stats "
+          f"{stats['allocated_bytes.all.current']}, {stats['allocated_bytes.all.peak']}")
+    model = (("model", "MultiLayerNetwork"),)
+    iters = _series(reg, "tdl_iterations_total").get(model)
+    epochs = _series(reg, "tdl_epochs_total").get(model)
+    durations = reg.get("tdl_step_duration_seconds").snapshot()["series"][0]["count"]
+    check(iters == steps and epochs == 1 + len(MON_ODD_T) and durations == MON_STEPS - 1,
+          f"19b: listener iterations {iters}, epochs {epochs}, step durations {durations}")
+    print(f"{tag} 19b attention MLN [{ATTN_B},{ATTN_C},{ATTN_T}] bf16 Adam, monitored: "
+          f"{steps} steps (an epoch of {MON_STEPS}, then T={MON_ODD_T}), launches {counts}; "
+          f"{spans} OpProfiler step spans, {ranges} 'train' record_function ranges in the "
+          f"torch.profiler capture (and {kinds.get('CUDA', 0)} on the device timeline); new "
+          f"signatures {new_sigs}, churn warnings {churn}; memory "
+          f"in use {in_use:.0f} B, high water {high:.0f} B, limit {limit:.0f} B (= "
+          f"memory_stats); listener iterations {iters:.0f}, epochs {epochs:.0f}, samples/s "
+          f"{_series(reg, 'tdl_samples_per_sec').get(model, 0):.1f}, score "
+          f"{_series(reg, 'tdl_score').get(model, float('nan')):.5f}", flush=True)
+
+    # the cost tables: counted without running (no launch, no state change)
+    _zero_counts()
+    lenet = LeNet().init(device="cuda")
+    rs = np.random.RandomState(0)
+    lx = torch.as_tensor(rs.rand(LENET_BATCH, 1, 28, 28).astype(np.float32), device="cuda")
+    ly = torch.as_tensor(np.eye(10, dtype=np.float32)[rs.randint(0, 10, LENET_BATCH)],
+                         device="cuda")
+    t0 = time.perf_counter()
+    xla = cm.xla_step_cost(lenet, lx, ly, None, None, 0)
+    count_s = time.perf_counter() - t0
+    table = cm.publish("lenet", cm.layer_costs(lenet, LENET_BATCH), xla, registry=reg)
+    _print_cost(tag, f"LeNet batch {LENET_BATCH} (counted in {count_s:.3f} s)", table,
+                cm.net_hbm_breakdown(lenet, model="lenet", registry=reg))
+    B, T, P = 16, 128, 19
+    cfg = tfm.TransformerConfig.bert_base(max_len=T, dropout=0.0)
+    params = tfm.init_params(3, cfg, device="cuda")
+    updater = Adam(1e-4)
+    opt = updater.init(params)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in _mlm_batch(cfg, np.random.RandomState(5), B, T, P).items()}
+    step = tfm.make_train_step(cfg, updater)
+    by_op = cm.step_flop_counts(step, params, opt, batch, 0)
+    bert = cm.publish("transformer", tfm.layer_costs(cfg, B, T, mlm_positions=P),
+                      {"flops": float(sum(by_op.values()))}, registry=reg)
+    _print_cost(tag, f"BERT-base MLM step B={B} T={T} P={P}", bert,
+                cm.live_hbm_breakdown({"params": params, "opt_state": opt},
+                                      model="transformer", registry=reg))
+    flash = {k: v for k, v in by_op.items() if k.startswith("tdl.")}
+    check(set(flash) == {"tdl.flash_fwd", "tdl.flash_bwd_dq", "tdl.flash_bwd_dkv"},
+          f"19b: the BERT step's counted operators {sorted(by_op)}")
+    print(f"{tag} 19b BERT-base counted flops by operator: "
+          + ", ".join(f"{k} {v:.4e}" for k, v in sorted(by_op.items())), flush=True)
+    del params, opt, batch
+    x, y, fm = (torch.as_tensor(a, device="cuda") for a in
+                (batches[0].features, batches[0].labels, batches[0].features_mask))
+    before = {k: v.clone() for k, v in net.state_dict().items()}
+    attn = cm.publish("attention_mln", cm.layer_costs(net, ATTN_B),
+                      cm.xla_step_cost(net, x, y, fm, None, net.iteration), registry=reg)
+    check(all(torch.equal(before[k], v) for k, v in net.state_dict().items()),
+          "19b: counting the step changed the network")
+    _print_cost(tag, f"attention MLN [{ATTN_B},{ATTN_C},{ATTN_T}]", attn,
+                cm.net_hbm_breakdown(net, model="attention_mln", registry=reg))
+    counted = _read_counts()
+    check(all(n == 0 for n in counted.values()), f"19b: counting launched kernels {counted}")
+    for what, t in (("LeNet", table), ("BERT-base", bert)):
+        check(t.get("coverage") is not None, f"19b: {what}'s table has no coverage")
+
+    # the hooks' cost on LeNet's step, off and on in turns: an active round
+    # installs a RecompileWatchdog and attaches a trace profiler around its
+    # step, outside the timed window
+    lx_ds = DataSet(lx, ly)
+    sig = _CallCounter(wd, "signature_of")
+    span = _CallCounter(tr, "step_span")
+    off_ms, on_ms, inactive_work = [], [], 0
+    prof2 = OpProfiler(ProfilerConfig(trace_events=True))
+    watch = RecompileWatchdog(registry=MetricsRegistry())
+    try:
+        for i in range(MON_WARMUP + MON_TIMED):
+            for active, sink in ((False, off_ms), (True, on_ms)):
+                if active:
+                    watch.install()
+                    tr.set_trace_profiler(prof2)
+                calls = sig.calls + span.calls
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lenet.fit(lx_ds)
+                torch.cuda.synchronize()
+                if i >= MON_WARMUP:
+                    sink.append((time.perf_counter() - t0) * 1e3)
+                if active:
+                    tr.set_trace_profiler(None)
+                    watch.close()
+                else:
+                    inactive_work += sig.calls + span.calls - calls
+    finally:
+        sig.restore()
+        span.restore()
+        tr.set_trace_profiler(None)
+        watch.close()
+    rounds = MON_WARMUP + MON_TIMED
+    check(inactive_work == 0, f"19b: the inactive steps computed {inactive_work} signatures "
+                              f"and spans")
+    check(sig.calls == span.calls == rounds and prof2.stats()["train"]["count"] == rounds,
+          f"19b: {sig.calls} signatures and {span.calls} spans in {rounds} active steps")
+    off, on = statistics.median(off_ms), statistics.median(on_ms)
+    print(f"{tag} 19b LeNet fit step [{LENET_BATCH},1,28,28] in turns (n={MON_TIMED} after "
+          f"{MON_WARMUP}): hooks inactive {spread(off_ms)}; active (RecompileWatchdog + trace "
+          f"profiler) {spread(on_ms)}; active / inactive {on / off:.4f}; the inactive steps "
+          f"computed 0 signatures and opened 0 spans", flush=True)
+
+    path = os.path.join(tempfile.mkdtemp(prefix="tdl_smoke_crash_"), "crash.txt")
+    try:
+        try:
+            raise RuntimeError("simulated CUDA out of memory in 19b")
+        except RuntimeError as e:
+            write_crash_dump(net, e, path)
+        with open(path) as f:
+            text = f.read()
+    finally:
+        shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    check(f"torch: {torch.__version__}" in text and "device: cuda" in text
+          and torch.cuda.get_device_name(0) in text and "simulated CUDA out of memory" in text
+          and "params__bytes" in text, f"19b: the crash dump reads {text[:300]!r}")
+    print(f"{tag} 19b crash dump written and read back: {len(text)} chars, "
+          f"{text.splitlines()[2]!r}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -7447,6 +8107,19 @@ def main() -> int:
         t18 = time.perf_counter()
         phase_extra_layers(tag)
         print(f"phase 18 extra layers: ok ({time.perf_counter() - t18:.1f} s)", flush=True)
+        _free_card()
+        t19 = time.perf_counter()
+        workdir = tempfile.mkdtemp(prefix="tdl_smoke_datavec_")
+        try:
+            phase_datavec(tag, workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        print(f"phase 19a datavec to the card: ok ({time.perf_counter() - t19:.1f} s)",
+              flush=True)
+        t = time.perf_counter()
+        phase_monitored_training(tag, launches)
+        print(f"phase 19b the monitored training path: ok ({time.perf_counter() - t:.1f} s); "
+              f"phase 19 {time.perf_counter() - t19:.1f} s", flush=True)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1

@@ -32,11 +32,10 @@ Env contract (set by ``TrialFleet`` through ``GangSupervisor.extra_env``)::
 On the card every trial process is one NCCL rank of a gang of its own, so
 up to the fleet's ``max_concurrent`` such processes share one card.
 
-The JAX package's second task, ``lenet_images``, decodes an image
-directory through the ETL service (``data/etl_service.py``, ported) into
-trial gangs that spawn their own decode workers; the task itself is not
-ported yet (ROADMAP item 8.5b): it stays a registered kind that raises
-:class:`NotImplementedError` when built.
+Two tasks, the JAX package's: ``synth_classify`` (noisy blobs, seconds of
+CPU) and ``lenet_images`` (a LeNet-style network over an image directory,
+decoded by the ETL service's ``ImageEtlSpec`` through a ``DecodedBatchCache``
+that every trial of a sweep shares).
 """
 
 from __future__ import annotations
@@ -116,15 +115,86 @@ class SynthClassifyTask:
 
 
 class LenetImagesTask:
-    """The JAX package's LeNet-style conv task over an image directory,
-    decoded through its ETL service with a shared decoded-batch cache. The
-    task is not ported yet, so building it raises."""
+    """LeNet-style conv task over an image directory, decoded through the
+    ETL pipeline with a SHARED ``DecodedBatchCache``: every trial of the
+    fleet points at the same ``cache_dir``, the spec fingerprint is
+    identical across trials (hyperparameters don't change decode geometry),
+    so the sweep pays the PNG decode once and every later trial memmaps it.
+    Cache traffic lands in ``tdl_etl_cache_{hits,misses}_total`` — the
+    bench's shared-ETL evidence. The batches, the network and the
+    evaluation are the JAX package's."""
 
     def __init__(self, spec: Dict):
-        raise NotImplementedError(
-            "trial task 'lenet_images' (LeNet over an image directory decoded by the ETL "
-            "service's ImageEtlSpec and DecodedBatchCache) is not ported yet (ROADMAP.md "
-            "queue 1 item 8.5b); use 'synth_classify'")
+        from ..data.etl_service import ImageEtlSpec
+
+        self.seed = int(spec.get("seed", 123))
+        self.spec = ImageEtlSpec.from_directory(
+            spec["data_dir"], height=int(spec.get("height", 24)),
+            width=int(spec.get("width", 24)), channels=int(spec.get("channels", 1)),
+            batch_size=int(spec.get("batch", 16)),
+            store_pad=int(spec.get("store_pad", 4)), seed=self.seed,
+            augment=False, shuffle=True,
+            cache_dir=spec.get("cache_dir"))
+        self.num_batches = max(1, len(self.spec.files) // self.spec.batch_size)
+        self._cache = self.spec.open_cache()
+        self._hits = 0
+        self._misses = 0
+
+    def build_net(self, hp: Dict, device="cuda"):
+        from ..nn import MultiLayerNetwork, NeuralNetConfiguration
+        from ..nn.conf import (ConvolutionLayer, DenseLayer, InputType,
+                               OutputLayer, SubsamplingLayer)
+        from ..nn.updaters import Adam
+
+        c1 = int(hp.get("conv_channels", 8))
+        hidden = int(hp.get("hidden", 32))
+        conf = (
+            NeuralNetConfiguration.Builder().seed(self.seed)
+            .updater(Adam(float(hp.get("learning_rate", 1e-3)))).list()
+            .layer(ConvolutionLayer(n_out=c1, kernel_size=(5, 5),
+                                    stride=(1, 1), activation="relu"))
+            .layer(SubsamplingLayer(kernel_size=(2, 2), stride=(2, 2)))
+            .layer(DenseLayer(n_out=hidden, activation="relu"))
+            .layer(OutputLayer(n_out=self.spec.num_classes,
+                               activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.convolutional(
+                self.spec.height, self.spec.width, self.spec.channels))
+            .build())
+        return MultiLayerNetwork(conf, device=device).init()
+
+    def _publish_cache_counters(self) -> None:
+        from ..monitoring.etl import etl_metrics
+
+        m = etl_metrics()
+        m.cache_hits.inc(self._hits)
+        m.cache_misses.inc(self._misses)
+        self._hits = 0
+        self._misses = 0
+
+    def _produce(self, b: int, epoch: int) -> Tuple[np.ndarray, np.ndarray]:
+        img, labels, hit = self.spec.produce(b, epoch, self._cache)
+        self._hits += int(hit)
+        self._misses += int(not hit)
+        # ETL hands back NHWC uint8; the net's inter-layer layout is NCHW
+        x = img.astype(np.float32).transpose(0, 3, 1, 2) / 255.0
+        y = np.eye(self.spec.num_classes, dtype=np.float32)[labels]
+        return x, y
+
+    def batch(self, iteration: int) -> Tuple[np.ndarray, np.ndarray]:
+        out = self._produce(iteration % self.num_batches,
+                            iteration // self.num_batches)
+        self._publish_cache_counters()
+        return out
+
+    def evaluate(self, net) -> float:
+        correct = total = 0
+        for b in range(self.num_batches):
+            x, y = self._produce(b, 0)  # augment=False: epoch is geometry-free
+            pred = net.output(x).cpu().numpy()  # the card's answer, on the host
+            correct += int((pred.argmax(1) == y.argmax(1)).sum())
+            total += len(y)
+        self._publish_cache_counters()
+        return correct / max(1, total)
 
 
 TASKS = {

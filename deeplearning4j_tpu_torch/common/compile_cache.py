@@ -17,6 +17,8 @@ nvcc. Concurrent builds are safe: each build writes a per-process temporary
 file and renames it into place. An explicit ``enable()`` wins over the env
 contract, as in the JAX package. Kernel libraries already loaded by this
 process stay loaded: the setting decides where the next build goes.
+``enable`` installs ``monitoring.compilecache``: the build's hits (a library
+found built here) and misses (an nvcc build) count per function.
 """
 
 from __future__ import annotations
@@ -49,6 +51,9 @@ def enable(directory: str) -> str:
             log.info("compile cache re-pointed %s -> %s",
                      _enabled_dir, directory)
         _enabled_dir = directory
+    from ..monitoring import compilecache
+
+    compilecache.install(directory)
     return directory
 
 
@@ -69,6 +74,9 @@ def disable() -> None:
     global _enabled_dir
     with _lock:
         _enabled_dir = None
+    from ..monitoring import compilecache
+
+    compilecache.uninstall()
 
 
 def cache_dir() -> Optional[str]:

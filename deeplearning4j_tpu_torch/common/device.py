@@ -27,6 +27,14 @@ def resolve_device(device=DEFAULT_DEVICE) -> torch.device:
     return dev
 
 
+def has_values(t: torch.Tensor) -> bool:
+    """False for a tensor that carries shapes only (a fake or meta tensor,
+    as ``monitoring.costmodel`` counts a step's flops on): the host checks
+    of id and segment values skip such a tensor, which has no values to
+    check."""
+    return not (t.is_meta or isinstance(t, torch._subclasses.fake_tensor.FakeTensor))
+
+
 def set_fp32_numerics() -> None:
     """Run float32 matrix products and convolutions in full float32.
 

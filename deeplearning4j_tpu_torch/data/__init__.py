@@ -6,9 +6,9 @@ spawned workers import ``etl_service``, ``image``, ``records``,
 ``dataset`` and ``iterators``, none of which imports torch, and an eager
 package import here would cost each worker an ``import torch`` it never
 uses. ``from deeplearning4j_tpu_torch.data import X`` works for every name
-below; its module is imported on first use. Not ported yet: datavec's
-``TransformProcess`` (``transform.py``) and ``audio.py`` (ROADMAP.md queue 1
-item 8.5b).
+below; its module is imported on first use. Datavec's
+``TransformProcess`` (``transform.py``) and the audio reader (``audio.py``)
+are host Python too.
 """
 
 import importlib as _importlib
@@ -69,6 +69,16 @@ _EXPORTS = {
     "RegexLineRecordReader": ".records",
     "SVMLightRecordReader": ".records",
     "RecordReader": ".records",
+    # transforms
+    "DataQualityAnalysis": ".transform",
+    "Reducer": ".transform",
+    "Schema": ".transform",
+    "SplitMaxLengthSequence": ".transform",
+    "TransformProcess": ".transform",
+    "convert_to_sequence": ".transform",
+    "offset_sequence": ".transform",
+    "reduce_sequence_by_window": ".transform",
+    "split_sequences": ".transform",
 }
 
 __all__ = sorted(_EXPORTS)

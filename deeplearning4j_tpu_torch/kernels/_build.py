@@ -12,7 +12,10 @@ The build directory is ``<dir>/kernels`` while the compile cache is enabled
 serving pool share one build), else ``$TDL_TORCH_BUILD_DIR``, else
 ``build/kernels/`` beside the package (listed in ``.gitignore``). Nothing
 is built when a module is imported: the first launch builds. A failed build
-raises.
+raises. Each library built is one compile to ``monitoring.watchdogs`` (its
+seconds the build's wall time); with the compile cache enabled, each
+library is also, once per process, a cache hit (found built) or a miss
+(built) to ``monitoring.compilecache``.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from pathlib import Path
 from typing import Dict, List
 
 from ..common import compile_cache
+from ..monitoring import compilecache, watchdogs
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 # -Xptxas -v: ptxas reports each kernel's registers, shared memory and spills
@@ -38,6 +42,8 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 # what the last build did: seconds, the libraries, and nvcc's messages
 build_info: Dict[str, object] = {}
+# libraries this process has already reported to the compile-cache monitor
+_reported: set = set()
 
 
 def build_dir() -> Path:
@@ -89,6 +95,10 @@ def build_all() -> Dict[str, Path]:
     out_dir = build_dir()
     targets = {src.stem: out_dir / f"lib{src.stem}-{digest}.so" for src in sources()}
     todo = [s for s in sources() if not targets[s.stem].is_file()]
+    for src in sources():
+        if targets[src.stem] not in _reported and src not in todo:
+            _reported.add(targets[src.stem])
+            compilecache.on_cache_hit()
     t0 = time.perf_counter()
     log = []
     if todo:
@@ -108,6 +118,11 @@ def build_all() -> Dict[str, Path]:
             else:
                 targets[src.stem].with_suffix(".log").write_text(output)
                 os.replace(tmp, targets[src.stem])
+                # per library, the JAX package's event order: the cache miss
+                # peeks the announcement, the compile claims it
+                _reported.add(targets[src.stem])
+                compilecache.on_cache_miss()
+                watchdogs.note_compile(time.perf_counter() - t0)
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
     for stem, lib in targets.items():

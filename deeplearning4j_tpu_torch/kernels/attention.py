@@ -60,6 +60,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..common.device import has_values
 from . import _build, autotune
 from .autotune import BLOCK_K, FWD_Q_ROWS
 
@@ -629,7 +630,7 @@ def _segment_ids(segment_ids, B, Tq, Tk, device):
     if tuple(qseg.shape) != (B, Tq) or tuple(kseg.shape) != (B, Tk):
         raise ValueError(f"segment ids must be [B,Tq]/[B,Tk] = [{B},{Tq}]/[{B},{Tk}]; "
                          f"got {tuple(qseg.shape)}/{tuple(kseg.shape)}")
-    if bool((qseg < 0).any()) or bool((kseg < 0).any()):
+    if has_values(qseg) and (bool((qseg < 0).any()) or bool((kseg < 0).any())):
         raise ValueError("segment ids must be >= 0 (negative ids are reserved "
                          "for masked keys)")
     return qseg, kseg

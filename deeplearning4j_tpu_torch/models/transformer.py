@@ -49,7 +49,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..common.bucketing import bucket_size
-from ..common.device import resolve_device
+from ..common.device import has_values, resolve_device
 from ..kernels.attention import dot_product_attention, ring_attention, ulysses_attention
 
 _NEG_INF = -1e30  # matches kernels.attention masking
@@ -250,7 +250,7 @@ def _index_tensor(x, upper: int, what: str, device) -> torch.Tensor:
     t = torch.as_tensor(x)
     if t.dtype.is_floating_point or t.dtype == torch.bool or t.is_complex():
         raise TypeError(f"{what} ids must be integers, got {t.dtype}")
-    if t.numel() and (bool((t < 0).any()) or bool((t >= upper).any())):
+    if t.numel() and has_values(t) and (bool((t < 0).any()) or bool((t >= upper).any())):
         raise ValueError(f"{what} ids must lie in [0, {upper})")
     return t.to(device=device, dtype=torch.long)
 

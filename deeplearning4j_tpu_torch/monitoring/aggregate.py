@@ -47,6 +47,12 @@ ENV_INTERVAL = "TDL_METRICS_SPOOL_INTERVAL"
 #: spool filename prefix (leak-audit fixture + merge both key on it)
 SPOOL_PREFIX = "tdl_metrics_"
 
+#: families that exist only at merge time (computed by derive_straggler, no
+#: registry declares them). Alert rules may reference these; the alert-rule
+#: lint unions them with the registry-declared set.
+DERIVED_FAMILIES = ("tdl_step_time_skew_ratio", "tdl_step_time_slowest_rank",
+                    "tdl_step_time_mean_seconds")
+
 #: per-rank step-time families the straggler derivation reads, in preference
 #: order. ``tdl_step_wall_seconds`` is iteration-to-iteration wall (includes
 #: checkpoint IO, input stalls — everything a straggler actually loses time
@@ -339,3 +345,22 @@ def _derived_lines(derived: Optional[dict]) -> List[str]:
         lines.append(f'tdl_step_time_mean_seconds{{rank="{rank}"}} '
                      f"{_fmt_value(derived['mean_step_seconds'][rank])}")
     return lines
+
+
+def merged_snapshot(directory: str,
+                    local_registry: Optional[MetricsRegistry] = None) -> dict:
+    """JSON twin of :func:`merged_prometheus` (``/metrics.json`` with a spool
+    dir attached): per-proc snapshots keyed by proc, plus the derived
+    straggler block."""
+    spools = read_spools(directory, registry=local_registry)
+    out = {
+        "procs": {str(s.get("proc")): {"rank": s.get("rank"),
+                                       "pid": s.get("pid"),
+                                       "wall": s.get("wall"),
+                                       "snapshot": s.get("snapshot") or {}}
+                  for s in spools},
+        "derived": derive_straggler(spools),
+    }
+    if local_registry is not None:
+        out["local"] = local_registry.snapshot()
+    return out

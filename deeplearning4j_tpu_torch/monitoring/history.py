@@ -250,8 +250,8 @@ def merged_samples(directory: Optional[str] = None,
 
 class HistoryView:
     """Read-side handle bundling a local ring and/or a spool directory —
-    what ``AlertEngine(history_view=...)`` consumes, so every windowed reader
-    sees the same sample stream."""
+    what ``AlertEngine(history_view=...)`` / ``SloTracker(history_view=...)``
+    consume, so every windowed reader sees the same sample stream."""
 
     def __init__(self, ring: Optional[HistoryRing] = None,
                  directory: Optional[str] = None):
@@ -390,3 +390,22 @@ def quantile_from_buckets(buckets: dict, inf: float, q: float) -> Optional[float
         cum += c
         lo = ub
     return edges[-1][0] if edges else None
+
+
+def count_at_or_below(buckets: dict, threshold: float) -> float:
+    """Observations ≤ ``threshold`` from per-bucket counts, interpolating
+    linearly inside the bucket containing the threshold (the dual of
+    :func:`quantile_from_buckets` — SLO "good event" counting)."""
+    edges = sorted(((float(ub), c) for ub, c in (buckets or {}).items()),
+                   key=lambda t: t[0])
+    cum = 0.0
+    lo = 0.0
+    for ub, c in edges:
+        if threshold >= ub:
+            cum += c
+            lo = ub
+            continue
+        if threshold > lo and ub > lo:
+            cum += c * (threshold - lo) / (ub - lo)
+        return cum
+    return cum

@@ -6,9 +6,10 @@ A request crosses router → replica → executor → decode slot; a training st
 crosses supervisor → N ranks. Each of those processes keeps its own
 flight-event spool on its own clock basis: events carry ``t =
 time.monotonic()`` (system-wide per host boot, but NOT comparable across
-hosts or reboots). :func:`build_timeline` merges them into a single
-Perfetto-loadable chrome-trace JSON (the JAX package's op-trace spools are
-not read here):
+hosts or reboots); ``OpProfiler`` op traces (``ops.profiler``, the
+``monitoring.trace`` spans) carry microseconds since a private
+``perf_counter_ns`` origin. :func:`build_timeline` merges them all into a
+single Perfetto-loadable chrome-trace JSON:
 
 - **one pid lane per process identity** (``supervisor``, ``rank0``,
   ``replica1``, …) — restart-stable, so a respawned rank lands back on the
@@ -39,6 +40,10 @@ from typing import Dict, Iterable, List, Optional, Sequence
 from . import flight
 from .aggregate import spool_error_counter
 from .registry import MetricsRegistry
+
+#: kept in sync with ops/profiler.py (imported lazily there to keep this
+#: module free of the ops package) — a test pins equality
+OPTRACE_PREFIX = "tdl_optrace_"
 
 #: flight-event kinds that become duration slices by ending at the event's
 #: timestamp with ``dur`` = their ``seconds`` field
@@ -207,10 +212,12 @@ def _flow_events(flows: Dict[str, list]) -> List[dict]:
 
 
 def build_timeline(flight_dirs: Iterable[str] = (),
+                   optrace_dirs: Iterable[str] = (),
                    extra_events: Sequence[dict] = (),
                    registry: Optional[MetricsRegistry] = None) -> dict:
-    """Merge every per-process flight spool under ``flight_dirs`` (plus
-    ``extra_events`` — e.g. a router's in-memory ring) into one chrome-trace dict: ``{"traceEvents": [...],
+    """Merge every per-process spool under ``flight_dirs`` /
+    ``optrace_dirs`` (plus ``extra_events`` — e.g. a router's in-memory
+    ring) into one chrome-trace dict: ``{"traceEvents": [...],
     "displayTimeUnit": "ms", "otherData": {...}}``.
 
     Torn/unreadable spools are skipped and counted in
@@ -250,6 +257,24 @@ def build_timeline(flight_dirs: Iterable[str] = (),
         wall_events.extend(
             _flight_trace_events(proc, events, offset, lanes, flows))
 
+    for d in optrace_dirs:
+        for spool in scan_optrace_dir(d, registry):
+            offset = _median_offset(spool.get("anchors") or ())
+            if offset is None:
+                dropped += 1
+                continue
+            if spool.get("run_id"):
+                run_ids.add(str(spool["run_id"]))
+            pid = lanes.pid(str(spool.get("proc", "unknown")))
+            for ev in spool.get("events") or []:
+                ts = ev.get("ts")
+                if not isinstance(ts, (int, float)):
+                    continue
+                out = dict(ev)
+                out["pid"] = pid
+                out["ts"] = ts / 1e6 + offset  # µs-since-origin → wall s
+                wall_events.append(out)
+
     wall_events.extend(_flow_events(flows))
 
     origin = min((ev["ts"] for ev in wall_events), default=0.0)
@@ -274,12 +299,23 @@ def build_timeline(flight_dirs: Iterable[str] = (),
                                         if len(f) >= 2])}}
 
 
+def scan_optrace_dir(directory: str,
+                     registry: Optional[MetricsRegistry] = None) -> List[dict]:
+    """Every ``OpProfiler`` spool in ``directory`` (torn files skipped and
+    counted, reader="timeline")."""
+    return flight.scan_spool_json(
+        directory, OPTRACE_PREFIX,
+        on_error=spool_error_counter("timeline", registry,
+                                     prefix=OPTRACE_PREFIX))
+
+
 def write_timeline(path: str, flight_dirs: Iterable[str] = (),
+                   optrace_dirs: Iterable[str] = (),
                    extra_events: Sequence[dict] = (),
                    registry: Optional[MetricsRegistry] = None) -> str:
     """Build and atomically write the merged timeline JSON; returns
     ``path``. The artifact is what Perfetto opens directly."""
-    doc = build_timeline(flight_dirs=flight_dirs, extra_events=extra_events,
-                         registry=registry)
+    doc = build_timeline(flight_dirs=flight_dirs, optrace_dirs=optrace_dirs,
+                         extra_events=extra_events, registry=registry)
     flight.atomic_json_write(path, doc)
     return path

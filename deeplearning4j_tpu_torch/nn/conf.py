@@ -38,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from ..common import data_parallel
-from ..common.device import DEFAULT_DEVICE, resolve_device
+from ..common.device import DEFAULT_DEVICE, has_values, resolve_device
 from . import activations as act
 from . import losses as loss_fns
 from .dropout import RngKey, apply_dropout
@@ -848,7 +848,7 @@ def _embedding_ids(ix, rows: int) -> torch.Tensor:
     ix = ix.to(torch.long)
     if torch.compiler.is_exporting():
         return torch.where(ix < 0, ix + rows, ix).clamp(0, rows - 1)
-    if ix.numel() and (bool((ix < 0).any()) or bool((ix >= rows).any())):
+    if ix.numel() and has_values(ix) and (bool((ix < 0).any()) or bool((ix >= rows).any())):
         raise ValueError(f"embedding ids must lie in [0, {rows})")
     return ix
 

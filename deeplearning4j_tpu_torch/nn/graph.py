@@ -30,12 +30,15 @@ index in the topological order, vertices counted.
 ``set_device_ingest`` takes one function for every input, or a dict
 ``{input_name: fn}`` that scopes an ingest to some inputs (an image scaler
 never touches a dense side input); ``set_bucketing`` pads DataSets and
-MultiDataSets (``common.bucketing``). Not ported yet: the monitoring trace
-and watchdog hooks (ROADMAP.md queue 1 item 8.6).
+MultiDataSets (``common.bucketing``). The fit loops carry the JAX
+package's monitoring hooks, as the MultiLayerNetwork's do
+(``"ComputationGraph.train_step"`` and ``".train_scan"`` signatures, the
+step span, ``TDL_DEBUG_BUFFERS``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 from typing import Any, Dict, List, Optional
 
@@ -50,12 +53,14 @@ from ..common.precision import amp_enabled, cast_floating, cast_input, compute_d
 from ..data.dataset import DataSet, MultiDataSet
 from ..data.iterators import AsyncDataSetIterator
 from ..eval.evaluation import Evaluation
+from ..monitoring import trace as _trace
+from ..monitoring import watchdogs as _watchdogs
 from .conf import BatchNormalization, GlobalPoolingLayer, LastTimeStep
 from .constraints import is_bias
 from .dropout import RngKey
 from .graph_conf import ComputationGraphConfiguration
 from .multilayer import (_WEIGHT_NOISE_SALT, _BnState, _grad_normalize, _LazyScoreMixin,
-                         _mask_frozen, constrain, reduce_nested)
+                         _mask_frozen, _stacked, constrain, reduce_nested)
 
 _RESERVED = frozenset(dir(nn.ModuleDict()))
 
@@ -329,9 +334,18 @@ class ComputationGraph(_LazyScoreMixin, nn.Module):
         self._fit_batch(*self._batch(ds), true_examples=true_n)
 
     def _fit_batch(self, inputs, labels, lmasks, true_examples=None):
+        step = self._train_step_fn()
         self.last_batch_size = (true_examples if true_examples is not None
                                 else int(next(iter(inputs.values())).shape[0]))
-        self.score_ = self._step(inputs, labels, lmasks, self.iteration)  # read on first use
+        if _watchdogs.active():  # recompile watchdog: shape-churn detection
+            _watchdogs.note_step()
+            _watchdogs.note_signature("ComputationGraph.train_step",
+                                      _watchdogs.signature_of(inputs, labels, lmasks))
+        # a step span only when a trace profiler is attached
+        with (_trace.step_span(self.iteration)
+              if _trace.get_trace_profiler() is not None
+              else contextlib.nullcontext()):
+            self.score_ = step(inputs, labels, lmasks, self.iteration)  # read on first use
         self.iteration += 1
         self._notify()
 
@@ -345,9 +359,17 @@ class ComputationGraph(_LazyScoreMixin, nn.Module):
         has_lm = batches[0][2] is not None
         if any((lm is not None) != has_lm for _, _, lm in batches):
             raise ValueError("fit_scan: all datasets must agree on label masks")
+        self.last_batch_size = int(next(iter(batches[0][0].values())).shape[0])
+        if _watchdogs.active():
+            # the JAX package's scan takes the batches stacked [K, ...]
+            k = len(batches)
+            stack = lambda d: None if d is None else {n: _stacked(k, a)  # noqa: E731
+                                                      for n, a in d.items()}
+            _watchdogs.note_step()
+            _watchdogs.note_signature("ComputationGraph.train_scan", _watchdogs.signature_of(
+                *(stack(d) for d in batches[0])))
         losses = [self._step(x, y, lm, self.iteration + k)
                   for k, (x, y, lm) in enumerate(batches)]
-        self.last_batch_size = int(next(iter(batches[0][0].values())).shape[0])
         self.iteration += len(batches)
         self.score_ = losses[-1]
         self._notify()

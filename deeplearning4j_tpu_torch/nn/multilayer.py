@@ -28,15 +28,26 @@ that key folded with its index (:class:`~.dropout.RngKey`).
 the raw wire batch, followed by the cast to the network's dtype; the batch
 is then staged at its wire dtype (uint8 stays uint8). ``set_bucketing``
 pads ragged batches to the bucket policy of ``common.bucketing``, masked
-out of the loss; ``last_batch_size`` stays the true count. Not ported yet:
-the monitoring trace and watchdog hooks (ROADMAP.md queue 1 item 8.6).
+out of the loss; ``last_batch_size`` stays the true count.
+
+The fit loops carry the JAX package's monitoring hooks: with a
+``RecompileWatchdog`` installed (``monitoring.watchdogs.active()``) each
+step advances its step clock and notes its input signature
+(``"MultiLayerNetwork.train_step"``, ``".tbptt_step"``, ``".train_scan"``);
+with a trace profiler attached (``monitoring.trace.set_trace_profiler``)
+each step of ``_fit_batch`` runs inside a ``step_span``; with
+``TDL_DEBUG_BUFFERS=1`` at the first fit the step runs under
+``common.debug.donation_guard`` (the state is updated in place). With none
+of these the step pays one flag read.
 Checkpoints of the network are ``serde.checkpoint`` and
 ``serde.model_serializer``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
+from types import SimpleNamespace
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -44,6 +55,7 @@ import torch
 from torch import nn
 
 from ..common import data_parallel
+from ..common.debug import buffers_debug_enabled, donation_guard
 from ..common.device import resolve_device
 from ..common.dtypes import to_torch
 from ..common.precision import amp_enabled, cast_floating, cast_input, compute_dtype
@@ -51,6 +63,8 @@ from ..data.dataset import DataSet
 from ..data.iterators import (ArrayDataSetIterator, AsyncDataSetIterator, DataSetIterator,
                               ListDataSetIterator)
 from ..eval.evaluation import Evaluation, RegressionEvaluation
+from ..monitoring import trace as _trace
+from ..monitoring import watchdogs as _watchdogs
 from .attention_layers import (LearnedSelfAttentionLayer, RecurrentAttentionLayer,
                                SelfAttentionLayer)
 from .conf import (BatchNormalization, GlobalPoolingLayer, LastTimeStep, LSTM,
@@ -124,6 +138,12 @@ def _grad_normalize(grads, kind: Optional[str], threshold: float):
     raise ValueError(f"unknown gradient normalization {kind}")
 
 
+def _stacked(k: int, a):
+    """The shape and dtype of ``k`` copies of ``a`` stacked on a new leading
+    axis, for a signature (None stays None)."""
+    return None if a is None else SimpleNamespace(shape=(k, *a.shape), dtype=a.dtype)
+
+
 class _BnState(nn.Module):
     """One BatchNormalization layer's running statistics, as buffers."""
 
@@ -176,6 +196,21 @@ class _LazyScoreMixin:
         elif t.dtype == torch.float64:
             t = t.float()
         return t.to(self.device)
+
+    def _state_trees(self):
+        """The tensors a step updates in place, by name."""
+        return {"params": self.params_, "updater_state": self.updater_state,
+                "bn_state": self.bn_state}
+
+    def _train_step_fn(self):
+        """The step ``_fit_batch`` calls: ``_step``, checked by
+        ``common.debug.donation_guard`` when ``TDL_DEBUG_BUFFERS=1`` at the
+        network's first fit (read once, as the JAX package reads it when it
+        builds its step)."""
+        guarded = self.__dict__.get("_debug_buffers")
+        if guarded is None:
+            guarded = self.__dict__["_debug_buffers"] = buffers_debug_enabled()
+        return donation_guard(self._step, state=self._state_trees) if guarded else self._step
 
     def _notify(self):
         for lst in self.listeners:
@@ -496,14 +531,19 @@ class MultiLayerNetwork(_LazyScoreMixin, nn.Module):
                     (ds.labels_mask is not None) != has_lm:
                 raise ValueError("fit_scan: all datasets must agree on "
                                  "features/labels masks")
-        losses = []
-        for k, ds in enumerate(datasets):
-            loss, _ = self._step(self._put(ds.features, self._features_dtype()),
-                                 self._put(ds.labels),
-                                 self._put(ds.features_mask), self._put(ds.labels_mask),
-                                 self.iteration + k)
-            losses.append(loss)
+        batches = [(self._put(ds.features, self._features_dtype()), self._put(ds.labels),
+                    self._put(ds.features_mask), self._put(ds.labels_mask))
+                   for ds in datasets]
         self.last_batch_size = int(datasets[0].features.shape[0])
+        if _watchdogs.active():
+            # the JAX package's scan takes the batches stacked [K, ...]
+            _watchdogs.note_step()
+            _watchdogs.note_signature("MultiLayerNetwork.train_scan", _watchdogs.signature_of(
+                *(_stacked(len(batches), a) for a in batches[0])))
+        losses = []
+        for k, batch in enumerate(batches):
+            loss, _ = self._step(*batch, self.iteration + k)
+            losses.append(loss)
         self.iteration += len(datasets)
         self.score_ = losses[-1]
         self._notify()
@@ -515,11 +555,22 @@ class MultiLayerNetwork(_LazyScoreMixin, nn.Module):
         if self.conf.backprop_type == "TruncatedBPTT" and self.conf.tbptt_fwd_length > 0:
             self._fit_tbptt(ds, true_examples)
             return
+        step = self._train_step_fn()
         x = self._put(ds.features, self._features_dtype())
+        y, fmask, lmask = (self._put(ds.labels), self._put(ds.features_mask),
+                           self._put(ds.labels_mask))
         # the TRUE count when bucketing padded this batch
         self.last_batch_size = true_examples if true_examples is not None else int(x.shape[0])
-        loss, _ = self._step(x, self._put(ds.labels), self._put(ds.features_mask),
-                             self._put(ds.labels_mask), self.iteration)
+        if _watchdogs.active():  # recompile watchdog: shape-churn detection
+            _watchdogs.note_step()
+            _watchdogs.note_signature("MultiLayerNetwork.train_step",
+                                      _watchdogs.signature_of(x, y, fmask, lmask))
+        # a step span (an OpProfiler event and a record_function range) only
+        # when a trace profiler is attached; no-op context otherwise
+        with (_trace.step_span(self.iteration)
+              if _trace.get_trace_profiler() is not None
+              else contextlib.nullcontext()):
+            loss, _ = step(x, y, fmask, lmask, self.iteration)
         self.score_ = loss  # read as a float on first use
         self.iteration += 1
         self._notify()
@@ -555,6 +606,13 @@ class MultiLayerNetwork(_LazyScoreMixin, nn.Module):
         seg = lambda a, s: a[..., s * fwd:(s + 1) * fwd]  # noqa: E731
         rnn_states = self._zero_rnn_states(B)
         self.last_batch_size = true_examples if true_examples is not None else B
+        if _watchdogs.active():
+            # the JAX package's scan takes the segments stacked [S, ..., fwd]
+            segs = (None if a is None else a.unflatten(-1, (S, fwd)).movedim(-2, 0)
+                    for a in (x_all, y_all, fm_all, lm_all))
+            _watchdogs.note_step()
+            _watchdogs.note_signature("MultiLayerNetwork.tbptt_step",
+                                      _watchdogs.signature_of(*segs))
         losses = []
         for s in range(S):
             loss, rnn_states = self._step(seg(x_all, s), seg(y_all, s),

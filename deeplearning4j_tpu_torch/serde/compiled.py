@@ -38,6 +38,8 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from ..monitoring import watchdogs
+
 # the operators a program may call must be registered before it loads
 from ..kernels import attention as _operators  # noqa: F401
 
@@ -151,7 +153,8 @@ def export_compiled(fn, example_args: Sequence[Any], weights, path: str,
     ``example_args`` (tensors on the device the program is for) into the
     artifact zip; the loader binds the stored weights, so callers pass only
     the runtime arguments. Returns the seconds of the trace (``export``)
-    and of writing the zip (``save``)."""
+    and of writing the zip (``save``). The trace counts as one compile in
+    ``tdl_xla_compiles_total`` (``monitoring.watchdogs``)."""
     import time
 
     from ..common.precision import compute_dtype
@@ -163,8 +166,11 @@ def export_compiled(fn, example_args: Sequence[Any], weights, path: str,
     weights = _map_leaves(lambda t: t.detach() if isinstance(t, torch.Tensor) else t, weights)
     args = tuple(example_args)
     device = next((a.device for a in args if isinstance(a, torch.Tensor)), torch.device("cpu"))
+    t_trace = time.perf_counter()
     with torch.no_grad():
         program = torch.export.export(_Program(fn), (weights, *args))
+    # the trace is a compile of the port to the recompile watchdog
+    watchdogs.note_compile(time.perf_counter() - t_trace)
     if program.state_dict or program.constants:
         raise ValueError("export_compiled: the traced function captured tensors that are not "
                          f"inputs ({sorted(program.state_dict) + sorted(program.constants)}); "

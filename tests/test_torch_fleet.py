@@ -703,10 +703,26 @@ def test_synth_classify_task_is_jax_bitwise_and_trains_alike():
     assert tt.evaluate(tnet) == jt.evaluate(jnet)
 
 
-def test_lenet_images_task_waits_for_the_etl_service():
+def test_lenet_images_task_waits_for_the_etl_service(tmp_path):
+    """The registry holds the JAX package's kinds; ``lenet_images`` builds
+    over the ETL service (the JAX task's spec, geometry and network); an
+    unknown kind raises."""
     assert set(TW.TASKS) == set(JW.TASKS)
-    with pytest.raises(NotImplementedError, match="8.5"):
-        TW.build_task({"kind": "lenet_images", "data_dir": "/nonexistent"})
+    from PIL import Image
+
+    rs = np.random.RandomState(0)
+    for i in range(16):
+        d = tmp_path / "imgs" / f"c{i % 4}"
+        d.mkdir(parents=True, exist_ok=True)
+        Image.fromarray(rs.randint(0, 255, (16, 16), dtype=np.uint8),
+                        mode="L").save(d / f"i{i:03d}.png")
+    spec = {"kind": "lenet_images", "data_dir": str(tmp_path / "imgs"), "height": 12,
+            "width": 12, "channels": 1, "batch": 8, "store_pad": 2, "seed": 5}
+    task, jtask = TW.build_task(spec), JW.build_task(spec)
+    assert isinstance(task, TW.LenetImagesTask)
+    assert (task.num_batches, task.spec.num_classes) == (jtask.num_batches, 4)
+    assert task.build_net({"learning_rate": 3e-3}, device="cpu").conf.to_json() == \
+        jtask.build_net({"learning_rate": 3e-3}).conf.to_json()
     with pytest.raises(ValueError, match="unknown trial task"):
         TW.build_task({"kind": "nope"})
 

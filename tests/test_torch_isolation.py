@@ -87,7 +87,9 @@ def test_importing_the_port_loads_no_jax():
                    "nn.transfer", "models.vgg", "models.zoo_ext", "models.nasnet",
                    "common.bucketing", "data.normalizers", "data.records",
                    "data.record_reader_iterator", "data.image", "data.etl_service",
-                   "monitoring.etl"):
+                   "monitoring.etl", "data.transform", "data.audio", "ops", "ops.profiler",
+                   "monitoring.watchdogs", "monitoring.compilecache", "monitoring.listener",
+                   "monitoring.slo", "common.debug", "utils"):
         assert f"deeplearning4j_tpu_torch.{module}" in added
     assert [m for m in added if _forbidden(m)] == []
 
@@ -430,7 +432,7 @@ def test_trial_gangs_default_to_cuda_and_raise_without_a_card(tmp_path):
     """``GangTrialRunner`` and ``from_config`` run their gangs on the card
     unless asked for the CPU; on a host with no card a gang raises before
     any process starts (a sweep of such gangs quarantines every trial and
-    names no winner). ``lenet_images`` waits for the ETL service."""
+    names no winner). ``lenet_images`` builds over the ETL service."""
     _no_card()
     from deeplearning4j_tpu_torch.arbiter import fleet as F
     from deeplearning4j_tpu_torch.arbiter.trial_worker import build_task
@@ -456,5 +458,12 @@ def test_trial_gangs_default_to_cuda_and_raise_without_a_card(tmp_path):
     finally:
         fleet.close()
     assert {t.quarantine_reason for t in fleet.trials.values()} == {"crash_budget"}
-    with pytest.raises(NotImplementedError, match="8.5"):
-        build_task({"kind": "lenet_images", "data_dir": str(tmp_path)})
+    from PIL import Image
+
+    for i in range(4):
+        (tmp_path / "imgs" / f"c{i % 2}").mkdir(parents=True, exist_ok=True)
+        Image.fromarray(np.full((16, 16), 40 * i, np.uint8), mode="L").save(
+            tmp_path / "imgs" / f"c{i % 2}" / f"i{i}.png")
+    task = build_task({"kind": "lenet_images", "data_dir": str(tmp_path / "imgs"),
+                       "height": 12, "width": 12, "batch": 2, "store_pad": 2})
+    assert (task.spec.num_classes, task.num_batches) == (2, 2)
