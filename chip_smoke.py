@@ -219,7 +219,7 @@ Phases:
    restore without ``reshard=True`` (naming both layouts), restores with it
    bit for bit to the saved state, and trains steps 4-6 within 10c's limits
    of the uninterrupted fit; save, verify and restore ms and the reshard
-   metrics;
+   metrics; the same gang of (a) and (b) also runs phase 20b;
 12. pipeline parallelism (``parallel.pipeline``), ranks sharing the card
    over gloo: (a) BERT-base at full width and depth (max_len 128, phase 5's
    batch and weights, its 19 MLM positions as weight-1 labels of [16, 128])
@@ -374,14 +374,49 @@ Phases:
    ones) and 6c's step, with coverage and the device-bytes breakdown;
    LeNet's step with the hooks off and on in turns (median of 40 after 5;
    the inactive step computes no signature and opens no span); a crash
-   dump written and read back.
+   dump written and read back;
+20. the model tail and ``rl``: (a) the Mixture-of-Experts FFN at BERT-base
+   widths (768, 3072, 8 experts, top-2, capacity factor 1.25) on [16, 128,
+   768]: a float32 forward and backward on the card against the CPU's
+   (y and aux 1e-5 relative, each gradient 1e-3 of its norm, every
+   token's top-2 gates apart by more than 1e-5), then bf16 Adam steps (the
+   median of 10 after 3, tokens/s, the share of token-slots the capacity
+   drops, peak memory above the resident state); (b), inside phase 11's
+   gang, the same layer on a {data 2, expert 2} mesh of its four gloo ranks
+   (the expert-parallel ``moe_ffn``): each rank's rows of y, the aux loss and
+   the gathered gradients against the one-process layer (10c's limits), and
+   the bytes the collectives moved; (c) the VAE at MNIST width (784 binary
+   pixels, encoder and decoder 256, 256, latent 32, Bernoulli, batch 128):
+   10 float32 Adam steps, each against the CPU's step from the card's state
+   on the same noise (loss 1e-5; gradients and updates within measured
+   bounds: the Bernoulli clip's float32 boundary), the 16-sample
+   importance-sampling estimate against the CPU's on the same noise, ms per
+   step; (d) TinyYOLO
+   at the JAX package's defaults (416x416, 20 classes, the five VOC
+   anchors; 1,637,389 parameters): a float32 fit at batch 2 against the
+   CPU's within bounds measured against a float64 step, ``get_predicted_
+   objects`` + ``nms`` of the card's output on the card and on the CPU, bf16
+   Adam at batch 64 (the median of 10 after 3, images/s, peak memory, the
+   share of the dense bf16 peak); (e) a BERT-base checkpoint under HF's
+   names (BertConfig's defaults, weights from a seed) written as
+   ``config.json`` + ``pytorch_model.bin`` and read by
+   ``import_hf_bert(dir)``: the forward on [8, 128] with a ragged attention
+   mask (12 launches of the float32 flash forward) against the dense path,
+   one float32 fine-tune step through the three kernels against the dense
+   step (phase 5's limits); (f) DQN on ``CartPoleEnv``: 200 updates, each
+   against the CPU's from the card's state and replay sample (6a's limits),
+   the actions against a free CPU run (identical until the first near-tie
+   of two Q-values), updates/s and env steps/s; ``A2CVectorized`` (8 envs,
+   20 updates) against the CPU's; ``AsyncNStepQLearningDiscrete`` and
+   ``A3CDiscrete`` with 2 threads: finite, parameters moved.
 
 A line before the last is a JSON object describing each kernel (launch
 counts on the main path, error against the plain version, times and the
 card's bound; the forward also by q-tile instantiation, with the launches
 of the autotune search; phase 10's to 14's launches are in the counts:
 the forward in 10a-d, the backward pair in 10b-d, all three in 11a, 11c,
-12a, 12b, 13a, 13b, 14c and 19b, the forward in 13c's replicas and eval gate),
+12a, 12b, 13a, 13b, 14c, 19b and 20e, the forward in 13c's replicas and eval
+gate),
 then the card's name and power
 limit; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero and
@@ -4737,6 +4772,8 @@ def sp_worker():
     # 11b: ring attention at (2, 1, 2), float32
     f32_step("ring", (2, 1, 2), "ring")
     result["staged"] = dict(collectives.staged_counts)
+    # 20b: the expert-parallel MoE, in this gang (no process start of its own)
+    result["moe_ep"] = moe_ep_rank(device)
     with open(os.path.join(spec["dir"], f"result.rank{rank}.json"), "w") as f:
         json.dump(result, f)
 
@@ -4794,6 +4831,7 @@ def phase_sharded_flagship(tag, launches, workdir):
                     launches[f"{k}_f32"].append(v)
             else:
                 check(not any(counts.values()), f"{what}: ring attention launched {counts}")
+    check_moe_ep(tag, ranks)
     b = ranks[0]["bf16"]
     for r in ranks:
         for i, counts in enumerate(r["bf16"]["launches"]):
@@ -7912,6 +7950,696 @@ def phase_monitored_training(tag, launches):
           f"{text.splitlines()[2]!r}", flush=True)
 
 
+# ------------------------------------------------------------------ phase 20
+
+# 20a/20b: the Mixture-of-Experts FFN at BERT-base widths (GShard's layer in
+# place of a block's FFN: 8 experts, top-2, capacity factor 1.25) on phase
+# 5's token count, [16, 128, 768]; 20b splits the same layer over a
+# {"data": 2, "expert": 2} mesh inside phase 11's gang
+MOE_CFG = dict(d_model=768, d_ff=3072, n_experts=8, top_k=2, capacity_factor=1.25)
+MOE_B, MOE_T, MOE_SEED = 16, 128, 20
+MOE_TIMED, MOE_WARMUP = 10, 3
+# the routing is compared only where it is unique: the k-th and the
+# (k+1)-th gate of every token differ by more than this (float32 products on
+# the card and the CPU, or over 1024 rows and 2048, round apart ~1e-7)
+MOE_GATE_MARGIN = 1e-5
+# 20c: the VAE at MNIST width (784 binary pixels, encoder and decoder 256,
+# 256, latent 32, Bernoulli), batch 128
+VAE_KW = dict(n_in=784, latent=32, encoder_layers=(256, 256), decoder_layers=(256, 256),
+              reconstruction="bernoulli", learning_rate=1e-3, seed=21)
+VAE_B, VAE_STEPS, VAE_SAMPLES, VAE_TIMED = 128, 10, 16, 20
+# an element whose CPU gradient is below this share of its tensor's largest
+# is zero up to rounding: Adam's first steps turn its sign into a whole
+# learning rate either way, so it is counted aside, not compared
+VAE_NULL_REL = 1e-6
+# each step's gradients and update, card against CPU from the same state,
+# of their norms. The Bernoulli clip at 1 - 1e-7 (float32 0.99999988, where
+# jnp.clip passes half a gradient and beyond which none) makes a saturated
+# pixel's logit gradient jump by O(1) when rounding moves the logit across
+# the boundary; and Adam divides each gradient element by the root of its
+# own running square, so an element whose gradients stay small moves a
+# whole learning rate on a gradient whose rounding is a large share of it.
+# Measured on the H100 (700 W), the same in two runs (the check runs from
+# one state on fixed data): gradients 5.80e-03 (enc.0.W at
+# step 3), updates 1.90e-03 (enc.1.W at step 3), all parameters' update
+# 7.87e-04
+VAE_GRAD_REL = 1e-2
+VAE_UPDATE_REL = 1e-2
+# 20d: TinyYOLO at the JAX package's defaults (416x416, 20 classes, the five
+# VOC anchors, base 16, 5 downsamples); its parameter count from the JAX
+# package (tests/test_torch_yolo.py)
+TINYYOLO_PARAMS = 1_637_389
+YOLO_CHECK_B, YOLO_B, YOLO_TIMED = 2, 64, 10
+# the float32 fit, card against CPU: (score, each tensor's update, all
+# parameters' update, BN running statistics), from `python3
+# tests/torch_float64_step.py --device cuda --only tinyyolo_416` (PERF.md)
+# (H100, 700 W: the card 2.2e-8, 9.5e-5, 8.7e-5, 3.3e-7 and the
+# CPU 8.5e-8, 6.8e-5, 2.9e-5, 2.4e-7 from float64; their sums rounded up as
+# ZOO_BOUNDS' are)
+YOLO_BOUNDS = (1e-6, 2e-4, 2e-4, 6e-7)
+# detections above the confidence that this share of the cells exceed
+YOLO_DETECT_SHARE = 0.01
+# 20e: HF's BertConfig defaults, a state dict with HF's names from a seed
+HF_BERT_CONFIG = {"architectures": ["BertForMaskedLM"], "model_type": "bert",
+                  "vocab_size": 30522, "hidden_size": 768, "num_hidden_layers": 12,
+                  "num_attention_heads": 12, "intermediate_size": 3072, "hidden_act": "gelu",
+                  "hidden_dropout_prob": 0.1, "attention_probs_dropout_prob": 0.1,
+                  "max_position_embeddings": 512, "type_vocab_size": 2,
+                  "initializer_range": 0.02, "layer_norm_eps": 1e-12}
+HF_B, HF_T, HF_P = 8, 128, 19
+# 20f: reinforcement learning on CartPole
+DQN_CFG = dict(seed=3, max_epoch_step=200, max_step=249, exp_rep_max_size=10000, batch_size=32,
+               target_dqn_update_freq=50, update_start=50, eps_anneal_steps=150)
+DQN_UPDATES = 200
+A2C_ENVS, A2C_UPDATES = 8, 20
+ASYNC_STEPS = 400
+
+
+def _gate_margin(gates, k):
+    """The smallest gap between the k-th and the (k+1)-th gate of a token."""
+    import torch
+
+    top = torch.topk(gates.float(), k + 1, dim=-1).values
+    return float((top[:, k - 1] - top[:, k]).min())
+
+
+def _moe_input(B, seed=MOE_SEED + 1):
+    return np.random.RandomState(seed).randn(B, MOE_T, MOE_CFG["d_model"]).astype(np.float32)
+
+
+def _moe_loss(y, aux):
+    return (y.float() * y.float()).sum() / y.shape[0] + 0.01 * aux
+
+
+def _grad_rel(got, ref):
+    """{name: |got - ref| / |ref|} of two {name: tensor} dicts."""
+    return {n: ((got[n].double().cpu() - r.double().cpu()).norm()
+                / r.double().norm().clamp(min=1e-30)).item() for n, r in ref.items()}
+
+
+def phase_moe(tag):
+    """20a: the MoE FFN at BERT-base widths: a float32 forward and backward
+    on the card against the CPU's from the same weights (y and aux within
+    1e-5 relative, each gradient within 1e-3 of its norm), then bf16 Adam
+    steps: the median of 10 after 3, tokens/s, the share of token-slots the
+    capacity drops, peak memory above the resident state."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import moe
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+
+    cfg = moe.MoEConfig(**MOE_CFG)
+    N = MOE_B * MOE_T
+    x = _moe_input(MOE_B)
+    cpu = moe.init_moe_params(MOE_SEED, cfg, device="cpu")
+    card = {k: v.detach().cuda().requires_grad_() for k, v in cpu.items()}
+    out = {}
+    for dev, params in (("cuda", card), ("cpu", cpu)):
+        xt = torch.as_tensor(x, device=dev)
+        gates = torch.softmax(xt.reshape(N, -1) @ params["wg"], dim=-1)
+        y, aux = moe.moe_ffn(params, xt, cfg)
+        grads = torch.autograd.grad(_moe_loss(y, aux), list(params.values()))
+        out[dev] = (y.detach(), aux.detach(), dict(zip(params, grads)),
+                    _gate_margin(gates.detach(), cfg.top_k))
+    (y, aux, g, margin), (ry, raux, rg, rmargin) = out["cuda"], out["cpu"]
+    y_rel = ((y.cpu() - ry).abs().max() / ry.abs().max()).item()
+    aux_rel = abs(aux.item() - raux.item()) / abs(raux.item())
+    errs = _grad_rel(g, rg)
+    worst = max(errs, key=errs.get)
+    print(f"{tag} 20a MoE [{MOE_B},{MOE_T},768] E=8 top-2 C={cfg.capacity(N)} float32, card vs "
+          f"CPU: y {y_rel:.2e} of max|y|, aux {aux.item():.6f} vs {raux.item():.6f} (rel "
+          f"{aux_rel:.2e}), largest gradient error {errs[worst]:.2e} of its norm ({worst}); "
+          f"smallest top-2 gate margin {min(margin, rmargin):.2e}", flush=True)
+    check(min(margin, rmargin) > MOE_GATE_MARGIN,
+          f"20a: a token's routing is a near-tie ({min(margin, rmargin):.2e})")
+    check(y_rel <= TRAIN_LOSS_REL and aux_rel <= TRAIN_LOSS_REL,
+          f"20a: y differs by {y_rel:.2e}, aux by {aux_rel:.2e}")
+    check(errs[worst] <= TRAIN_GRAD_REL, f"20a: gradient {worst} differs by {errs[worst]:.2e}")
+    del out, cpu, g, rg
+
+    # bf16 compute, float32 master weights, Adam
+    xb = torch.as_tensor(x, device="cuda").bfloat16()
+    params = card
+    upd = Adam(1e-4)
+    state = upd.init(params)
+    with torch.no_grad():
+        gates = torch.softmax(xb.reshape(N, -1) @ params["wg"].bfloat16(), dim=-1)
+        kept = moe._topk_dispatch(gates, cfg.top_k, cfg.capacity(N))[1].sum().item()
+    dropped = 1.0 - kept / (cfg.top_k * N)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    losses = []
+
+    def step(it=[0]):
+        y, aux = moe.moe_ffn(params, xb, cfg)
+        loss = _moe_loss(y, aux)
+        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        updates, _ = upd.apply(grads, state, params, it[0], 0)
+        with torch.no_grad():
+            for name, p in params.items():
+                p.sub_(updates[name])
+        it[0] += 1
+        losses.append(loss.detach())
+
+    times = wall_ms(step, n=MOE_TIMED, warmup=MOE_WARMUP)
+    peak = (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
+    vals = [v.item() for v in losses]
+    check(all(math.isfinite(v) for v in vals), f"20a: non-finite bf16 loss {vals}")
+    ms = statistics.median(times)
+    print(f"{tag} 20a MoE bf16 Adam step [{MOE_B},{MOE_T},768]: {spread(times)}, "
+          f"{N / ms * 1e3:.0f} tokens/s at the median; dropped token-slots {dropped:.4f} "
+          f"(capacity {cfg.capacity(N)} per expert); peak memory {peak:.3f} GiB above the "
+          f"resident state; loss {vals[0]:.4f} -> {vals[-1]:.4f}", flush=True)
+    device_profile(tag, "20a MoE bf16 Adam step", step, reps=2, top=8)
+
+
+def moe_ep_rank(device):
+    """20b's rank, inside phase 11's gang (``sp_worker``): the MoE of 20a on a
+    {"data": 2, "expert": 2} mesh of the gang's four gloo ranks, float32:
+    this rank's rows of y, the aux loss and the gathered gradients against
+    the one-process layer on the global batch (each rank runs it too), and
+    the bytes the collectives moved in the step."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import moe
+    from deeplearning4j_tpu_torch.parallel import collectives
+    from deeplearning4j_tpu_torch.parallel.mesh import mesh_from_shape, use_mesh
+
+    cfg = moe.MoEConfig(**MOE_CFG)
+    mesh = mesh_from_shape({"data": 2, "expert": 2})
+    whole = {k: v.detach().to(device).requires_grad_()
+             for k, v in moe.init_moe_params(MOE_SEED, cfg, device="cpu").items()}
+    x = torch.as_tensor(_moe_input(MOE_B), device=device)
+    rows = MOE_B // mesh.axis_size("data")
+    i = mesh.axis_index("data")
+    params = moe.shard_moe_params(whole, cfg, mesh)
+    before = dict(collectives.traffic)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y, aux = moe.moe_ffn(params, x[i * rows:(i + 1) * rows], cfg, mesh=mesh)
+    # each rank's share of the global loss: its rows' y, its experts' aux
+    loss = (y * y).sum() / MOE_B + 0.01 * aux
+    grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+    mid = dict(collectives.traffic)
+    grads = moe.reduce_expert_parallel_grads(grads, cfg, mesh)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    delta = lambda a, b: {k: v - b.get(k, 0) for k, v in a.items() if v - b.get(k, 0)}  # noqa: E731
+    moved = {"layer": delta(mid, before), "grads": delta(collectives.traffic, mid)}
+    with use_mesh(mesh):
+        for k in ("w1", "b1", "w2", "b2"):
+            grads[k] = collectives.all_gather(grads[k], "expert", axis=0)
+    ry, raux = moe.moe_ffn(whole, x, cfg)
+    rgrads = dict(zip(whole, torch.autograd.grad(_moe_loss(ry, raux), list(whole.values()))))
+    gates = torch.softmax(x.reshape(-1, cfg.d_model) @ whole["wg"], dim=-1)
+    ref_rows = ry[i * rows:(i + 1) * rows].detach()
+    errs = _grad_rel(grads, rgrads)
+    worst = max(errs, key=errs.get)
+    return {"y_rel": ((y.detach() - ref_rows).abs().max() / ry.abs().max()).item(),
+            "aux": aux.item(), "ref_aux": raux.item(), "worst": worst,
+            "worst_err": errs[worst], "moved": moved, "ms": step_ms,
+            "margin": _gate_margin(gates.detach(), cfg.top_k),
+            "coords": dict(mesh.coords)}
+
+
+def check_moe_ep(tag, ranks):
+    """20b, read from phase 11a's ranks: y, aux and the gathered gradients
+    within 10c's limits of the one-process layer; the bytes moved."""
+    res = [r["moe_ep"] for r in ranks]
+    y_rel = max(r["y_rel"] for r in res)
+    aux_rel = max(abs(r["aux"] - r["ref_aux"]) / abs(r["ref_aux"]) for r in res)
+    worst = max(res, key=lambda r: r["worst_err"])
+    moved = res[0]["moved"]
+    print(f"{tag} 20b expert-parallel MoE [{MOE_B},{MOE_T},768] E=8 top-2 on {{data: 2, expert: "
+          f"2}} (4 gloo ranks on the card, float32) vs the one-process layer: y {y_rel:.2e} of "
+          f"max|y|, aux rel {aux_rel:.2e}, largest gathered gradient error "
+          f"{worst['worst_err']:.2e} of its norm ({worst['worst']}); collectives moved, per "
+          f"rank, {sum(moved['layer'].values()) / 1e6:.3f} MB in the layer's forward and "
+          f"backward ({moved['layer']}) and {sum(moved['grads'].values()) / 1e6:.3f} MB summing "
+          f"the gradient shares ({moved['grads']}); rank 0 step "
+          f"{res[0]['ms']:.1f} ms; coords {[r['coords'] for r in res]}; smallest top-2 gate "
+          f"margin {min(r['margin'] for r in res):.2e}", flush=True)
+    check(min(r["margin"] for r in res) > MOE_GATE_MARGIN, "20b: a token's routing is a near-tie")
+    check(y_rel <= TRAIN_LOSS_REL and aux_rel <= TRAIN_LOSS_REL,
+          f"20b: y differs by {y_rel:.2e}, aux by {aux_rel:.2e}")
+    check(worst["worst_err"] <= TRAIN_GRAD_REL,
+          f"20b: gradient {worst['worst']} differs by {worst['worst_err']:.2e}")
+
+
+def _vae_batch(seed=0):
+    """Binary 784-pixel digits: phase 18's seven-segment images, thresholded."""
+    x, _ = digit_batch(VAE_B, seed=seed)
+    return (x.reshape(VAE_B, 784) > 0.5).astype(np.float32)
+
+
+def phase_vae(tag):
+    """20c: the VAE at MNIST width: 10 float32 Adam steps on the card, each
+    held against the CPU's step from the card's state and the same noise
+    (the loss 1e-5 relative, each gradient and each tensor's update within
+    the measured ``VAE_GRAD_REL`` and ``VAE_UPDATE_REL`` of its norm,
+    gradient elements zero up to rounding aside), the importance-sampling
+    estimate with 16 samples against the CPU's on the same noise, ms per
+    step."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models.vae import VariationalAutoencoder, _flat
+
+    with float32_policy():
+        card = VariationalAutoencoder(**VAE_KW, device="cuda")
+        cpu = VariationalAutoencoder(**VAE_KW, device="cpu")
+        rs = np.random.RandomState(22)
+        worst_loss, worst_upd, worst_name, nulls = 0.0, 0.0, "", 0
+        worst_grad, grad_name, whole = 0.0, "", 0.0
+        for step in range(VAE_STEPS):
+            x = _vae_batch(step)
+            eps = rs.randn(VAE_B, VAE_KW["latent"]).astype(np.float32)
+            with torch.no_grad():  # the CPU twin starts from the card's state
+                for name, p in _flat(cpu.params).items():
+                    p.copy_(_flat(card.params)[name].cpu())
+                cpu.opt_state = {s: {n: t.cpu().clone() for n, t in d.items()}
+                                 for s, d in card.opt_state.items()}
+            cpu.iteration = card.iteration
+            before = {n: p.detach().cpu().double() for n, p in _flat(cpu.params).items()}
+            _, grads = cpu._grads(torch.as_tensor(x), torch.as_tensor(eps))
+            _, card_grads = card._grads(torch.as_tensor(x, device="cuda"),
+                                        torch.as_tensor(eps, device="cuda"))
+            loss_c = cpu._fit_batch(torch.as_tensor(x), torch.as_tensor(eps)).item()
+            loss_g = card._fit_batch(torch.as_tensor(x, device="cuda"),
+                                     torch.as_tensor(eps, device="cuda")).item()
+            worst_loss = max(worst_loss, abs(loss_g - loss_c) / abs(loss_c))
+            num = den = 0.0
+            for name, p in _flat(card.params).items():
+                g = grads[name].double()
+                gerr = ((card_grads[name].cpu().double() - g).norm()
+                        / g.norm().clamp(min=1e-300)).item()
+                if gerr > worst_grad:
+                    worst_grad, grad_name = gerr, f"step {step} {name}"
+                live = g.abs() > VAE_NULL_REL * g.abs().max()
+                nulls += int((~live).sum())
+                want = (_flat(cpu.params)[name].double() - before[name])[live]
+                got = (p.detach().cpu().double() - before[name])[live]
+                err = ((got - want).norm() / want.norm().clamp(min=1e-300)).item()
+                num, den = num + float(((got - want) ** 2).sum()), den + float((want ** 2).sum())
+                if err > worst_upd:
+                    worst_upd, worst_name = err, f"step {step} {name}"
+            whole = max(whole, (num / max(den, 1e-300)) ** 0.5)
+        print(f"{tag} 20c VAE 784-256-256-32 Bernoulli [{VAE_B}] float32, {VAE_STEPS} Adam steps "
+              f"on the card, each against the CPU's from the same state and noise: worst loss "
+              f"error {worst_loss:.2e}, largest gradient error {worst_grad:.2e} of its norm "
+              f"({grad_name}), largest update error {worst_upd:.2e} of its norm ({worst_name}), "
+              f"all parameters' update {whole:.2e}; {nulls} gradient elements zero up to "
+              f"rounding aside", flush=True)
+        check(worst_loss <= MLN_LOSS_REL, f"20c: loss differs by {worst_loss:.2e}")
+        check(worst_grad <= VAE_GRAD_REL,
+              f"20c: gradient {grad_name} differs by {worst_grad:.2e}")
+        check(worst_upd <= VAE_UPDATE_REL, f"20c: update {worst_name} differs by {worst_upd:.2e}")
+
+        x = _vae_batch(99)
+        eps = np.random.RandomState(23).randn(VAE_SAMPLES, VAE_B, VAE_KW["latent"])
+        eps = eps.astype(np.float32)
+        with torch.no_grad():
+            got = card._estimate(card.params, torch.as_tensor(x, device="cuda"),
+                                 torch.as_tensor(eps, device="cuda")).cpu()
+            for name, p in _flat(cpu.params).items():
+                p.copy_(_flat(card.params)[name].cpu())
+            want = cpu._estimate(cpu.params, torch.as_tensor(x), torch.as_tensor(eps))
+        est_rel = ((got - want).abs().max() / want.abs().max()).item()
+        lp = card.reconstruction_probability(x, num_samples=VAE_SAMPLES)
+        print(f"{tag} 20c reconstruction log-probability, {VAE_SAMPLES} samples, card vs CPU on "
+              f"the same noise: {est_rel:.2e} of the largest; mean log p(x) {lp.mean():.3f}",
+              flush=True)
+        check(est_rel <= MLN_LOSS_REL, f"20c: the estimate differs by {est_rel:.2e}")
+        check(np.all(np.isfinite(lp)), "20c: non-finite reconstruction log-probability")
+        xt = torch.as_tensor(_vae_batch(7), device="cuda")
+        times = wall_ms(lambda: card._fit_batch(xt), n=VAE_TIMED, warmup=3)
+        ms = statistics.median(times)
+        print(f"{tag} 20c VAE float32 Adam step [{VAE_B},784]: {spread(times)}, "
+              f"{VAE_B / ms * 1e3:.0f} examples/s at the median", flush=True)
+        est_times = wall_ms(lambda: card.reconstruction_probability(x, VAE_SAMPLES), n=10)
+        print(f"{tag} 20c reconstruction_probability [{VAE_B},784] x {VAE_SAMPLES} samples: "
+              f"{spread(est_times)}", flush=True)
+
+
+def yolo_batch(batch, seed=0, classes=20, grid=13, objects=3):
+    """Uniform 416x416 images and YOLO labels [B, 4+C, grid, grid]: a few
+    boxes per image, each in the cell of its center (corners in grid
+    units), its class one-hot."""
+    rs = np.random.RandomState(seed)
+    x = rs.rand(batch, 3, grid * 32, grid * 32).astype(np.float32)
+    y = np.zeros((batch, 4 + classes, grid, grid), np.float32)
+    for b in range(batch):
+        for _ in range(objects):
+            cx, cy = rs.uniform(0, grid, 2)
+            w, h = rs.uniform(0.5, 5.0, 2)
+            i, j = int(cy), int(cx)
+            y[b, :, i, j] = 0.0
+            y[b, 0:4, i, j] = [cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2]
+            y[b, 4 + rs.randint(classes), i, j] = 1.0
+    return x, y
+
+
+def _objects(objs):
+    return [[(o.predicted_class, o.center_x, o.center_y, o.width, o.height, o.confidence)
+             for o in img] for img in objs]
+
+
+def phase_tinyyolo(tag):
+    """20d: TinyYOLO at the JAX package's defaults: its parameter count, a
+    float32 fit at batch 2 against the CPU's within bounds measured against
+    a float64 step, ``get_predicted_objects`` + ``nms`` of the card's output
+    on the card and on the CPU, then bf16 Adam at batch 64: the median of 10
+    after 3, images/s, peak memory, the share of the dense bf16 peak."""
+    import torch
+
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.models import TinyYOLO
+    from deeplearning4j_tpu_torch.models.yolo import get_predicted_objects
+
+    model = TinyYOLO()
+    loss_rel, update_rel, all_rel, bn_rel = YOLO_BOUNDS
+    ds = DataSet(*yolo_batch(YOLO_CHECK_B))
+    check_fit_on_cpu(tag, f"20d TinyYOLO [{YOLO_CHECK_B},3,416,416] Adam",
+                     lambda dev: model.init(device=dev), ds, loss_rel=loss_rel,
+                     update_rel=update_rel, all_rel=all_rel, bn_rel=bn_rel, skip_null=True)
+    _free_card()
+    with float32_policy():
+        net = model.init(device="cuda")
+        check(net.num_params() == TINYYOLO_PARAMS,
+              f"20d: TinyYOLO has {net.num_params()} parameters, expected {TINYYOLO_PARAMS}")
+        raw = net.output(ds.features)
+        conf = torch.sigmoid(raw.reshape(YOLO_CHECK_B, len(model.anchors), -1, 13, 13)[:, :, 4])
+        threshold = float(np.quantile(conf.cpu().numpy(), 1.0 - YOLO_DETECT_SHARE))
+        card = get_predicted_objects(raw, model.anchors, threshold=threshold)
+        cpu = get_predicted_objects(raw.cpu(), model.anchors, threshold=threshold)
+    a, b = _objects(card), _objects(cpu)
+    same = [len(x) == len(y) and all(p[0] == q[0] and max(abs(u - v) for u, v in
+                                                           zip(p[1:], q[1:])) <= 1e-5
+                                     for p, q in zip(x, y)) for x, y in zip(a, b)]
+    print(f"{tag} 20d get_predicted_objects + nms (threshold {threshold:.4f}) of the card's "
+          f"output [{YOLO_CHECK_B},125,13,13], on the card and on the CPU: "
+          f"{[len(x) for x in a]} and {[len(x) for x in b]} objects, equal {all(same)}",
+          flush=True)
+    check(all(same) and sum(map(len, a)) > 0, "20d: the card's detections differ from the CPU's")
+    del net, raw
+    _free_card()
+
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    net = model.init(device="cuda")
+    staged = _staged(*yolo_batch(YOLO_B, seed=1))
+    times, scores = _train_steps(net, staged, YOLO_TIMED)
+    check(all(math.isfinite(v) for v in scores), f"20d: non-finite score in {scores}")
+    ms = statistics.median(times)
+    peak = (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
+    print(f"{tag} 20d TinyYOLO ({TINYYOLO_PARAMS:,} parameters) fit step [{YOLO_B},3,416,416] "
+          f"bf16 Adam: {spread(times)}, {YOLO_B / ms * 1e3:.1f} images/s at the median; peak "
+          f"memory {peak:.2f} GiB above the resident state; score {scores[0]:.4f} -> "
+          f"{scores[-1]:.4f}", flush=True)
+    print_mln_peak_share(tag, "20d TinyYOLO fit step", net.conf, YOLO_B, ms)
+    device_profile(tag, f"20d TinyYOLO fit step [{YOLO_B},3,416,416] bf16",
+                   lambda: net.fit(staged), reps=2, top=8, by_kind=True)
+    del net, staged
+    _free_card()
+
+
+def hf_bert_state_dict(config, seed=24):
+    """A BertForMaskedLM state dict under HF's names, weights N(0, 0.02)
+    from ``seed``, LayerNorm scales 1 and biases 0 (drawn with numpy)."""
+    import torch
+
+    rs = np.random.RandomState(seed)
+    D, F, V = config["hidden_size"], config["intermediate_size"], config["vocab_size"]
+    sd = {}
+
+    def dense(name, out_dim, in_dim):
+        sd[f"{name}.weight"] = (rs.randn(out_dim, in_dim) * 0.02).astype(np.float32)
+        sd[f"{name}.bias"] = (rs.randn(out_dim) * 0.02).astype(np.float32)
+
+    def norm(name):
+        sd[f"{name}.weight"] = np.ones(D, np.float32)
+        sd[f"{name}.bias"] = np.zeros(D, np.float32)
+
+    e = "bert.embeddings"
+    sd[f"{e}.word_embeddings.weight"] = (rs.randn(V, D) * 0.02).astype(np.float32)
+    sd[f"{e}.position_embeddings.weight"] = (
+        rs.randn(config["max_position_embeddings"], D) * 0.02).astype(np.float32)
+    sd[f"{e}.token_type_embeddings.weight"] = (
+        rs.randn(config["type_vocab_size"], D) * 0.02).astype(np.float32)
+    norm(f"{e}.LayerNorm")
+    for i in range(config["num_hidden_layers"]):
+        p = f"bert.encoder.layer.{i}"
+        for n in ("query", "key", "value"):
+            dense(f"{p}.attention.self.{n}", D, D)
+        dense(f"{p}.attention.output.dense", D, D)
+        norm(f"{p}.attention.output.LayerNorm")
+        dense(f"{p}.intermediate.dense", F, D)
+        dense(f"{p}.output.dense", D, F)
+        norm(f"{p}.output.LayerNorm")
+    dense("cls.predictions.transform.dense", D, D)
+    norm("cls.predictions.transform.LayerNorm")
+    sd["cls.predictions.bias"] = np.zeros(V, np.float32)
+    return {k: torch.from_numpy(v) for k, v in sd.items()}
+
+
+def phase_hf_import(tag, launches, workdir):
+    """20e: a BERT-base checkpoint with HF's names (BertConfig's defaults,
+    weights from a seed) written as ``config.json`` + ``pytorch_model.bin``
+    and read by ``import_hf_bert(dir)``: the forward on [8, 128] with a
+    ragged attention mask through the float32 flash forward (12 launches),
+    against the dense path (phase 3's limit); one float32 fine-tune step
+    through the three kernels against the dense step (phase 5's limits)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+    from deeplearning4j_tpu_torch.models.bert_import import import_hf_bert
+
+    d = os.path.join(workdir, "hf_bert")
+    os.makedirs(d, exist_ok=True)
+    t0 = time.perf_counter()
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(HF_BERT_CONFIG, f)
+    torch.save(hf_bert_state_dict(HF_BERT_CONFIG), os.path.join(d, "pytorch_model.bin"))
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params, cfg = import_hf_bert(d)
+    torch.cuda.synchronize()
+    t_read = time.perf_counter() - t0
+    check(params.device.type == "cuda" and cfg.n_layers == 12 and cfg.vocab_size == 30522
+          and cfg.norm_position == "post" and not cfg.gelu_approximate
+          and cfg.compute_dtype == torch.float32, f"20e: imported config {cfg}")
+    rs = np.random.RandomState(25)
+    tokens = rs.randint(0, cfg.vocab_size, (HF_B, HF_T))
+    segments = (np.arange(HF_T)[None] >= HF_T // 2).repeat(HF_B, 0).astype(np.int64)
+    lengths = rs.randint(HF_T // 4, HF_T + 1, HF_B)
+    lengths[0] = HF_T
+    mask = (np.arange(HF_T)[None, :] < lengths[:, None]).astype(np.float32)
+    _zero_counts()
+    with torch.no_grad():
+        out = tfm.forward(params, tokens, cfg, segments=segments, pad_mask=mask)
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        ref = tfm.forward(params, tokens, dataclasses.replace(cfg, attn_impl="xla"),
+                          segments=segments, pad_mask=mask)
+    check(counts == {"flash_fwd": cfg.n_layers, "flash_bwd_dkv": 0, "flash_bwd_dq": 0},
+          f"20e forward: launches {counts}")
+    launches["flash_fwd_f32"].append(counts["flash_fwd"])
+    diff = (out - ref).abs().max().item()
+    print(f"{tag} 20e import_hf_bert(dir) BERT-base (checkpoint written in {t_write:.1f} s, "
+          f"read and placed on the card in {t_read:.1f} s); forward [{HF_B},{HF_T}] float32, "
+          f"ragged attention mask: {counts['flash_fwd']} flash launches, max|logits - dense "
+          f"path| = {diff:.3e} (max|logits| {ref.abs().max().item():.3f})", flush=True)
+    check(torch.isfinite(out).all().item(), "20e: non-finite logits")
+    check(diff <= ENCODER_LOGIT_ATOL, f"20e: logits differ from the dense path by {diff}")
+    times = wall_ms(lambda: tfm.forward(params, tokens, cfg, segments=segments, pad_mask=mask),
+                    n=20)
+    print(f"{tag} 20e imported BERT-base forward [{HF_B},{HF_T}] float32: {spread(times)}",
+          flush=True)
+
+    ft = dataclasses.replace(cfg, dropout=0.0)
+    batch = {**_mlm_batch(cfg, np.random.RandomState(26), HF_B, HF_T, HF_P),
+             "segments": segments}
+    _zero_counts()
+    loss, grads = tfm.loss_and_grads(params, batch, ft)
+    counts = _read_counts()
+    _check_step_counts("20e fine-tune step", counts, 1, cfg.n_layers)
+    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        launches[f"{name}_f32"].append(counts[name])
+    ref_loss, ref_grads = tfm.loss_and_grads(params, batch,
+                                             dataclasses.replace(ft, attn_impl="xla"))
+    loss_rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    errs = _grad_rel(grads, ref_grads)
+    worst = max(errs, key=errs.get)
+    print(f"{tag} 20e fine-tune step of the import [{HF_B},{HF_T}] P={HF_P} float32, flash "
+          f"kernels vs dense attention: loss {loss.item():.6f} vs {ref_loss.item():.6f} (rel "
+          f"{loss_rel:.2e}); largest gradient error {errs[worst]:.2e} of its norm ({worst}, "
+          f"{len(errs)} tensors); launches {counts}", flush=True)
+    check(loss_rel <= TRAIN_LOSS_REL, f"20e: loss differs by {loss_rel:.2e}")
+    check(errs[worst] <= TRAIN_GRAD_REL, f"20e: gradient {worst} differs by {errs[worst]:.2e}")
+    del params, grads, ref_grads
+    shutil.rmtree(d, ignore_errors=True)
+    _free_card()
+
+
+def _cpu_copy(tree):
+    return {k: ({n: t.detach().cpu().clone() for n, t in v.items()} if isinstance(v, dict)
+                else v.detach().cpu().clone()) for k, v in tree.items()}
+
+
+def _recording_dqn(base):
+    """A ``QLearningDiscrete`` subclass that records each action (with the
+    gap between the two Q-values where it was greedy); given a ``twin`` (a
+    learner on the CPU), each update is also made by the twin from this
+    learner's state and replay sample, and the two losses and updates are
+    kept."""
+
+    class Recording(base):
+        def __init__(self, *a, twin=None, **kw):
+            super().__init__(*a, **kw)
+            self.actions, self.held = [], []
+            self.twin = twin
+
+        def act(self, obs, greedy=False):
+            if not greedy and self.rs.rand() < self.epsilon():
+                a = self.mdp.action_space.random_action(self.rs)
+                self.actions.append((a, None))
+                return a
+            q = self.qnet.output(obs[None].reshape(1, -1)).cpu().numpy()[0]
+            self.actions.append((int(np.argmax(q)), float(abs(q[0] - q[1]))))
+            return int(np.argmax(q))
+
+        def _learn(self):
+            if self.twin is None:
+                return super()._learn()
+            twin, net = self.twin, self.qnet
+            twin.qnet.set_params(net.params().cpu())
+            twin.qnet.updater_state = _cpu_copy(net.updater_state)
+            twin.qnet.iteration = net.iteration
+            twin.target_params = _cpu_copy(self.target_params)
+            twin.replay.buffer = self.replay.buffer
+            twin.replay.rs.set_state(self.replay.rs.get_state())
+            before = twin.qnet.params().double()
+            want_loss = twin._learn().item()
+            want = twin.qnet.params().double() - before
+            loss = super()._learn()
+            got = net.params().cpu().double() - before
+            self.held.append((loss.item(), want_loss,
+                              ((got - want).norm() / want.norm().clamp(min=1e-300)).item()))
+            return loss
+
+    return Recording
+
+
+def phase_rl(tag):
+    """20f: DQN on ``CartPoleEnv``: 200 updates on the card, each held
+    against the CPU's update from the card's state and replay sample (6a's
+    limits: loss 1e-5 relative, the update 1e-4 of its norm), and the
+    card's actions against a free run of the same learner on the CPU (same
+    weights and RandomState): identical until the first near-tie of two
+    Q-values; updates/s and env steps/s. ``A2CVectorized`` (8 envs, 20
+    updates) against the CPU's; ``AsyncNStepQLearningDiscrete`` and
+    ``A3CDiscrete`` with 2 threads on the card: finite, parameters moved."""
+    import torch
+
+    from deeplearning4j_tpu_torch.rl import (CartPoleEnv, GymEnvAdapter, QLearningConfiguration,
+                                             QLearningDiscrete)
+    from deeplearning4j_tpu_torch.rl.actor_critic import (A2CVectorized, A3CConfiguration,
+                                                          A3CDiscrete)
+    from deeplearning4j_tpu_torch.rl.history import (AsyncNStepQLearningDiscrete,
+                                                     AsyncQLearningConfiguration)
+
+    Rec = _recording_dqn(QLearningDiscrete)
+
+    def learner(dev, twin=None):
+        return Rec(GymEnvAdapter(CartPoleEnv(4)), QLearningConfiguration(**DQN_CFG), hidden=64,
+                   device=dev, twin=twin)
+
+    twin = learner("cpu")
+    card = learner("cuda", twin=twin)
+    free = learner("cpu")
+    check(torch.equal(card.qnet.params().cpu(), free.qnet.params()),
+          "20f: the card's and the CPU's Q-networks start apart")
+    card.train()  # the timed run pays for the twin's updates: timed again below
+    free.train()
+    check(len(card.held) == DQN_UPDATES, f"20f: {len(card.held)} DQN updates")
+    loss_rel = max(abs(a - b) / abs(b) for a, b, _ in card.held if b != 0)
+    upd_rel = max(e for _, _, e in card.held)
+    n = min(len(card.actions), len(free.actions))
+    split = next((i for i in range(n) if card.actions[i][0] != free.actions[i][0]), n)
+    gaps = [m for m in (card.actions[split][1], free.actions[split][1])
+            if m is not None] if split < n else []
+    timed = learner("cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rewards = timed.train()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    print(f"{tag} 20f DQN CartPole, {DQN_UPDATES} updates (batch {DQN_CFG['batch_size']}, "
+          f"4-64-64-2 MLN, Adam, double DQN) on the card, each against the CPU's from the same "
+          f"state and sample: worst loss error {loss_rel:.2e}, worst update error {upd_rel:.2e} "
+          f"of its norm; actions identical to a free CPU run for {split} of {n} env steps"
+          + (f", first parting at a Q gap of {min(gaps):.2e}" if gaps else "")
+          + f"; card {DQN_UPDATES / secs:.1f} updates/s, {DQN_CFG['max_step'] / secs:.1f} env "
+          f"steps/s ({secs:.2f} s incl. acting); episode rewards {rewards[:8]}", flush=True)
+    check(loss_rel <= MLN_LOSS_REL, f"20f: a DQN loss differs by {loss_rel:.2e}")
+    check(upd_rel <= MLN_UPDATE_REL, f"20f: a DQN update differs by {upd_rel:.2e}")
+    check(split == n or (gaps and min(gaps) <= TIE_EPS),
+          f"20f: the card's actions part from the CPU's at step {split}, Q gaps {gaps}")
+
+    cfg = A3CConfiguration(seed=5, t_max=5, learning_rate=7e-4)
+    a2c = {}
+    for side, dev in (("card", "cuda"), ("host", "cpu")):
+        seeds = iter(range(50, 50 + A2C_ENVS))
+        a2c[side] = A2CVectorized(lambda: GymEnvAdapter(CartPoleEnv(next(seeds))), cfg, 4, 2,
+                                 n_envs=A2C_ENVS, device=dev)
+    t0 = time.perf_counter()
+    a2c["card"].train(A2C_UPDATES)
+    torch.cuda.synchronize()
+    a2c_s = time.perf_counter() - t0
+    a2c["host"].train(A2C_UPDATES)
+    errs = {f"{k}.{n}": ((a2c["card"].params[k][n].cpu() - t).norm()
+                         / t.norm().clamp(min=1e-30)).item()
+            for k, layer in a2c["host"].params.items() for n, t in layer.items()}
+    worst = max(errs, key=errs.get)
+    print(f"{tag} 20f A2CVectorized {A2C_ENVS} CartPole envs, {A2C_UPDATES} updates of "
+          f"t_max {cfg.t_max}: card vs CPU episodes equal "
+          f"{a2c['card'].episode_rewards == a2c['host'].episode_rewards} "
+          f"({len(a2c['card'].episode_rewards)}), largest parameter error {errs[worst]:.2e} of "
+          f"its norm ({worst}); card {A2C_UPDATES / a2c_s:.1f} updates/s, "
+          f"{A2C_UPDATES * cfg.t_max * A2C_ENVS / a2c_s:.0f} env steps/s", flush=True)
+    check(a2c["card"].episode_rewards == a2c["host"].episode_rewards,
+          "20f: A2C episodes differ between the card and the CPU")
+    check(errs[worst] <= MLN_UPDATE_REL, f"20f: A2C parameter {worst} differs by {errs[worst]:.2e}")
+
+    qcfg = AsyncQLearningConfiguration(seed=6, max_step=ASYNC_STEPS, n_step=5, num_threads=2,
+                                       eps_anneal_steps=200, target_dqn_update_freq=50)
+    nq = AsyncNStepQLearningDiscrete(lambda i: GymEnvAdapter(CartPoleEnv(60 + i)), qcfg,
+                                     hidden=64, device="cuda")
+    q0 = nq.qnet.params().clone()
+    t0 = time.perf_counter()
+    nq_rewards = nq.train()
+    nq_s = time.perf_counter() - t0
+    moved_q = (nq.qnet.params() - q0).norm().item()
+    a3 = A3CDiscrete(lambda: GymEnvAdapter(CartPoleEnv(70)),
+                     A3CConfiguration(seed=7, t_max=8, num_threads=2), 4, 2, device="cuda")
+    p0 = {k: {n: t.clone() for n, t in layer.items()} for k, layer in a3.params.items()}
+    t0 = time.perf_counter()
+    a3.train(total_steps=ASYNC_STEPS)
+    a3_s = time.perf_counter() - t0
+    moved_a = sum((a3.params[k][n] - t).norm().item() for k, layer in p0.items()
+                  for n, t in layer.items())
+    finite = (torch.isfinite(nq.qnet.params()).all().item()
+              and all(torch.isfinite(t).all().item() for layer in a3.params.values()
+                      for t in layer.values()))
+    print(f"{tag} 20f AsyncNStepQLearningDiscrete 2 threads, {nq.global_steps} env steps, "
+          f"{nq.qnet.iteration} updates in {nq_s:.2f} s, parameters moved {moved_q:.3e}, "
+          f"episodes {len(nq_rewards)}; A3CDiscrete 2 threads, {ASYNC_STEPS} env steps in "
+          f"{a3_s:.2f} s, parameters moved {moved_a:.3e}, episodes {len(a3.episode_rewards)}; "
+          f"all finite {finite}", flush=True)
+    check(finite and moved_q > 0 and moved_a > 0 and nq.qnet.iteration > 0,
+          "20f: an async learner did not train")
+
+
 def main() -> int:
     import torch
 
@@ -8120,6 +8848,26 @@ def main() -> int:
         phase_monitored_training(tag, launches)
         print(f"phase 19b the monitored training path: ok ({time.perf_counter() - t:.1f} s); "
               f"phase 19 {time.perf_counter() - t19:.1f} s", flush=True)
+        _free_card()
+        t20 = time.perf_counter()
+        for name, fn in (("20a MoE at BERT-base widths", phase_moe),
+                         ("20c the VAE at MNIST width", phase_vae),
+                         ("20d TinyYOLO", phase_tinyyolo)):
+            t = time.perf_counter()
+            fn(tag)
+            _free_card()
+            print(f"phase {name}: ok ({time.perf_counter() - t:.1f} s)", flush=True)
+        t = time.perf_counter()
+        workdir = tempfile.mkdtemp(prefix="tdl_smoke_hf_")
+        try:
+            phase_hf_import(tag, launches, workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        print(f"phase 20e the HF import: ok ({time.perf_counter() - t:.1f} s)", flush=True)
+        t = time.perf_counter()
+        phase_rl(tag)
+        print(f"phase 20f rl: ok ({time.perf_counter() - t:.1f} s); phase 20 "
+              f"{time.perf_counter() - t20:.1f} s (20b ran in phase 11's gang)", flush=True)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1

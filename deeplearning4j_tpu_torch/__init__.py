@@ -56,7 +56,13 @@ the runtime plumbing the next slices need):
 - ``nlp`` — tokenizers and WordPiece, the vocabulary and Huffman codes,
   ``Word2Vec`` (its tables' rows optionally in blocks over a mesh axis),
   ``SequenceVectors``, ``ParagraphVectors``, ``Glove``, tf-idf, t-SNE and
-  ``BertIterator``.
+  ``BertIterator``;
+- ``models.moe``, ``models.vae``, ``models.yolo`` and
+  ``models.bert_import`` — the Mixture-of-Experts FFN (expert-parallel on a
+  mesh with an ``expert`` axis), the variational autoencoder, TinyYOLO with
+  the YOLOv2 head, and the import of HF BERT checkpoints;
+- ``rl`` — MDPs and CartPole, DQN, the HistoryProcessor, async n-step
+  Q-learning, A3C and A2C.
 
 Entry points that place tensors take ``device`` and default to ``"cuda"``;
 the CPU is used only when asked for (``device="cpu"``).

@@ -269,3 +269,58 @@ def pipeline_state_to_jax(states, layout, n_layers: int):
     params = assemble([p for p, _ in states])
     slots = {slot: assemble([nested(u[slot]) for _, u in states]) for slot in states[0][1]}
     return params, slots
+
+
+# ------------------------------------------ MoE, VAE and actor-critic trees
+
+
+def _leaf(arr, device, dtype=None, grad: bool = False) -> torch.Tensor:
+    t = _to_tensor(arr)
+    t = t.to(device=device, dtype=dtype or t.dtype)
+    return t.requires_grad_() if grad else t
+
+
+def moe_params_from_jax(tree, *, device="cuda", dtype=None) -> Dict[str, torch.Tensor]:
+    """The JAX ``init_moe_params`` dict (numpy leaves) as the port's
+    ``{name: tensor}`` on ``device``, each leaf requiring grad."""
+    from ..common.device import resolve_device
+
+    dev = resolve_device(device)
+    want = {"wg", "w1", "b1", "w2", "b2"}
+    if set(tree) != want:
+        raise KeyError(f"MoE parameter names {sorted(tree)} != {sorted(want)}")
+    return {k: _leaf(v, dev, dtype, grad=True) for k, v in tree.items()}
+
+
+def vae_params_from_jax(vae, tree):
+    """Load the JAX ``VariationalAutoencoder.params`` tree (``{"enc": [{"W",
+    "b"}, ...], "dec": [...]}``, numpy leaves) into the port's ``vae`` of the
+    same sizes, and reset its Adam state and iteration; returns ``vae``."""
+    from .vae import _flat
+
+    for part in ("enc", "dec"):
+        if len(tree[part]) != len(vae.params[part]):
+            raise ValueError(f"{part}: {len(tree[part])} layers != {len(vae.params[part])}")
+    mine = _flat(vae.params)
+    flat = dict(_flatten({k: tree[k] for k in ("enc", "dec")}))
+    if set(flat) != set(mine):
+        raise KeyError(f"VAE parameter names differ: {sorted(set(flat) ^ set(mine))}")
+    with torch.no_grad():
+        for name, p in mine.items():
+            t = _to_tensor(flat[name])
+            if tuple(t.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(p.shape)}")
+            p.copy_(t.to(p.dtype))
+    vae.opt_state = vae.updater.init(mine)
+    vae.iteration = 0
+    return vae
+
+
+def actor_critic_params_from_jax(tree, *, device="cuda") -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX ``init_actor_critic`` tree (``{"h0": {"W", "b"}, ..., "pi",
+    "v"}``, numpy leaves) as the port's nested dict of tensors on
+    ``device``."""
+    from ..common.device import resolve_device
+
+    dev = resolve_device(device)
+    return {k: {n: _leaf(a, dev) for n, a in layer.items()} for k, layer in tree.items()}

@@ -18,8 +18,8 @@ Axis names: the JAX package's vocabulary (``data``, ``model``, ``pipe``,
 ``dp``, ``tp``, ``sp``). ``MeshSpec`` resolves sizes as in the JAX package
 (one axis may be -1: the rest of the ranks). A ``pipe`` axis carries the
 stages of ``parallel.pipeline`` (its ring hops are ``collectives.exchange``
-over it); an ``expert`` axis above 1 raises ``NotImplementedError``
-(ROADMAP.md item 8.7). Without a process group the mesh
+over it); an ``expert`` axis carries the expert blocks of
+``models.moe`` (its expert-parallel ``moe_ffn``). Without a process group the mesh
 spans the one process, every axis of size 1. :meth:`Mesh.virtual` gives rank
 r's view of a mesh without any process group, for placement and checkpoint
 arithmetic in one process.
@@ -135,7 +135,6 @@ class Mesh:
         """Rank ``rank``'s view of a mesh of ``shape`` with no process
         group: for placement and checkpoint arithmetic in one process. A
         collective over one of its axes of size > 1 raises."""
-        _check_axes(shape)
         if not 0 <= rank < math.prod(shape.values()):
             raise ValueError(f"rank {rank} outside a mesh of {shape}")
         return cls(shape, rank)
@@ -202,13 +201,6 @@ class Mesh:
         return f"Mesh({self.shape}, rank={self.rank})"
 
 
-def _check_axes(sizes: Dict[str, int]) -> None:
-    if sizes.get(AXIS_EXPERT, 1) > 1:
-        raise NotImplementedError(
-            f"an expert axis of {sizes[AXIS_EXPERT]}: expert parallelism waits for "
-            "models/moe.py (ROADMAP.md item 8.7)")
-
-
 def _subsets(names: Sequence[str]) -> Iterable[Tuple[str, ...]]:
     for k in range(1, len(names) + 1):
         yield from itertools.combinations(names, k)
@@ -231,7 +223,6 @@ def build_mesh(spec: Optional[MeshSpec] = None, devices: Optional[Sequence] = No
     world = device_count()
     n = len(devices) if devices is not None else world
     sizes = spec.resolve(n)
-    _check_axes(sizes)
     if n != world:
         raise NotImplementedError(
             f"a mesh of {n} devices in a group of {world} processes: the port's mesh "

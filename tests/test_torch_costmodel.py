@@ -34,6 +34,7 @@ from deeplearning4j_tpu_torch.monitoring import aggregate as TAgg
 from deeplearning4j_tpu_torch.monitoring import costmodel as TCost
 from deeplearning4j_tpu_torch.monitoring import history as THist
 from deeplearning4j_tpu_torch.nn import updaters as TU
+from torch_port_fixtures import _no_leaked_children_or_shm  # noqa: F401  (per-process leak audit)
 
 SLO_ATOL = 1e-12  # the same float arithmetic on the same counts
 #: XLA's keys of the JAX package's ``xla_step_cost`` that the port has no

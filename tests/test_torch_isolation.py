@@ -467,3 +467,58 @@ def test_trial_gangs_default_to_cuda_and_raise_without_a_card(tmp_path):
     task = build_task({"kind": "lenet_images", "data_dir": str(tmp_path / "imgs"),
                        "height": 12, "width": 12, "batch": 2, "store_pad": 2})
     assert (task.spec.num_classes, task.num_batches) == (2, 2)
+
+
+def test_model_tail_and_rl_default_to_cuda_and_raise_without_a_card(tmp_path):
+    """The MoE parameters, the VAE, TinyYOLO, the HF import and the
+    reinforcement learners place their tensors on ``device``, "cuda" unless
+    the caller asks for the CPU."""
+    _no_card()
+    from deeplearning4j_tpu_torch.models import (MoEConfig, TinyYOLO, VariationalAutoencoder,
+                                                 init_moe_params)
+    from deeplearning4j_tpu_torch.models.bert_import import import_hf_bert
+    from deeplearning4j_tpu_torch.rl import (CartPoleEnv, DQNFactoryStdDense, GymEnvAdapter,
+                                             QLearningDiscrete)
+    from deeplearning4j_tpu_torch.rl.actor_critic import (A2CVectorized, A3CConfiguration,
+                                                          A3CDiscrete, init_actor_critic)
+    from deeplearning4j_tpu_torch.rl.history import AsyncNStepQLearningDiscrete
+
+    cfg = {"vocab_size": 8, "max_position_embeddings": 4, "hidden_size": 4,
+           "num_attention_heads": 1, "num_hidden_layers": 0, "intermediate_size": 4}
+    sd = {"embeddings.word_embeddings.weight": np.zeros((8, 4), np.float32),
+          "embeddings.position_embeddings.weight": np.zeros((4, 4), np.float32),
+          "embeddings.token_type_embeddings.weight": np.zeros((2, 4), np.float32),
+          "embeddings.LayerNorm.weight": np.ones(4, np.float32),
+          "embeddings.LayerNorm.bias": np.zeros(4, np.float32)}
+    env = lambda *a: GymEnvAdapter(CartPoleEnv(0))  # noqa: E731
+    calls = {"init_moe_params": lambda: init_moe_params(0, MoEConfig(8, 16, 2)),
+             "VariationalAutoencoder": lambda: VariationalAutoencoder(6),
+             "TinyYOLO().init()": lambda: TinyYOLO(input_shape=(3, 32, 32)).init(),
+             "import_hf_bert": lambda: import_hf_bert(sd, config=cfg),
+             "DQNFactoryStdDense.build": lambda: DQNFactoryStdDense.build(4, 2),
+             "QLearningDiscrete": lambda: QLearningDiscrete(env()),
+             "AsyncNStepQLearningDiscrete": lambda: AsyncNStepQLearningDiscrete(env),
+             "init_actor_critic": lambda: init_actor_critic(0, 4, 2),
+             "A3CDiscrete": lambda: A3CDiscrete(env, A3CConfiguration(), 4, 2),
+             "A2CVectorized": lambda: A2CVectorized(env, A3CConfiguration(), 4, 2)}
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    model, _ = import_hf_bert(sd, config=cfg, device="cpu")
+    assert model.device.type == "cpu"
+
+
+def test_every_port_test_module_takes_the_per_process_leak_audit():
+    """A port test module that imports JAX runs under ``tests/conftest.py``,
+    whose leak audit reads the machine's whole /dev/shm: under ``-n 6`` it
+    blames (and unlinks) the rings that ``test_etl_service.py`` holds in
+    another worker, and the port test ERRORs at teardown though its body
+    passed. So each such module takes ``torch_port_fixtures``' per-process
+    audit of the same name."""
+    missing = []
+    for path in sorted((ROOT / "tests").glob("test_torch_*.py")):
+        src = path.read_text()
+        if "import jax" in src and "from torch_port_fixtures import _no_leaked_children_or_shm" \
+                not in src:
+            missing.append(path.name)
+    assert missing == []

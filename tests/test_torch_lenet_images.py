@@ -17,6 +17,7 @@ from deeplearning4j_tpu_torch.arbiter import trial_worker as TW
 from deeplearning4j_tpu_torch.data.dataset import DataSet
 from deeplearning4j_tpu_torch.monitoring.etl import etl_metrics
 from torch_mln_helpers import port_net
+from torch_port_fixtures import _no_leaked_children_or_shm  # noqa: F401  (per-process leak audit)
 
 TASK_ATOL = 1e-5  # as tests/test_torch_fleet.py: parameters after a few steps, absolute
 

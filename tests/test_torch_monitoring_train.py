@@ -48,6 +48,7 @@ from deeplearning4j_tpu_torch.ops import profiler as TProf
 from deeplearning4j_tpu_torch import utils as TUtils
 from deeplearning4j_tpu import utils as JUtils
 from torch_mln_helpers import port_net
+from torch_port_fixtures import _no_leaked_children_or_shm  # noqa: F401  (per-process leak audit)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "deeplearning4j_tpu_torch"

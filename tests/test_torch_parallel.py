@@ -272,8 +272,13 @@ def test_mesh_resolves_as_jax_and_refuses_other_axes():
     assert mesh.shape == {"data": 1} and mesh.size == 1 and mesh.group() is None
     assert build_mesh(data=1, model=1).size == 1  # a size-1 axis names nothing
     assert build_mesh(data=1, pipe=1).shape == {"data": 1, "pipe": 1}  # a pipe axis is an axis
-    with pytest.raises(NotImplementedError, match="item 8.7"):
-        build_mesh(MeshSpec({"data": 1, "expert": 2}), devices=[0, 1])
+    # an expert axis resolves as in JAX and joins the mesh (models.moe)
+    assert MeshSpec({"data": -1, "expert": 2}).resolve(8) == \
+        JMeshSpec({"data": -1, "expert": 2}).resolve(8) == {"data": 4, "expert": 2}
+    assert build_mesh(data=1, expert=1).shape == {"data": 1, "expert": 1}
+    from deeplearning4j_tpu_torch.parallel.mesh import Mesh
+
+    assert Mesh.virtual({"data": 2, "expert": 2}, 3).coords == {"data": 1, "expert": 1}
     with pytest.raises(NotImplementedError, match="launch"):
         build_mesh(data=2, devices=[0, 1])
 

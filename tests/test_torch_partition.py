@@ -317,9 +317,18 @@ def test_layouts_strict_refusal_and_pipe():
     assert _tuples(ppart.spec_tree({"0": {"W": np.zeros((4, 6))}})) == _tuples(
         jppart.spec_tree({"0": {"W": np.zeros((4, 6))}}))
     assert TPart.PipelinePartitioner(pipe_layout, mesh=pmesh).describe() == ppart.describe()
-    with pytest.raises(NotImplementedError, match="item 8.7"):
-        TPart.Partitioner(TPart.SpecLayout(1, 1, 1), mesh=Mesh.virtual({"expert": 2, "data": 1,
-                                                                         "fsdp": 1, "tp": 1}, 0))
+    # a mesh with an expert axis above 1 builds, and a Partitioner over it
+    # describes itself and its specs as JAX's does (the expert axis is the
+    # MoE blocks' axis: the layout's roles do not name it)
+    eshape = {"expert": 2, "data": 1, "fsdp": 1, "tp": 1}
+    jepart = JPart.Partitioner(JPart.SpecLayout(1, 1, 1),
+                               mesh=jmesh_from_shape(eshape, devices=jax.devices()[:2]))
+    for rank in range(2):
+        epart = TPart.Partitioner(TPart.SpecLayout(1, 1, 1), mesh=Mesh.virtual(eshape, rank))
+        assert epart.mesh.coords["expert"] == rank
+        assert epart.describe() == jepart.describe()
+        assert _tuples(epart.spec_tree({"0": {"W": np.zeros((4, 6))}})) == _tuples(
+            jepart.spec_tree({"0": {"W": np.zeros((4, 6))}}))
 
 
 def test_sharding_rules_and_alternating_dense_rules_equal_jax():
@@ -355,8 +364,13 @@ def test_mesh_coordinates_follow_jax_device_order():
         assert m.axis_ranks("tp") == [m.rank_at({"tp": 0}), m.rank_at({"tp": 1})]
     pm = Mesh.virtual({"pipe": 2, "data": 2}, 1)  # rank 1: pipe 0, data 1 (JAX's order)
     assert pm.coords == {"pipe": 0, "data": 1} and pm.axis_ranks("pipe") == [1, 3]
-    with pytest.raises(NotImplementedError, match="item 8.7"):
-        Mesh.virtual({"expert": 2}, 0)
+    # an expert axis: rank r at JAX's device r, expert the major axis
+    ejmesh = jax.sharding.Mesh(np.asarray(jax.devices()[:4]).reshape(2, 2), ("expert", "data"))
+    for rank in range(4):
+        em = Mesh.virtual({"expert": 2, "data": 2}, rank)
+        pos = np.argwhere(ejmesh.devices == jax.devices()[rank])[0]
+        assert tuple(em.coords.values()) == tuple(pos)
+        assert em.axis_ranks("expert") == [em.rank_at({"expert": 0}), em.rank_at({"expert": 1})]
 
 
 def _flagship_cfgs(attn_impl, sequence_axis):

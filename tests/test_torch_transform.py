@@ -24,6 +24,7 @@ from deeplearning4j_tpu_torch.data import audio as TA
 from deeplearning4j_tpu_torch.data import transform as TT
 from deeplearning4j_tpu_torch.data.image import ParentPathLabelGenerator as TLabels
 from deeplearning4j_tpu_torch.data.records import FileSplit as TFileSplit
+from torch_port_fixtures import _no_leaked_children_or_shm  # noqa: F401  (per-process leak audit)
 
 SPECTROGRAM_ATOL = 1e-6
 

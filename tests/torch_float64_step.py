@@ -1,7 +1,7 @@
 """How far a float32 training step of a zoo model lies from a float64 step
 of the same network on the same batch: the measurement behind the
 tolerances of ``tests/test_torch_resnet.py``, ``tests/test_torch_facenet.py``,
-``tests/test_torch_zoo_ext.py`` and ``chip_smoke.py`` phases 7 and 17.
+``tests/test_torch_zoo_ext.py`` and ``chip_smoke.py`` phases 7, 17, 18 and 20d.
 
     python3 tests/torch_float64_step.py                   # the port on the CPU
     python3 tests/torch_float64_step.py --device cuda     # the port on the card, and the CPU
@@ -11,7 +11,7 @@ tolerances of ``tests/test_torch_resnet.py``, ``tests/test_torch_facenet.py``,
 
 The configurations are the graph models (ResNet-50, InceptionResNetV1) and
 the image zoo (VGG16/19, AlexNet, Darknet19, SqueezeNet, UNet, Xception,
-NASNet; MultiLayerNetworks and graphs alike): each at its published
+NASNet; MultiLayerNetworks and graphs alike), TinyYOLO: each at its published
 defaults with the batch ``chip_smoke.py`` checks on the card, and at the
 size its parity test runs (with ``--jax``, from the JAX network's weights).
 Dropout is off in every one.
@@ -54,7 +54,7 @@ from deeplearning4j_tpu_torch.nn import updaters as U  # noqa: E402
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph, module_key  # noqa: E402
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork  # noqa: E402
 from chip_smoke import (CAPSNET_PARAMS, CONVLSTM_PARAMS, capsnet_conf,  # noqa: E402,F401
-                        convlstm_conf, digit_batch, frame_batch)
+                        convlstm_conf, digit_batch, frame_batch, yolo_batch)
 
 
 def _bn_in_float64(self, params, state, x, it, *, training):
@@ -371,6 +371,7 @@ CONFIGS = [
      2, _jax_conf(lambda JC, JU: convlstm_conf(JC, JU, **SMALL_CONVLSTM))),
     ("mask_zero_stack_b3", lambda: mask_zero_stack(C, U), (3, 6), padded_sequences, 3,
      _jax_conf(mask_zero_stack)),
+    ("tinyyolo_416_b2", lambda: M.TinyYOLO().conf(), (3, 416, 416), yolo_batch, 2, None),
 ]
 
 
